@@ -1,0 +1,157 @@
+// Cluster-wise sparse x sparse SpGEMM over a window-major live-pair stream,
+// hand-written for Hopper (sm_90a), IEEE fp32 on the CUDA cores.
+//
+// Replaces the TPU kernels of src/repro/kernels/cluster_spgemm.py:
+//   cluster_spgemm_pairs, cluster_spgemm_pairs_resident,
+//   cluster_spgemm_pairs_db            -> dense C row-strip output
+//   cluster_spgemm_pairs_sparse,
+//   cluster_spgemm_pairs_sparse_db     -> CompactedC slab output
+// All five compute, for every live (blk, j) window of C,
+//   C[blk*8 : +8, j*bn : +bn] = sum over the window's pairs p, s ascending,
+//                               of A_slab[a_idx[p]] @ B_tile[slot[p]]
+// and differ only in where the TPU kept B (a VMEM placement) and in how the
+// output is addressed. Here one kernel serves all of them: the host hands
+// each window its output origin (win_out, in elements) and the output row
+// stride (ldc), so a strip of a dense C and a CompactedC slab are the same
+// store. Dead windows are never visited; the caller zero-fills the output.
+//
+// Design:
+//  * One CTA per live window, found through win_ptr offsets into the
+//    window-major (blk, j, s) stream. The TPU kernels ran a serial grid and
+//    relied on Pallas writing an output block back when its index changed;
+//    a GPU grid has no order, so each window is owned by exactly one CTA:
+//    no atomics, and every element keeps the s-ascending order of the sum.
+//  * 256 threads. The 8 x bn (bn <= 128) fp32 accumulator lives in
+//    registers, 4 values per thread: thread t owns column t % 128 and rows
+//    4 * (t / 128) .. + 3.
+//  * A slabs and B tiles are staged through shared memory in K sub-tiles of
+//    at most 64 rows: block_k reaches 512, and one 512 x 128 fp32 B tile is
+//    256 KB, more than the 227 KB a block can have.
+//  * bf16 B tiles are upcast on load. Each pair's product is summed in
+//    registers and then added to the window's accumulator, the reference's
+//    `o += dot(a, b)`.
+//
+// What bounds it: the kernel does tile-padded fp32 multiply-adds, 2 * 8 *
+// block_k * bn per live pair. At kron-14 (16,384 rows, 8.2M live pairs) that
+// is ~2.1 TFLOP, ~31 ms at the 67 TFLOP/s fp32 rate of the H100 SXM data
+// sheet, while its bytes (A 287 MB + B 763 MB + C 1 GiB) move in ~0.6 ms at
+// 3.35 TB/s: compute-bound on padded work. That is the tile design's own
+// floor, not the product's: A^2 at kron-14 needs only ~3.2e8 flops, and its
+// least bytes (the CSR operand read once, the 1 GiB dense C written once)
+// take ~0.3 ms, the bound a kernel of this product is held to. This first
+// version is held further by the load/store units (two shared-memory loads
+// per four FMAs, scalar global loads) and by no overlap of loads with
+// compute. wgmma and TMA pipelines (tensor cores need TF32 or bf16 inputs
+// and 64-row tiles) are later work; PERF.md has its measured times.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kBR = 8;          // rows of a BCC block (block_r)
+constexpr int kBNMax = 128;     // widest window (bn)
+constexpr int kKT = 64;         // K sub-tile staged per step
+constexpr int kThreads = 256;
+
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+
+template <typename TB>
+__global__ void __launch_bounds__(kThreads)
+window_kernel(const int32_t* __restrict__ win_ptr,
+              const int64_t* __restrict__ win_out,
+              const int32_t* __restrict__ slots,
+              const int32_t* __restrict__ a_idx,
+              const float* __restrict__ a_values,
+              const TB* __restrict__ b_tiles, float* __restrict__ out,
+              int block_k, int bn, int64_t ldc) {
+  __shared__ __align__(16) float a_s[kKT][kBR];  // A sub-tile, k-major
+  __shared__ float b_s[kKT][kBNMax];             // B sub-tile
+  const int t = threadIdx.x;
+  const int col = t & (kBNMax - 1);
+  const int row0 = (t >> 7) * 4;
+  const int w = blockIdx.x;
+  const int p0 = win_ptr[w];
+  const int p1 = win_ptr[w + 1];
+  float acc[4] = {0.f, 0.f, 0.f, 0.f};
+  for (int p = p0; p < p1; ++p) {
+    const float* a = a_values + static_cast<int64_t>(a_idx[p]) * kBR * block_k;
+    const TB* b = b_tiles + static_cast<int64_t>(slots[p]) * block_k * bn;
+    float part[4] = {0.f, 0.f, 0.f, 0.f};
+    for (int k0 = 0; k0 < block_k; k0 += kKT) {
+      const int kt = min(kKT, block_k - k0);
+      __syncthreads();  // every thread is done with the previous sub-tile
+      for (int i = t; i < kBR * kt; i += kThreads) {
+        const int r = i / kt;
+        const int k = i - r * kt;
+        a_s[k][r] = a[r * block_k + k0 + k];
+      }
+      for (int i = t; i < kt * kBNMax; i += kThreads) {
+        const int k = i >> 7;
+        const int c = i & (kBNMax - 1);
+        b_s[k][c] = c < bn ? to_f32(b[static_cast<int64_t>(k0 + k) * bn + c])
+                           : 0.f;
+      }
+      __syncthreads();
+#pragma unroll 8
+      for (int k = 0; k < kt; ++k) {
+        const float4 av = *reinterpret_cast<const float4*>(&a_s[k][row0]);
+        const float bv = b_s[k][col];
+        part[0] = fmaf(av.x, bv, part[0]);
+        part[1] = fmaf(av.y, bv, part[1]);
+        part[2] = fmaf(av.z, bv, part[2]);
+        part[3] = fmaf(av.w, bv, part[3]);
+      }
+    }
+#pragma unroll
+    for (int q = 0; q < 4; ++q) acc[q] += part[q];
+  }
+  if (col < bn) {
+    float* o = out + win_out[w] + col;
+#pragma unroll
+    for (int q = 0; q < 4; ++q) o[static_cast<int64_t>(row0 + q) * ldc] = acc[q];
+  }
+}
+
+template <typename TB>
+int launch(const void* win_ptr, const void* win_out, const void* slots,
+           const void* a_idx, const void* a_values, const void* b_tiles,
+           void* out, int nwin, int block_k, int bn, long long ldc,
+           void* stream) {
+  if (nwin <= 0 || block_k <= 0 || bn <= 0 || bn > kBNMax) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  window_kernel<TB><<<nwin, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int32_t*>(win_ptr),
+      static_cast<const int64_t*>(win_out),
+      static_cast<const int32_t*>(slots), static_cast<const int32_t*>(a_idx),
+      static_cast<const float*>(a_values), static_cast<const TB*>(b_tiles),
+      static_cast<float*>(out), block_k, bn, static_cast<int64_t>(ldc));
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+extern "C" int cluster_spgemm_windows_f32(
+    const void* win_ptr, const void* win_out, const void* slots,
+    const void* a_idx, const void* a_values, const void* b_tiles, void* out,
+    int nwin, int block_k, int bn, long long ldc, void* stream) {
+  return launch<float>(win_ptr, win_out, slots, a_idx, a_values, b_tiles, out,
+                       nwin, block_k, bn, ldc, stream);
+}
+
+extern "C" int cluster_spgemm_windows_bf16(
+    const void* win_ptr, const void* win_out, const void* slots,
+    const void* a_idx, const void* a_values, const void* b_tiles, void* out,
+    int nwin, int block_k, int bn, long long ldc, void* stream) {
+  return launch<__nv_bfloat16>(win_ptr, win_out, slots, a_idx, a_values,
+                               b_tiles, out, nwin, block_k, bn, ldc, stream);
+}
+
+extern "C" const char* cluster_spgemm_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}

@@ -1,0 +1,329 @@
+"""Cost model: scores (reorder, cluster-format) candidates per matrix.
+
+Two layers, as in the JAX package:
+
+* **Heuristic priors** — closed-form predictions of relative SpGEMM time
+  and preprocessing cost from :class:`~repro_torch.planner.features.
+  MatrixFeatures`, in units of *one identity-order row-wise SpGEMM* on the
+  same matrix. Heuristic gains carry an uncertainty discount (they gate
+  measurement, they do not replace it).
+* **Measured overrides** — :meth:`CostModel.observe` ingests real
+  (kernel_s, preprocess_s) measurements keyed by (fingerprint,
+  candidate); once a fingerprint has a measured identity baseline,
+  measured candidates are scored exactly (no discount).
+
+The amortization rule is the paper's break-even logic: a candidate is
+worth its preprocessing iff ``reuse_count × spgemm_gain > preprocess_cost``,
+so single-shot calls (``reuse_hint=1``) keep ``original + rowwise``.
+
+The ``pallas`` scheme (the hand-written Sp×Sp kernel tier) keys on the
+planner's device: on the CPU it carries the JAX package's off-TPU
+interpret penalty, so CPU plans match the JAX package's; on a card an
+unmeasured ``pallas`` candidate scores ``kernel_rel = 1.0`` — no gain —
+because no Hopper measurement backs a prior yet: only measured mode can
+route to it.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import torch
+
+from repro_torch.planner.features import MatrixFeatures
+
+__all__ = ["Candidate", "ScoredCandidate", "Measurement", "CostModel",
+           "DEFAULT_CANDIDATES", "IDENTITY", "break_even_reuse",
+           "amortizes", "SCHEMES"]
+
+SCHEMES = ("rowwise", "fixed", "variable", "hierarchical", "pallas")
+
+# heuristic uncertainty: only this fraction of a *predicted* gain is
+# trusted when deciding whether preprocessing can amortize
+HEURISTIC_GAIN_TRUST = 0.5
+
+# the kernel tier on the CPU runs the plain version, far slower than the
+# gather tier: the heuristic must never pick it there (the JAX package's
+# off-TPU interpret penalty, kept so CPU plans match)
+PALLAS_INTERPRET_REL = 50.0
+
+# an unmeasured kernel-tier candidate on the card: no prior, no gain
+PALLAS_UNMEASURED_REL = 1.0
+
+
+@dataclasses.dataclass(frozen=True)
+class Candidate:
+    """One point of the method menu: a row reordering × a compute scheme.
+
+    >>> Candidate("rcm", "fixed").key
+    'rcm+fixed'
+    >>> Candidate("rcm", "banded")
+    Traceback (most recent call last):
+        ...
+    ValueError: unknown scheme 'banded'
+    """
+
+    reorder: str          # name in repro_torch.core.reorder.REORDERINGS
+    scheme: str           # one of SCHEMES
+
+    def __post_init__(self):
+        if self.scheme not in SCHEMES:
+            raise ValueError(f"unknown scheme '{self.scheme}'")
+
+    @property
+    def key(self) -> str:
+        return f"{self.reorder}+{self.scheme}"
+
+
+IDENTITY = Candidate("original", "rowwise")
+
+# the serving menu: identity always first; hierarchical only unreordered
+# (it computes its own permutation); pallas is the BCC × TiledCSR kernel
+DEFAULT_CANDIDATES: tuple[Candidate, ...] = (
+    IDENTITY,
+    Candidate("rcm", "rowwise"),
+    Candidate("gp", "rowwise"),
+    Candidate("degree", "rowwise"),
+    Candidate("gray", "rowwise"),
+    Candidate("original", "fixed"),
+    Candidate("rcm", "fixed"),
+    Candidate("degree", "fixed"),
+    Candidate("original", "variable"),
+    Candidate("rcm", "variable"),
+    Candidate("original", "hierarchical"),
+    Candidate("original", "pallas"),
+    Candidate("rcm", "pallas"),
+)
+
+# -- priors (host preprocessing costs and reorder strengths, in units of
+# one row-wise SpGEMM; carried from the JAX package so both rank alike) ---
+_REORDER_PRE = {
+    "original": 0.0, "random": 0.05, "gray": 0.08, "degree": 0.08,
+    "rcm": 0.4, "amd": 0.5, "rabbit": 1.0, "slashburn": 1.5,
+    "nd": 4.0, "gp": 4.0, "hp": 8.0,
+}
+_SCHEME_PRE = {"rowwise": 0.0, "fixed": 0.15, "variable": 0.8,
+               "hierarchical": 0.2, "pallas": 0.3}
+_REORDER_STRENGTH = {
+    "original": 0.0, "random": -0.1, "gray": 0.15, "degree": 0.2,
+    "rcm": 0.35, "amd": 0.3, "rabbit": 0.3, "slashburn": 0.2,
+    "nd": 0.35, "gp": 0.4, "hp": 0.4,
+}
+
+
+@dataclasses.dataclass(frozen=True)
+class Measurement:
+    kernel_s: float
+    preprocess_s: float
+
+
+@dataclasses.dataclass(frozen=True)
+class ScoredCandidate:
+    """A candidate with its predicted economics at a given reuse count.
+
+    ``kernel_rel`` / ``preprocess_rel`` are relative to the identity
+    row-wise SpGEMM time of the same matrix; ``total_rel`` is the full
+    amortized bill ``preprocess_rel + reuse × kernel_rel``.
+
+    >>> s = ScoredCandidate(Candidate("rcm", "fixed"), kernel_rel=0.8,
+    ...                     preprocess_rel=1.0, reuse=10, measured=True)
+    >>> s.total_rel, round(s.gain_rel, 3), s.amortizes
+    (9.0, 0.2, True)
+    >>> round(s.break_even, 6)
+    5.0
+    """
+
+    candidate: Candidate
+    kernel_rel: float
+    preprocess_rel: float
+    reuse: int
+    measured: bool
+
+    @property
+    def total_rel(self) -> float:
+        return self.preprocess_rel + self.reuse * self.kernel_rel
+
+    @property
+    def gain_rel(self) -> float:
+        """Per-call saving vs identity (may be negative)."""
+        return 1.0 - self.kernel_rel
+
+    @property
+    def trusted_gain(self) -> float:
+        return self.gain_rel * (1.0 if self.measured
+                                else HEURISTIC_GAIN_TRUST)
+
+    @property
+    def amortizes(self) -> bool:
+        # a single-shot call never speculates on unmeasured preprocessing
+        if (not self.measured and self.reuse <= 1
+                and self.preprocess_rel > 0.0):
+            return False
+        return amortizes(self.reuse, self.trusted_gain, self.preprocess_rel)
+
+    @property
+    def break_even(self) -> float:
+        return break_even_reuse(self.trusted_gain, self.preprocess_rel)
+
+
+def amortizes(reuse: int, gain_per_call: float, preprocess: float) -> bool:
+    """Paper break-even: does ``reuse`` calls' saving cover preprocessing?
+
+    >>> amortizes(10, 0.2, 1.5)          # 10 × 0.2 > 1.5
+    True
+    >>> amortizes(1, 0.2, 1.5)           # single-shot: never pays
+    False
+    >>> amortizes(1, 0.0, 0.0)           # identity: free by convention
+    True
+    """
+    if preprocess <= 0.0:
+        return True
+    return reuse * gain_per_call > preprocess
+
+
+def break_even_reuse(gain_per_call: float, preprocess: float) -> float:
+    """Number of calls after which preprocessing has paid for itself.
+
+    >>> break_even_reuse(0.2, 1.5)
+    7.5
+    >>> break_even_reuse(0.0, 1.0)       # no gain: never pays
+    inf
+    >>> break_even_reuse(0.5, 0.0)       # nothing to pay off
+    0.0
+    """
+    if preprocess <= 0.0:
+        return 0.0
+    if gain_per_call <= 0.0:
+        return math.inf
+    return preprocess / gain_per_call
+
+
+class CostModel:
+    """Heuristic-plus-measured candidate scoring (see module docstring).
+
+    ``device`` is where the planned products run: it decides what an
+    unmeasured ``pallas`` candidate scores (it is not touched otherwise,
+    so a model for ``"cuda"`` can be built without a card).
+    """
+
+    def __init__(self, device="cuda"):
+        self.device_type = torch.device(device).type
+        # (fingerprint, candidate.key) -> Measurement
+        self._measured: dict[tuple[str, str], Measurement] = {}
+
+    # -- measured layer ------------------------------------------------------
+
+    def observe(self, fingerprint: str, candidate: Candidate,
+                kernel_s: float, preprocess_s: float) -> None:
+        """Record a real (kernel, preprocess) timing for a candidate.
+
+        >>> m = CostModel()
+        >>> m.observe("fp0", IDENTITY, kernel_s=2.0, preprocess_s=0.0)
+        >>> m.measurement("fp0", IDENTITY).kernel_s
+        2.0
+        >>> m.measurement("fp0", Candidate("rcm", "fixed")) is None
+        True
+        """
+        self._measured[(fingerprint, candidate.key)] = Measurement(
+            kernel_s=float(kernel_s), preprocess_s=float(preprocess_s))
+
+    def measurement(self, fingerprint: str,
+                    candidate: Candidate) -> Measurement | None:
+        return self._measured.get((fingerprint, candidate.key))
+
+    def _base_kernel_s(self, fingerprint: str | None) -> float | None:
+        if fingerprint is None:
+            return None
+        m = self._measured.get((fingerprint, IDENTITY.key))
+        return m.kernel_s if m and m.kernel_s > 0 else None
+
+    # -- heuristic layer -----------------------------------------------------
+
+    def _heuristic(self, f: MatrixFeatures,
+                   c: Candidate) -> tuple[float, float]:
+        """(kernel_rel, preprocess_rel) from structural features alone."""
+        # disorder: how far the current order is from a banded layout —
+        # a random symmetric permutation lands at bandwidth_mean ≈ 1/3
+        disorder = min(3.0 * f.bandwidth_mean, 1.0)
+        # skew discounts mesh-style reorderings (RCM/ND assume bounded
+        # degree), boosts degree/gray
+        skew = min(f.row_gini, 1.0)
+        local = f.consec_jaccard
+        latent = f.similar_frac * f.similar_mean
+        # reordering only recovers locality that exists — ER-style
+        # patterns gain nothing from any permutation
+        structure = min(2.0 * (latent + local), 1.0)
+        strength = _REORDER_STRENGTH.get(c.reorder, 0.2)
+        if c.reorder in ("rcm", "amd", "nd", "gp", "hp"):
+            strength *= (1.0 - 0.5 * skew)
+        elif c.reorder in ("degree", "gray", "slashburn"):
+            strength *= (0.5 + skew)
+        reorder_gain = strength * disorder * structure
+        kernel_rel = max(1.0 - reorder_gain, 0.2)
+
+        # clusterability: as-ordered locality, or pattern-level similarity
+        # for schemes that get a reorder first / find their own mates
+        conv = 0.4 + 0.3 * skew
+        if c.scheme in ("fixed", "variable"):
+            q = local if c.reorder == "original" else max(local, conv * latent)
+            if c.reorder in ("degree", "gray"):
+                q = max(q, 0.5 * skew)
+            if c.scheme == "fixed":
+                kernel_rel *= max(1.1 - 0.9 * q, 0.15)
+            else:
+                kernel_rel *= max(1.08 - 0.85 * q, 0.15)
+        elif c.scheme == "hierarchical":
+            eff = latent * (1.0 - 0.6 * min(f.row_cv / 1.5, 1.0))
+            kernel_rel *= max(1.1 - 1.0 * eff, 0.15)
+        elif c.scheme == "pallas":
+            kernel_rel = (PALLAS_INTERPRET_REL if self.device_type == "cpu"
+                          else PALLAS_UNMEASURED_REL)
+
+        pre = _REORDER_PRE.get(c.reorder, 1.0) + _SCHEME_PRE[c.scheme]
+        if c.scheme == "hierarchical":
+            # candidate-pair volume drives the heap
+            pre += f.similar_frac
+        return kernel_rel, pre
+
+    # -- public API ----------------------------------------------------------
+
+    def score(self, features: MatrixFeatures, candidate: Candidate,
+              reuse: int, fingerprint: str | None = None) -> ScoredCandidate:
+        base = self._base_kernel_s(fingerprint)
+        m = (self._measured.get((fingerprint, candidate.key))
+             if fingerprint is not None else None)
+        if m is not None and base is not None:
+            return ScoredCandidate(
+                candidate=candidate, kernel_rel=m.kernel_s / base,
+                preprocess_rel=m.preprocess_s / base, reuse=reuse,
+                measured=True)
+        kernel_rel, pre = self._heuristic(features, candidate)
+        return ScoredCandidate(candidate=candidate, kernel_rel=kernel_rel,
+                               preprocess_rel=pre, reuse=reuse,
+                               measured=False)
+
+    def rank(self, features: MatrixFeatures, reuse: int,
+             candidates=DEFAULT_CANDIDATES,
+             fingerprint: str | None = None) -> list[ScoredCandidate]:
+        """Score all candidates; amortizing ones first, by total cost.
+
+        Non-amortizing candidates sort after every amortizing one (they
+        are kept — a measurement pass may still probe them) but can never
+        be chosen by the planner.
+        """
+        reuse = max(int(reuse), 1)
+        scored = [self.score(features, c, reuse, fingerprint)
+                  for c in candidates]
+        return sorted(scored,
+                      key=lambda s: (not s.amortizes, s.total_rel,
+                                     s.candidate.key))
+
+    def choose(self, features: MatrixFeatures, reuse: int,
+               candidates=DEFAULT_CANDIDATES,
+               fingerprint: str | None = None) -> ScoredCandidate:
+        """Best amortizing candidate (identity always amortizes, so the
+        result is never worse than identity *under the model*)."""
+        for s in self.rank(features, reuse, candidates, fingerprint):
+            if s.amortizes:
+                return s
+        return self.score(features, IDENTITY, reuse, fingerprint)

@@ -1,0 +1,133 @@
+"""Planner-driven SpGEMM serving on the card.
+
+``SpGEMMServer`` serves repeated sparse products: requests are (matrix,
+operand, reuse hint) triples, and every pattern goes through the
+planner, so the first request for a pattern pays feature extraction +
+preprocessing once and every later request (same fingerprint, any
+values) is a plan-cache hit straight into the packed kernel.
+"""
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Optional
+
+import numpy as np
+
+from repro_torch.core.formats import HostCSR
+from repro_torch.obs import metrics as obs_metrics
+from repro_torch.obs.trace import get_tracer
+from repro_torch.planner.plan_cache import PlanCache
+from repro_torch.planner.service import Planner
+from repro_torch.resilience.errors import InvalidOperandError
+from repro_torch.resilience.validation import validate_request_pair
+
+__all__ = ["SpGEMMResponse", "SpGEMMServer"]
+
+
+@dataclasses.dataclass
+class SpGEMMResponse:
+    result: np.ndarray         # dense C, original row/column order
+    fingerprint: str
+    reorder: str
+    scheme: str
+    workload: str              # a2 | spmm — planned kernel family
+    plan_cache_hit: bool
+    plan_s: float              # planning + preprocessing wall time (0-ish on hit)
+    execute_s: float           # packing (on a miss) + device-synced product
+    trace_id: str = ""         # root span's trace id ("" when tracing is off)
+
+
+class SpGEMMServer:
+    """Serve repeated sparse products through the plan cache.
+
+    One planner (one plan cache + one cost model) is shared across all
+    requests; ``reuse_hint`` defaults to the server-level expectation of
+    how often a pattern recurs (per-request override wins). Without an
+    injected planner the server builds one on ``device`` (``"cuda"`` by
+    default — it raises when there is no card) whose plan cache is
+    namespaced to ``tenant``.
+    """
+
+    def __init__(self, planner: Optional[Planner] = None, *,
+                 device="cuda", default_reuse_hint: int = 20,
+                 measure: bool = False, tenant: str = ""):
+        if planner is None:
+            planner = Planner(cache=PlanCache(namespace=tenant),
+                              device=device)
+        self.planner = planner
+        self.tenant = tenant
+        self.default_reuse_hint = default_reuse_hint
+        self.measure = measure
+        self.requests = 0
+        self.plan_hits = 0
+
+    def submit(self, a: HostCSR, b: HostCSR | np.ndarray | None = None, *,
+               reuse_hint: Optional[int] = None) -> SpGEMMResponse:
+        """Plan (or fetch the cached plan for) ``a``, then execute a·b.
+
+        A dense ``b`` routes the request through the planner's ``spmm``
+        workload, cached apart from the same pattern's A² plan. Malformed
+        operands — a non-monotone ``indptr``, out-of-range or unsorted
+        indices, non-finite data, an inconsistent shape chain — are
+        rejected here with a structured
+        :class:`~repro_torch.resilience.errors.InvalidOperandError`
+        (counted in ``serve_rejects`` by field).
+        """
+        self.requests += 1
+        if reuse_hint is not None:
+            hint: Optional[int] = reuse_hint
+        elif self.planner.hint_provider is not None:
+            hint = None
+        else:
+            hint = self.default_reuse_hint
+        workload = ("spmm" if b is not None and not isinstance(b, HostCSR)
+                    else "a2")
+        reg = obs_metrics.get_registry()
+        reg.counter("serve_requests", tenant=self.tenant).inc()
+        try:
+            validate_request_pair(a, b)
+        except InvalidOperandError as e:
+            reg.counter("serve_rejects", tenant=self.tenant,
+                        field=e.field).inc()
+            raise
+        with get_tracer().span("request", tenant=self.tenant,
+                               workload=workload) as root:
+            resp = self._submit_impl(a, b, hint=hint, workload=workload)
+            resp.trace_id = root.trace_id
+            root.set(fingerprint=resp.fingerprint, scheme=resp.scheme,
+                     cache_hit=resp.plan_cache_hit)
+        reg.histogram("serve_request_s", tenant=self.tenant,
+                      scheme=resp.scheme).observe(resp.plan_s
+                                                  + resp.execute_s)
+        reg.histogram("serve_plan_s", tenant=self.tenant).observe(resp.plan_s)
+        reg.histogram("serve_execute_s",
+                      tenant=self.tenant).observe(resp.execute_s)
+        return resp
+
+    def _submit_impl(self, a: HostCSR, b, *, hint: Optional[int],
+                     workload: str) -> SpGEMMResponse:
+        """:meth:`submit` minus the span/metric bookkeeping. The timed
+        execute region is device-synced: the planner's runner waits for
+        the card before copying the result to the host."""
+        t0 = time.perf_counter()
+        plan = self.planner.plan(a, hint, measure=self.measure,
+                                 workload=workload)
+        t1 = time.perf_counter()
+        out = self.planner.execute(plan, a, b)
+        t2 = time.perf_counter()
+        if plan.from_cache:
+            self.plan_hits += 1
+        return SpGEMMResponse(
+            result=out, fingerprint=plan.fingerprint, reorder=plan.reorder,
+            scheme=plan.scheme, workload=workload,
+            plan_cache_hit=plan.from_cache, plan_s=t1 - t0,
+            execute_s=t2 - t1)
+
+    def stats(self) -> dict:
+        """Serving snapshot: request/hit counts, the planner's cache
+        partition and the drift auditor's rolling summary."""
+        return {"requests": self.requests, "plan_hits": self.plan_hits,
+                "tenant": self.tenant, **self.planner.stats,
+                "plan_cache": dict(self.planner.cache.stats),
+                "audit": self.planner.auditor.summary()}
