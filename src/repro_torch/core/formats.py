@@ -41,6 +41,11 @@ __all__ = [
     "select_block_k",
     "live_pair_stream",
     "live_pair_counters",
+    "partition_pair_stream",
+    "partition_pair_stream_reference",
+    "partition_balance",
+    "revisit_window_blocks",
+    "revisit_pair_stream",
     "compacted_c_table",
     "compacted_c_from_dense",
     "compacted_c_to_host",
@@ -785,6 +790,209 @@ def live_pair_counters(pairs, *, block_r: int, block_k: int,
     if bn is not None:
         out["b_bytes"] = b_fetches * block_k * bn * value_bytes
     return out
+
+
+# ---------------------------------------------------------------------------
+# multi-core sharding + B-fetch-deduping revisit order of the pair stream
+# ---------------------------------------------------------------------------
+# (copied unchanged from the JAX package, 2 MiB window budget included, so
+# the port's partitions and revisit streams equal the reference's)
+
+
+def partition_pair_stream(pairs, *, nblocks: int, num_shards: int,
+                          pad_to: int = 8
+                          ) -> tuple[np.ndarray, list[tuple]]:
+    """Split a live-pair stream into per-core contiguous block ranges.
+
+    Row blocks own disjoint C row strips, so a partition at block
+    boundaries needs no cross-core accumulation — each core runs its
+    sub-stream against its own strip range. Balance is by per-block
+    *live*-pair counts (slot > 0 — the MXU work; zero-slot sentinels and
+    tail pads are free steps, excluded from the weights): boundary ``i``
+    lands where the cumulative live-pair count is closest to
+    ``i × total / num_shards`` (greedy bin-pack over the per-block prefix
+    sums; ties take the earlier block, and every shard keeps at least
+    one block). The stream must be block-sorted and cover
+    every block (the :func:`live_pair_stream` contract — pair-less blocks
+    travel with their zero-slot sentinel, so each lands in exactly one
+    shard).
+
+    Returns ``(ranges, shard_pairs)``: ``ranges`` is ``(S, 2)`` int64
+    ``[start, end)`` block ranges covering ``0..nblocks`` (``S`` =
+    ``min(num_shards, nblocks)``), and ``shard_pairs[i]`` is the i-th
+    shard's ``(blocks, js, slots, a_idx)`` sub-stream, tail-padded to a
+    multiple of ``pad_to`` with zero-slot repeats of its last pair. With
+    ``num_shards=1`` the single shard is the input stream, bitwise.
+
+    >>> blocks = [0, 0, 0, 1, 2, 2, 3, 3]; js = [0, 1, 2, 0, 0, 1, 0, 1]
+    >>> slots  = [1, 2, 3, 4, 5, 6, 7, 8]; a_idx = [0, 0, 0, 1, 2, 2, 3, 3]
+    >>> ranges, shards = partition_pair_stream(
+    ...     (blocks, js, slots, a_idx), nblocks=4, num_shards=2, pad_to=1)
+    >>> ranges.tolist()
+    [[0, 2], [2, 4]]
+    >>> shards[1][0].tolist()                    # second shard's blocks
+    [2, 2, 3, 3]
+    """
+    blocks, js, slots, a_idx = (np.asarray(p) for p in pairs)
+    if blocks.size and np.any(np.diff(blocks) < 0):
+        raise ValueError("pair stream must be block-sorted")
+    counts = np.bincount(blocks[slots > 0],
+                         minlength=nblocks).astype(np.int64)
+    cum = np.zeros(nblocks + 1, dtype=np.int64)
+    np.cumsum(counts, out=cum[1:])
+    total = int(cum[-1])
+    s_eff = max(1, min(int(num_shards), nblocks))
+    bounds = [0]
+    for i in range(1, s_eff):
+        target = total * i / s_eff
+        e0 = int(np.clip(np.searchsorted(cum, target, side="left"),
+                         1, nblocks))
+        e = e0 - 1 if target - cum[e0 - 1] <= cum[e0] - target else e0
+        e = int(np.clip(e, bounds[-1] + 1, nblocks - (s_eff - i)))
+        bounds.append(e)
+    bounds.append(nblocks)
+    ranges = np.stack([np.asarray(bounds[:-1], np.int64),
+                       np.asarray(bounds[1:], np.int64)], axis=1)
+    shard_pairs = []
+    for start, end in ranges:
+        lo = int(np.searchsorted(blocks, start, side="left"))
+        hi = int(np.searchsorted(blocks, end, side="left"))
+        sb, sj, ss, sa = (arr[lo:hi] for arr in (blocks, js, slots, a_idx))
+        pad = (-sb.size) % pad_to
+        if pad:
+            sb = np.concatenate([sb, np.repeat(sb[-1], pad)])
+            sj = np.concatenate([sj, np.repeat(sj[-1], pad)])
+            ss = np.concatenate([ss, np.zeros(pad, ss.dtype)])
+            sa = np.concatenate([sa, np.repeat(sa[-1], pad)])
+        shard_pairs.append((sb, sj, ss, sa))
+    return ranges, shard_pairs
+
+
+def partition_pair_stream_reference(pairs, *, nblocks: int, num_shards: int,
+                                    pad_to: int = 8
+                                    ) -> tuple[np.ndarray, list[tuple]]:
+    """Loop reference for :func:`partition_pair_stream` (test oracle)."""
+    blocks, js, slots, a_idx = (np.asarray(p) for p in pairs)
+    counts = [0] * nblocks
+    for b, s in zip(blocks.tolist(), slots.tolist()):
+        if s > 0:                              # live pairs only (the MXU
+            counts[b] += 1                     # work being balanced)
+    total = sum(counts)
+    s_eff = max(1, min(int(num_shards), nblocks))
+    cum = [0]
+    for c in counts:
+        cum.append(cum[-1] + c)
+    bounds = [0]
+    for i in range(1, s_eff):
+        target = total * i / s_eff
+        best_e, best_d = None, None
+        for e in range(nblocks + 1):           # argmin |cum[e] - target|,
+            d = abs(cum[e] - target)           # ties to the smaller e
+            if best_d is None or d < best_d:
+                best_e, best_d = e, d
+        e = min(max(best_e, bounds[-1] + 1), nblocks - (s_eff - i))
+        bounds.append(e)
+    bounds.append(nblocks)
+    ranges = np.asarray([[bounds[i], bounds[i + 1]]
+                         for i in range(s_eff)], dtype=np.int64)
+    shard_pairs = []
+    for start, end in ranges:
+        keep = [t for t in range(blocks.shape[0])
+                if start <= blocks[t] < end]
+        sb = [int(blocks[t]) for t in keep]
+        sj = [int(js[t]) for t in keep]
+        ss = [int(slots[t]) for t in keep]
+        sa = [int(a_idx[t]) for t in keep]
+        while len(sb) % pad_to:
+            sb.append(sb[-1])
+            sj.append(sj[-1])
+            ss.append(0)
+            sa.append(sa[-1])
+        shard_pairs.append((np.asarray(sb, blocks.dtype),
+                            np.asarray(sj, js.dtype),
+                            np.asarray(ss, slots.dtype),
+                            np.asarray(sa, a_idx.dtype)))
+    return ranges, shard_pairs
+
+
+def partition_balance(shard_pairs) -> float:
+    """Worst-shard imbalance of a partition: max per-shard live-pair count
+    over the ideal (total ÷ shards). 1.0 is a perfect split; the
+    ``bench_kernels`` acceptance gate requires ≤ 1.2 (within 20% of
+    ideal) on the quick-tier families.
+
+    >>> even = [(0, 0, [1, 2], 0), (0, 0, [3, 4], 0)]
+    >>> partition_balance(even)
+    1.0
+    """
+    live = [int((np.asarray(p[2]) > 0).sum()) for p in shard_pairs]
+    total = sum(live)
+    if total == 0 or not live:
+        return 1.0
+    return max(live) / (total / len(live))
+
+
+def revisit_window_blocks(nnb: int, *, block_r: int = 8, bn: int = 128,
+                          budget_bytes: int = 2 * 2 ** 20,
+                          value_bytes: int = 4) -> int:
+    """Row-block capacity of the revisit kernel's C window: how many
+    consecutive block strips of ``(block_r, nnb*bn)`` fp32 fit the VMEM
+    accumulator budget. The revisit reorder (:func:`revisit_pair_stream`)
+    may only interleave blocks *within* one such window — the kernel
+    zero-initializes and owns one window at a time.
+
+    >>> revisit_window_blocks(2, block_r=8, bn=128)   # 8 KiB per strip
+    256
+    >>> revisit_window_blocks(10 ** 6)                # huge strip: >= 1
+    1
+    """
+    strip = block_r * nnb * bn * value_bytes
+    return max(1, budget_bytes // max(strip, 1))
+
+
+def revisit_pair_stream(pairs, *, window_blocks: int, block_base: int = 0
+                        ) -> tuple[np.ndarray, np.ndarray, np.ndarray,
+                                   np.ndarray]:
+    """B-fetch-deduping revisit order of a live-pair stream.
+
+    The (block, s, j) order of :func:`live_pair_stream` fetches a B tile
+    once per *block* that touches it — the cross-block reuse the paper's
+    cluster-wise argument (and Nagasaka et al.'s column-blocked multicore
+    SpGEMM) says to exploit. This reorder makes triples sharing a B tile
+    adjacent across blocks, so the streamed kernels' DMA elision collapses
+    them into one fetch: within each window of ``window_blocks``
+    consecutive row blocks (bounded so the C strips fit the VMEM
+    accumulator budget — :func:`revisit_window_blocks`), triples sort by
+    ``(j, slot, block)``.
+
+    Output is **bit-identical** to the unordered kernel: for a fixed
+    ``(block, j)`` C strip the B slot is monotone in the A stream step
+    (table slots are assigned in ascending (kb, nb) key order), so sorting
+    by slot preserves each strip's accumulation order; fp32 addition sees
+    the same operand sequence per element. Zero-slot sentinels and tail
+    pads ride along (they issue no MXU op wherever they land).
+
+    ``block_base`` localizes windows for a shard's sub-stream (windows are
+    relative to the shard's first block). The sort is stable; note that
+    even ``window_blocks=1`` rewrites a block's *internal* order from
+    (s, j) to (j, slot) — only the per-(block, j) accumulation order (and
+    hence the output) is invariant, not the stream itself.
+
+    >>> blocks = [0, 0, 1, 1]; js = [0, 1, 0, 1]
+    >>> slots  = [3, 5, 3, 5]; a_idx = [0, 0, 2, 2]
+    >>> b, j, s, a = revisit_pair_stream((blocks, js, slots, a_idx),
+    ...                                  window_blocks=2)
+    >>> s.tolist()                    # tile 3's fetches now adjacent
+    [3, 3, 5, 5]
+    >>> b.tolist()
+    [0, 1, 0, 1]
+    """
+    blocks, js, slots, a_idx = (np.asarray(p) for p in pairs)
+    if window_blocks < 1:
+        raise ValueError("window_blocks must be >= 1")
+    win = (blocks.astype(np.int64) - block_base) // window_blocks
+    order = np.lexsort((blocks, slots, js, win))
+    return (blocks[order], js[order], slots[order], a_idx[order])
 
 
 # ---------------------------------------------------------------------------

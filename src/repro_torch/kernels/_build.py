@@ -26,6 +26,10 @@ _HERE = os.path.dirname(os.path.abspath(__file__))
 
 SOURCES = {
     "cluster_spgemm": os.path.join(_HERE, "csrc", "cluster_spgemm.cu"),
+    "cluster_spgemm_padded": os.path.join(_HERE, "csrc",
+                                          "cluster_spgemm_padded.cu"),
+    "cluster_spgemm_revisit": os.path.join(_HERE, "csrc",
+                                           "cluster_spgemm_revisit.cu"),
     "cluster_spmm": os.path.join(_HERE, "csrc", "cluster_spmm.cu"),
 }
 

@@ -6,6 +6,8 @@
 //   cluster_spgemm_pairs_db            -> dense C row-strip output
 //   cluster_spgemm_pairs_sparse,
 //   cluster_spgemm_pairs_sparse_db     -> CompactedC slab output
+//   cluster_spgemm_pairs_sharded       -> window_sharded_kernel: one
+//                                         persistent CTA per shard (K8)
 // All five compute, for every live (blk, j) window of C,
 //   C[blk*8 : +8, j*bn : +bn] = sum over the window's pairs p, s ascending,
 //                               of A_slab[a_idx[p]] @ B_tile[slot[p]]
@@ -60,21 +62,19 @@ __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
 
+// One window: the sum of its pairs, written once. Shared memory is passed in
+// so that the one-window-per-CTA kernel and the persistent sharded kernel
+// run the same body.
 template <typename TB>
-__global__ void __launch_bounds__(kThreads)
-window_kernel(const int32_t* __restrict__ win_ptr,
-              const int64_t* __restrict__ win_out,
-              const int32_t* __restrict__ slots,
-              const int32_t* __restrict__ a_idx,
-              const float* __restrict__ a_values,
-              const TB* __restrict__ b_tiles, float* __restrict__ out,
-              int block_k, int bn, int64_t ldc) {
-  __shared__ __align__(16) float a_s[kKT][kBR];  // A sub-tile, k-major
-  __shared__ float b_s[kKT][kBNMax];             // B sub-tile
+__device__ __forceinline__ void window_body(
+    int w, const int32_t* __restrict__ win_ptr,
+    const int64_t* __restrict__ win_out, const int32_t* __restrict__ slots,
+    const int32_t* __restrict__ a_idx, const float* __restrict__ a_values,
+    const TB* __restrict__ b_tiles, float* __restrict__ out, int block_k,
+    int bn, int64_t ldc, float (*a_s)[kBR], float (*b_s)[kBNMax]) {
   const int t = threadIdx.x;
   const int col = t & (kBNMax - 1);
   const int row0 = (t >> 7) * 4;
-  const int w = blockIdx.x;
   const int p0 = win_ptr[w];
   const int p1 = win_ptr[w + 1];
   float acc[4] = {0.f, 0.f, 0.f, 0.f};
@@ -118,19 +118,68 @@ window_kernel(const int32_t* __restrict__ win_ptr,
 }
 
 template <typename TB>
-int launch(const void* win_ptr, const void* win_out, const void* slots,
-           const void* a_idx, const void* a_values, const void* b_tiles,
-           void* out, int nwin, int block_k, int bn, long long ldc,
-           void* stream) {
-  if (nwin <= 0 || block_k <= 0 || bn <= 0 || bn > kBNMax) {
+__global__ void __launch_bounds__(kThreads)
+window_kernel(const int32_t* __restrict__ win_ptr,
+              const int64_t* __restrict__ win_out,
+              const int32_t* __restrict__ slots,
+              const int32_t* __restrict__ a_idx,
+              const float* __restrict__ a_values,
+              const TB* __restrict__ b_tiles, float* __restrict__ out,
+              int block_k, int bn, int64_t ldc) {
+  __shared__ __align__(16) float a_s[kKT][kBR];  // A sub-tile, k-major
+  __shared__ float b_s[kKT][kBNMax];             // B sub-tile
+  window_body<TB>(blockIdx.x, win_ptr, win_out, slots, a_idx, a_values,
+                  b_tiles, out, block_k, bn, ldc, a_s, b_s);
+}
+
+// K8, the sharded pair stream: one persistent CTA per shard walks the
+// windows shard_ptr[shard] .. shard_ptr[shard + 1] in order. A shard is a
+// contiguous range of row blocks, so its windows are a contiguous range of
+// the window-major stream and no two CTAs write the same C rows.
+template <typename TB>
+__global__ void __launch_bounds__(kThreads)
+window_sharded_kernel(const int32_t* __restrict__ shard_ptr,
+                      const int32_t* __restrict__ win_ptr,
+                      const int64_t* __restrict__ win_out,
+                      const int32_t* __restrict__ slots,
+                      const int32_t* __restrict__ a_idx,
+                      const float* __restrict__ a_values,
+                      const TB* __restrict__ b_tiles, float* __restrict__ out,
+                      int block_k, int bn, int64_t ldc) {
+  __shared__ __align__(16) float a_s[kKT][kBR];
+  __shared__ float b_s[kKT][kBNMax];
+  const int w1 = shard_ptr[blockIdx.x + 1];
+  for (int w = shard_ptr[blockIdx.x]; w < w1; ++w) {
+    window_body<TB>(w, win_ptr, win_out, slots, a_idx, a_values, b_tiles,
+                    out, block_k, bn, ldc, a_s, b_s);
+  }
+}
+
+template <typename TB>
+int launch(const void* shard_ptr, int nshards, const void* win_ptr,
+           const void* win_out, const void* slots, const void* a_idx,
+           const void* a_values, const void* b_tiles, void* out, int nwin,
+           int block_k, int bn, long long ldc, void* stream) {
+  if (nwin <= 0 || block_k <= 0 || bn <= 0 || bn > kBNMax ||
+      (shard_ptr != nullptr && nshards <= 0)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  window_kernel<TB><<<nwin, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int32_t*>(win_ptr),
-      static_cast<const int64_t*>(win_out),
-      static_cast<const int32_t*>(slots), static_cast<const int32_t*>(a_idx),
-      static_cast<const float*>(a_values), static_cast<const TB*>(b_tiles),
-      static_cast<float*>(out), block_k, bn, static_cast<int64_t>(ldc));
+  const auto s = static_cast<cudaStream_t>(stream);
+  const auto wp = static_cast<const int32_t*>(win_ptr);
+  const auto wo = static_cast<const int64_t*>(win_out);
+  const auto sl = static_cast<const int32_t*>(slots);
+  const auto ai = static_cast<const int32_t*>(a_idx);
+  const auto av = static_cast<const float*>(a_values);
+  const auto bt = static_cast<const TB*>(b_tiles);
+  const auto o = static_cast<float*>(out);
+  if (shard_ptr == nullptr) {
+    window_kernel<TB><<<nwin, kThreads, 0, s>>>(wp, wo, sl, ai, av, bt, o,
+                                                block_k, bn, ldc);
+  } else {
+    window_sharded_kernel<TB><<<nshards, kThreads, 0, s>>>(
+        static_cast<const int32_t*>(shard_ptr), wp, wo, sl, ai, av, bt, o,
+        block_k, bn, ldc);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -140,16 +189,36 @@ extern "C" int cluster_spgemm_windows_f32(
     const void* win_ptr, const void* win_out, const void* slots,
     const void* a_idx, const void* a_values, const void* b_tiles, void* out,
     int nwin, int block_k, int bn, long long ldc, void* stream) {
-  return launch<float>(win_ptr, win_out, slots, a_idx, a_values, b_tiles, out,
-                       nwin, block_k, bn, ldc, stream);
+  return launch<float>(nullptr, 0, win_ptr, win_out, slots, a_idx, a_values,
+                       b_tiles, out, nwin, block_k, bn, ldc, stream);
 }
 
 extern "C" int cluster_spgemm_windows_bf16(
     const void* win_ptr, const void* win_out, const void* slots,
     const void* a_idx, const void* a_values, const void* b_tiles, void* out,
     int nwin, int block_k, int bn, long long ldc, void* stream) {
-  return launch<__nv_bfloat16>(win_ptr, win_out, slots, a_idx, a_values,
-                               b_tiles, out, nwin, block_k, bn, ldc, stream);
+  return launch<__nv_bfloat16>(nullptr, 0, win_ptr, win_out, slots, a_idx,
+                               a_values, b_tiles, out, nwin, block_k, bn, ldc,
+                               stream);
+}
+
+extern "C" int cluster_spgemm_windows_sharded_f32(
+    const void* shard_ptr, int nshards, const void* win_ptr,
+    const void* win_out, const void* slots, const void* a_idx,
+    const void* a_values, const void* b_tiles, void* out, int nwin,
+    int block_k, int bn, long long ldc, void* stream) {
+  return launch<float>(shard_ptr, nshards, win_ptr, win_out, slots, a_idx,
+                       a_values, b_tiles, out, nwin, block_k, bn, ldc, stream);
+}
+
+extern "C" int cluster_spgemm_windows_sharded_bf16(
+    const void* shard_ptr, int nshards, const void* win_ptr,
+    const void* win_out, const void* slots, const void* a_idx,
+    const void* a_values, const void* b_tiles, void* out, int nwin,
+    int block_k, int bn, long long ldc, void* stream) {
+  return launch<__nv_bfloat16>(shard_ptr, nshards, win_ptr, win_out, slots,
+                               a_idx, a_values, b_tiles, out, nwin, block_k,
+                               bn, ldc, stream);
 }
 
 extern "C" const char* cluster_spgemm_error_string(int code) {

@@ -5,15 +5,24 @@ These adapt the device formats (``core/formats.py``'s ``BCC``,
 keep the JAX package's selection *rules*:
 
 * the live-pair compacted grid runs only while a C row strip fits the
-  strip budget (``compact_grid_ok``); past it the JAX package falls back
-  to its padded per-tile grid, which this port does not have yet —
-  :func:`pack_spgemm` raises :class:`NotImplementedError` there;
+  strip budget (``compact_grid_ok``); past it — B wider than 65,536
+  columns at the serving packing — the product runs on the padded
+  per-tile grid (:func:`cluster_spgemm_padded`), whose output has B's
+  dtype;
 * the sparse-C output tier runs when the predicted C window density is at
-  most 0.5 (:func:`predict_c_window_density`);
+  most 0.5 (:func:`predict_c_window_density`) and the product is not
+  sharded;
+* ``shards > 1`` splits the live-pair stream into contiguous block ranges
+  balanced by live pairs (:func:`build_shard_pack`), one persistent CTA
+  each (:func:`cluster_spgemm_sharded`); ``revisit=True`` orders each
+  range's pairs so a B tile's uses across a window of blocks are adjacent
+  (:func:`cluster_spgemm_revisit`). :func:`pallas_shard_count` is 1, so
+  the serving path does not shard by default;
 * each launch is labelled with the variant the JAX package would have
-  picked (``resident`` / ``streamed_db`` / ``streamed`` / ``sparse_c``) in
-  the ``kernel_launches`` counter. On the card every dense-strip variant
-  is the same kernel: their split was a TPU memory placement.
+  picked (``resident`` / ``streamed_db`` / ``streamed`` / ``sparse_c`` /
+  ``padded`` / ``sharded`` / ``sharded_revisit``) in the
+  ``kernel_launches`` counter. The resident / streamed split was a TPU
+  memory placement: on the card both labels run the same kernel.
 
 Host packing stays numpy; the packed streams are moved to the operands'
 device once, in :func:`pack_spgemm`, so a caller that keeps the pack
@@ -29,19 +38,29 @@ import torch
 from repro_torch.core.formats import (BCC, CompactedC, TiledCSR,
                                       compacted_c_counters,
                                       compacted_c_table, live_pair_counters,
-                                      live_pair_stream)
+                                      live_pair_stream,
+                                      partition_pair_stream,
+                                      revisit_pair_stream,
+                                      revisit_window_blocks)
 from repro_torch.core.segment import rank_in_segment
-from repro_torch.kernels.cluster_spgemm import (Windows,
+from repro_torch.kernels.cluster_spgemm import (PaddedGrid, Segments,
+                                                Windows,
+                                                cluster_spgemm_padded,
+                                                cluster_spgemm_revisit,
+                                                cluster_spgemm_sharded,
                                                 cluster_spgemm_windows,
-                                                windows_from_pairs)
+                                                padded_grid,
+                                                segments_from_shards,
+                                                windows_from_pairs,
+                                                windows_from_shards)
 from repro_torch.kernels.cluster_spmm import (KERNEL_MAX_BN,
                                               cluster_spmm_compact)
 from repro_torch.obs import metrics as obs_metrics
 from repro_torch.obs.trace import get_tracer
 from repro_torch.resilience import faults as _faults
 
-__all__ = ["bcc_compact_stream", "bcc_spmm_compact", "spmm_compact_stream",
-           "build_live_pairs",
+__all__ = ["pallas_shard_count", "bcc_compact_stream", "bcc_spmm_compact",
+           "spmm_compact_stream", "build_live_pairs", "build_shard_pack",
            "build_sparse_c_pairs", "predict_c_window_density",
            "compact_grid_ok", "compact_grid_ok_ncols", "SpGEMMPack",
            "pack_spgemm", "bcc_spgemm_tiled", "bcc_spgemm_sparse_c"]
@@ -75,6 +94,14 @@ def _note_kernel_launch(variant: str, *, pairs=None, block_r=None,
                                bn=bn), variant=variant)
     if cc is not None:
         reg.emit_device_counters(compacted_c_counters(cc), variant=variant)
+
+
+def pallas_shard_count() -> int:
+    """Shards the serving path splits a pair stream into by default: 1,
+    so the planner's default route is the window kernel. (The JAX
+    package fans out over its TPU cores; on one card the shards would be
+    CTAs, and a default count for them is left to measurement.)"""
+    return 1
 
 
 def bcc_compact_stream(a: BCC, *, cover_all_blocks: bool = False
@@ -170,6 +197,34 @@ def build_live_pairs(a: BCC, b: TiledCSR, stream: tuple | None = None
         step_live=step_live)
 
 
+def build_shard_pack(a: BCC, b: TiledCSR, pairs: tuple, *,
+                     shards: int | None = None,
+                     revisit: bool = False) -> tuple | None:
+    """Partition the live-pair stream into contiguous block ranges
+    balanced by live-pair count and optionally revisit-order each range's
+    sub-stream (host numpy, the JAX package's partition, field for
+    field).
+
+    Returns ``(ranges, shard_pairs, window_blocks)`` — ``window_blocks``
+    ``None`` unless ``revisit`` — or ``None`` when there is nothing to do
+    (one shard, no revisit).
+    """
+    if shards is None:
+        shards = pallas_shard_count()
+    if shards <= 1 and not revisit:
+        return None
+    nblocks = (a.nrows + a.block_r - 1) // a.block_r
+    ranges, shard_pairs = partition_pair_stream(
+        pairs, nblocks=nblocks, num_shards=shards)
+    wb = None
+    if revisit:
+        wb = revisit_window_blocks(b.nnb, block_r=a.block_r, bn=b.bn)
+        shard_pairs = [
+            revisit_pair_stream(p, window_blocks=wb, block_base=int(s))
+            for p, (s, _) in zip(shard_pairs, ranges)]
+    return ranges, shard_pairs, wb
+
+
 def predict_c_window_density(pairs, *, nblocks: int, nnb: int) -> float:
     """Predicted density of C's ``(block_r, bn)`` window lattice: distinct
     live ``(blk, j)`` windows over all ``nblocks × nnb`` windows, known
@@ -229,57 +284,91 @@ def build_sparse_c_pairs(a: BCC, b: TiledCSR, pairs: tuple | None = None,
 @dataclasses.dataclass(frozen=True)
 class SpGEMMPack:
     """Everything one Sp×Sp launch reads of A, packed once: the compact A
-    stream, the live-pair stream (host), the route, the window-major
-    stream on the device and — on the sparse-C route — the CompactedC
-    table on the device. A caller that keeps the pack (the planner's exec
-    cache) launches from it and B alone, without A's padded slab array."""
+    stream, the route, and the route's launch on the device — the
+    window-major stream (``dense`` / ``sparse_c``), the shards' windows or
+    revisit segments (``sharded`` / ``sharded_revisit``, with the host
+    partition in ``shard_pack``) or the padded grid (``padded``, which
+    builds no live pairs). On the sparse-C route ``table`` is the
+    CompactedC table on the device. A caller that keeps the pack (the
+    planner's exec cache) launches from it and B alone, without A's
+    padded slab array."""
 
     stream: tuple              # (block_ids, tile_ids, values)
-    pairs: tuple               # (blocks, js, slots, a_idx) host int32
-    sparse_c: bool             # CompactedC slabs (True) or dense strips
-    windows: Windows
-    table: torch.Tensor | None  # CompactedC table (sparse route only)
+    pairs: tuple | None        # (blocks, js, slots, a_idx) host int32
+    route: str                 # dense | sparse_c | sharded |
+    #                            sharded_revisit | padded
+    launch: Windows | Segments | PaddedGrid
+    table: torch.Tensor | None  # CompactedC table (sparse_c route only)
     nrows: int                 # A's rows
     block_r: int
     block_k: int
+    shard_pack: tuple | None = None   # (ranges, shard_pairs, window_blocks)
+
+    @property
+    def sparse_c(self) -> bool:
+        return self.route == "sparse_c"
 
 
-def pack_spgemm(a: BCC, b: TiledCSR, *,
-                sparse_c: bool | None = None) -> SpGEMMPack:
-    """Pack the live-pair compacted grid of ``a @ b`` for the window
-    kernel. ``sparse_c=None`` picks the route by predicted C window
-    density (≤ 0.5 → CompactedC slabs). Raises
-    :class:`NotImplementedError` when the C row strip exceeds the strip
-    budget: the padded per-tile grid that serves that case is ROADMAP K6,
-    not ported yet."""
+def pack_spgemm(a: BCC, b: TiledCSR, *, sparse_c: bool | None = None,
+                compact: bool | None = None, shards: int | None = None,
+                revisit: bool = False,
+                shard_pack: tuple | None = None) -> SpGEMMPack:
+    """Pack ``a @ b`` for its kernel, choosing the route as the JAX
+    package's ``bcc_spgemm_tiled`` does:
+
+    * ``compact`` — the live-pair grid (default while the C row strip
+      fits the strip budget, or whenever ``shard_pack`` is given) or the
+      padded per-tile grid;
+    * ``shards`` / ``revisit`` / ``shard_pack`` — the partition of the
+      live-pair stream (:func:`build_shard_pack`; default
+      :func:`pallas_shard_count`, i.e. unsharded);
+    * ``sparse_c`` — CompactedC slabs; default when the product is not
+      sharded and the predicted C window density is at most 0.5.
+    """
     if a.block_k != b.block_k:
         raise ValueError(f"A block_k {a.block_k} != B block_k {b.block_k}")
     nkb_needed = (a.ncols + a.block_k - 1) // a.block_k
     if b.nkb < nkb_needed:
         raise ValueError(f"B covers {b.nkb} k-blocks, A addresses "
                          f"{nkb_needed}")
-    if not compact_grid_ok(a, b):
-        raise NotImplementedError(
-            f"C row strip of {b.nnb * b.bn} columns exceeds the compacted "
-            "grid's strip budget; the padded per-tile grid "
-            "(cluster_spgemm_tiled) is ROADMAP K6 and not ported yet")
     stream = bcc_compact_stream(a, cover_all_blocks=True)
-    pairs = build_live_pairs(a, b, stream)
     nblocks = (a.nrows + a.block_r - 1) // a.block_r
+    dev = a.values.device
+    common = dict(stream=stream, nrows=a.nrows, block_r=a.block_r,
+                  block_k=a.block_k)
+    if compact is None:
+        compact = shard_pack is not None or compact_grid_ok(a, b)
+    if not compact:
+        grid = padded_grid(stream[0], stream[1], b.table, nblocks=nblocks,
+                           nnb=b.nnb, block_r=a.block_r, bn=b.bn, device=dev)
+        return SpGEMMPack(pairs=None, route="padded", launch=grid,
+                          table=None, **common)
+    pairs = build_live_pairs(a, b, stream)
+    if shard_pack is None:
+        shard_pack = build_shard_pack(a, b, pairs, shards=shards,
+                                      revisit=revisit)
+    geometry = dict(nblocks=nblocks, nnb=b.nnb, block_r=a.block_r, bn=b.bn,
+                    device=dev)
+    if shard_pack is not None:
+        ranges, shard_pairs, wb = shard_pack
+        if wb is None:
+            launch = windows_from_shards(ranges, shard_pairs, **geometry)
+        else:
+            launch = segments_from_shards(ranges, shard_pairs,
+                                          window_blocks=wb, **geometry)
+        return SpGEMMPack(
+            pairs=pairs, route="sharded" if wb is None else "sharded_revisit",
+            launch=launch, table=None, shard_pack=shard_pack, **common)
     if sparse_c is None:
         sparse_c = predict_c_window_density(
             pairs, nblocks=nblocks, nnb=b.nnb) <= _SPARSE_C_DENSITY
-    dev = a.values.device
     table = None
     if sparse_c:
         table = torch.from_numpy(compacted_c_table(
             pairs, nblocks=nblocks, nnb=b.nnb)[0]).to(dev)
-    windows = windows_from_pairs(*pairs, nblocks=nblocks, nnb=b.nnb,
-                                 block_r=a.block_r, bn=b.bn, device=dev,
-                                 table=table)
-    return SpGEMMPack(stream=stream, pairs=pairs, sparse_c=bool(sparse_c),
-                      windows=windows, table=table, nrows=a.nrows,
-                      block_r=a.block_r, block_k=a.block_k)
+    windows = windows_from_pairs(*pairs, table=table, **geometry)
+    return SpGEMMPack(pairs=pairs, route="sparse_c" if sparse_c else "dense",
+                      launch=windows, table=table, **common)
 
 
 def bcc_spgemm_sparse_c(a: BCC | None, b: TiledCSR, *,
@@ -292,10 +381,10 @@ def bcc_spgemm_sparse_c(a: BCC | None, b: TiledCSR, *,
     if pack is None:
         pack = pack_spgemm(a, b, sparse_c=True)
     if not pack.sparse_c:
-        raise ValueError("pack was built for the dense-strip route")
+        raise ValueError(f"pack was built for the {pack.route} route")
     with get_tracer().span("kernel_variant", variant="sparse_c",
                            epilogue="kernel"):
-        slabs = cluster_spgemm_windows(pack.windows, pack.stream[2],
+        slabs = cluster_spgemm_windows(pack.launch, pack.stream[2],
                                        b.tiles)
     out = CompactedC(slabs=slabs, table=pack.table, nrows=pack.nrows,
                      ncols=b.ncols, block_r=pack.block_r, bn=b.bn)
@@ -304,31 +393,57 @@ def bcc_spgemm_sparse_c(a: BCC | None, b: TiledCSR, *,
 
 
 def bcc_spgemm_tiled(a: BCC | None, b: TiledCSR, *,
-                     pack: SpGEMMPack | None = None) -> torch.Tensor:
-    """C = A_bcc @ B_tiled through the window kernel. Returns the dense
-    ``(a.nrows, b.ncols)`` fp32 product (bf16 B tiles are upcast,
-    accumulation stays fp32).
+                     pack: SpGEMMPack | None = None,
+                     compact: bool | None = None,
+                     shards: int | None = None, revisit: bool = False,
+                     shard_pack: tuple | None = None,
+                     sparse_c: bool | None = None) -> torch.Tensor:
+    """C = A_bcc @ B_tiled. Returns the dense ``(a.nrows, b.ncols)``
+    product: fp32 on the live-pair routes (bf16 B tiles are upcast,
+    accumulation stays fp32), B's dtype on the padded grid (as in the JAX
+    package).
 
     ``pack`` is the packed launch (:func:`pack_spgemm`, kept by callers
-    that reuse it, and the place to force a route); without one the
-    operands are packed here and the route follows the predicted C
-    window density. With a pack, ``a`` may be ``None``: the pack holds all
-    the launch reads of A. The sparse-C route densifies its
-    ``CompactedC`` on the way out.
+    that reuse it); without one the operands are packed here with
+    ``compact``, ``shards``, ``revisit``, ``shard_pack`` and ``sparse_c``
+    (see :func:`pack_spgemm`). With a pack, ``a`` may be ``None``: the
+    pack holds all the launch reads of A. The sparse-C route densifies
+    its ``CompactedC`` on the way out.
     """
     _faults.maybe_fault("kernel_launch")
     if pack is None:
-        pack = pack_spgemm(a, b)
+        pack = pack_spgemm(a, b, sparse_c=sparse_c, compact=compact,
+                           shards=shards, revisit=revisit,
+                           shard_pack=shard_pack)
     if pack.sparse_c:
         return bcc_spgemm_sparse_c(None, b, pack=pack).to_dense()
-    if b.nbytes_tiles() <= _RESIDENT_B_BUDGET:
-        variant = "resident"
-    elif pack.stream[2].device.type == "cuda":
-        variant = "streamed_db"
+    resident = b.nbytes_tiles() <= _RESIDENT_B_BUDGET
+    values = pack.stream[2]
+    tracer = get_tracer()
+    if pack.route == "padded":
+        with tracer.span("kernel_variant", variant="padded",
+                         resident=resident):
+            out = cluster_spgemm_padded(pack.launch, values, b.tiles)
+        _note_kernel_launch("padded")
+        return out[: pack.nrows, : b.ncols]
+    if pack.route in ("sharded", "sharded_revisit"):
+        nshards = len(pack.shard_pack[1])
+        with tracer.span("kernel_variant", variant=pack.route,
+                         shards=nshards):
+            if pack.route == "sharded_revisit" and nshards == 1:
+                out = cluster_spgemm_revisit(pack.launch, values, b.tiles)
+            else:
+                out = cluster_spgemm_sharded(pack.launch, values, b.tiles)
+        variant = pack.route
     else:
-        variant = "streamed"
-    with get_tracer().span("kernel_variant", variant=variant):
-        out = cluster_spgemm_windows(pack.windows, pack.stream[2], b.tiles)
+        if resident:
+            variant = "resident"
+        elif values.device.type == "cuda":
+            variant = "streamed_db"
+        else:
+            variant = "streamed"
+        with tracer.span("kernel_variant", variant=variant):
+            out = cluster_spgemm_windows(pack.launch, values, b.tiles)
     _note_kernel_launch(variant, pairs=pack.pairs, block_r=pack.block_r,
                         block_k=pack.block_k, bn=b.bn)
     return out[: pack.nrows, : b.ncols]

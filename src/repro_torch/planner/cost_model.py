@@ -51,6 +51,21 @@ PALLAS_INTERPRET_REL = 50.0
 PALLAS_UNMEASURED_REL = 1.0
 
 
+def _pallas_core_count() -> int:
+    """Shards the sharded pair-stream kernel would split a product into
+    (tests monkeypatch this to model a sharded default)."""
+    from repro_torch.kernels.ops import pallas_shard_count
+    return pallas_shard_count()
+
+
+def _pallas_compact_ok(ncols: int) -> bool:
+    """Whether the live-pair (shardable) grid applies to an A² product on
+    a matrix this wide: wider B runs on the padded per-tile grid, which is
+    not sharded."""
+    from repro_torch.kernels.ops import compact_grid_ok_ncols
+    return compact_grid_ok_ncols(ncols)
+
+
 @dataclasses.dataclass(frozen=True)
 class Candidate:
     """One point of the method menu: a row reordering × a compute scheme.
@@ -239,9 +254,17 @@ class CostModel:
 
     # -- heuristic layer -----------------------------------------------------
 
-    def _heuristic(self, f: MatrixFeatures,
-                   c: Candidate) -> tuple[float, float]:
-        """(kernel_rel, preprocess_rel) from structural features alone."""
+    def _heuristic(self, f: MatrixFeatures, c: Candidate,
+                   workload: str = "a2") -> tuple[float, float]:
+        """(kernel_rel, preprocess_rel) from structural features alone.
+
+        ``workload`` matters only to an unmeasured ``pallas`` candidate on
+        the card: a product the serving path would shard (``a2`` or
+        ``chain`` on the live-pair grid) divides its kernel term by the
+        shard count, as the JAX package's per-core term does (without
+        that package's TPU shard-efficiency constant). With one shard —
+        :func:`~repro_torch.kernels.ops.pallas_shard_count` — nothing
+        changes."""
         # disorder: how far the current order is from a banded layout —
         # a random symmetric permutation lands at bandwidth_mean ≈ 1/3
         disorder = min(3.0 * f.bandwidth_mean, 1.0)
@@ -276,8 +299,13 @@ class CostModel:
             eff = latent * (1.0 - 0.6 * min(f.row_cv / 1.5, 1.0))
             kernel_rel *= max(1.1 - 1.0 * eff, 0.15)
         elif c.scheme == "pallas":
-            kernel_rel = (PALLAS_INTERPRET_REL if self.device_type == "cpu"
-                          else PALLAS_UNMEASURED_REL)
+            if self.device_type == "cpu":
+                kernel_rel = PALLAS_INTERPRET_REL
+            else:
+                cores = (max(_pallas_core_count(), 1)
+                         if workload in ("a2", "chain")
+                         and _pallas_compact_ok(f.ncols) else 1)
+                kernel_rel = PALLAS_UNMEASURED_REL / cores
 
         pre = _REORDER_PRE.get(c.reorder, 1.0) + _SCHEME_PRE[c.scheme]
         if c.scheme == "hierarchical":
@@ -288,7 +316,8 @@ class CostModel:
     # -- public API ----------------------------------------------------------
 
     def score(self, features: MatrixFeatures, candidate: Candidate,
-              reuse: int, fingerprint: str | None = None) -> ScoredCandidate:
+              reuse: int, fingerprint: str | None = None,
+              workload: str = "a2") -> ScoredCandidate:
         base = self._base_kernel_s(fingerprint)
         m = (self._measured.get((fingerprint, candidate.key))
              if fingerprint is not None else None)
@@ -297,14 +326,15 @@ class CostModel:
                 candidate=candidate, kernel_rel=m.kernel_s / base,
                 preprocess_rel=m.preprocess_s / base, reuse=reuse,
                 measured=True)
-        kernel_rel, pre = self._heuristic(features, candidate)
+        kernel_rel, pre = self._heuristic(features, candidate, workload)
         return ScoredCandidate(candidate=candidate, kernel_rel=kernel_rel,
                                preprocess_rel=pre, reuse=reuse,
                                measured=False)
 
     def rank(self, features: MatrixFeatures, reuse: int,
              candidates=DEFAULT_CANDIDATES,
-             fingerprint: str | None = None) -> list[ScoredCandidate]:
+             fingerprint: str | None = None,
+             workload: str = "a2") -> list[ScoredCandidate]:
         """Score all candidates; amortizing ones first, by total cost.
 
         Non-amortizing candidates sort after every amortizing one (they
@@ -312,7 +342,7 @@ class CostModel:
         be chosen by the planner.
         """
         reuse = max(int(reuse), 1)
-        scored = [self.score(features, c, reuse, fingerprint)
+        scored = [self.score(features, c, reuse, fingerprint, workload)
                   for c in candidates]
         return sorted(scored,
                       key=lambda s: (not s.amortizes, s.total_rel,
@@ -320,10 +350,12 @@ class CostModel:
 
     def choose(self, features: MatrixFeatures, reuse: int,
                candidates=DEFAULT_CANDIDATES,
-               fingerprint: str | None = None) -> ScoredCandidate:
+               fingerprint: str | None = None,
+               workload: str = "a2") -> ScoredCandidate:
         """Best amortizing candidate (identity always amortizes, so the
         result is never worse than identity *under the model*)."""
-        for s in self.rank(features, reuse, candidates, fingerprint):
+        for s in self.rank(features, reuse, candidates, fingerprint,
+                           workload):
             if s.amortizes:
                 return s
-        return self.score(features, IDENTITY, reuse, fingerprint)
+        return self.score(features, IDENTITY, reuse, fingerprint, workload)

@@ -12,9 +12,15 @@ in the *original* row/column order.
 
 ``execute`` accepts ``b=None`` (the paper's A² workload), a second
 ``HostCSR`` (general SpGEMM) or a dense ``(ncols, width)`` array (the
-tall-skinny SpMM workload). A failing kernel propagates: the degradation
-ladder of the JAX package is not ported yet; the non-finite output guard
-is.
+tall-skinny SpMM workload). With the resilience policy's ladder armed (the
+default) a failing execution — a raising pack or kernel, a non-finite
+output — degrades down the JAX package's ladder (pallas → fixed →
+rowwise) and the circuit breaker quarantines the failing plan.
+
+``execute_chain`` is the chained-product entry point (``A^(hops+1)``):
+each hop plans the current sparse intermediate under ``workload="chain"``
+and, on pallas hops, runs the sparse-C route so the intermediate goes
+``CompactedC → HostCSR`` without a dense matrix.
 """
 from __future__ import annotations
 
@@ -34,6 +40,7 @@ from repro_torch.core.clustering import (DEFAULT_MAX_CLUSTER,
                                          hierarchical_clusters,
                                          variable_length_clusters)
 from repro_torch.core.formats import (HostCSR, bcc_from_host,
+                                      compacted_c_to_host,
                                       csr_cluster_from_host, csr_from_host,
                                       select_block_k, tiled_csr_from_host)
 from repro_torch.core.reorder import reorder as apply_reorder
@@ -54,11 +61,14 @@ from repro_torch.planner.plan_cache import (DEFAULT_CACHE_DIR,
                                             DEFAULT_MAX_BYTES, Plan,
                                             PlanCache)
 from repro_torch.resilience import faults as _faults
-from repro_torch.resilience.errors import (NonFiniteOutputError,
+from repro_torch.resilience.errors import (LadderExhaustedError,
+                                           NonFiniteOutputError,
                                            ProbeTimeoutError)
+from repro_torch.resilience.policy import (ResiliencePolicy, fallback_chain,
+                                           get_policy)
 
-__all__ = ["Planner", "plan_spgemm", "execute", "default_planner",
-           "reset_default_planner"]
+__all__ = ["Planner", "plan_spgemm", "execute", "execute_chain",
+           "default_planner", "reset_default_planner"]
 
 
 # ---------------------------------------------------------------------------
@@ -209,6 +219,9 @@ class Planner:
         probes (``None`` disables it).
       hint_provider: optional ``fingerprint -> int`` resolving
         ``reuse_hint=None``.
+      resilience: the :class:`ResiliencePolicy` (ladder, breaker,
+        incident log); ``None`` uses the process-global policy, resolved
+        per use.
       device: where products run — ``"cuda"`` (default) or ``"cpu"``. A
         CUDA planner without a card raises :class:`RuntimeError`.
     """
@@ -222,7 +235,8 @@ class Planner:
                  pallas_b_dtype: Optional[torch.dtype] = None,
                  auditor: Optional[obs_audit.DriftAuditor] = None,
                  probe_timeout_s: Optional[float] = 30.0,
-                 hint_provider: Optional[Callable[[str], int]] = None, *,
+                 hint_provider: Optional[Callable[[str], int]] = None,
+                 resilience: Optional[ResiliencePolicy] = None, *,
                  device="cuda"):
         self.device = resolve_device(device)
         self.cache = cache if cache is not None else PlanCache()
@@ -236,6 +250,7 @@ class Planner:
         self.measure_top = measure_top
         self.measure_budget = measure_budget
         self.candidates = tuple(candidates)
+        self._resilience = resilience
         self.probe_timeout_s = probe_timeout_s
         self.hint_provider = hint_provider
         self.probe_skips = 0
@@ -254,6 +269,12 @@ class Planner:
         self._exec_cache_bytes_cap = _default_exec_cache_bytes(self.device)
         self._plan_flight = _SingleFlight()
 
+    @property
+    def resilience(self) -> ResiliencePolicy:
+        """The injected policy, else the process-global one."""
+        return (self._resilience if self._resilience is not None
+                else get_policy())
+
     # -- planning ------------------------------------------------------------
 
     def plan(self, a: HostCSR, reuse_hint: Optional[int] = 1, *,
@@ -264,9 +285,12 @@ class Planner:
 
         The identity plan (original order, row-wise) is the implicit
         fallback whenever no candidate amortizes. ``workload`` is ``"a2"``
-        (sparse × sparse) or ``"spmm"`` (dense tall-skinny B); cache
-        entries are workload-keyed. Concurrent calls on one (fingerprint,
-        workload) single-flight.
+        (sparse × sparse), ``"spmm"`` (dense tall-skinny B) or ``"chain"``
+        (one hop of :meth:`execute_chain`, A²-shaped); cache entries are
+        workload-keyed. Concurrent calls on one (fingerprint, workload)
+        single-flight. A cached plan whose (fingerprint, scheme, reorder)
+        the circuit breaker has quarantined is planned around, not
+        evicted.
         """
         fp = fingerprint(a)
         if reuse_hint is None:
@@ -287,6 +311,9 @@ class Planner:
         cs = self.cache.stats
         for key in ("hits", "misses", "evictions", "entries", "bytes"):
             reg.gauge(f"plan_cache_{key}").set(cs[key])
+        policy = self.resilience
+        if policy.ladder:
+            reg.gauge("quarantine").set(len(policy.breaker.open_keys()))
         return plan
 
     def _plan_impl(self, a: HostCSR, reuse_hint: int, *, fp: str,
@@ -295,25 +322,38 @@ class Planner:
                    use_cache: bool, workload: str) -> Plan:
         """:meth:`plan` minus the span/metric/single-flight bookkeeping."""
         reuse_hint = max(int(reuse_hint), 1)
-        if workload not in ("a2", "spmm"):
+        if workload not in ("a2", "spmm", "chain"):
             raise ValueError(f"unknown workload '{workload}'")
         # workload-qualified key for cost-model measurements: an identity
         # baseline timed on SpMM must only normalize SpMM probes
         fp_w = fp if workload == "a2" else f"{fp}|{workload}"
         cands = tuple(candidates) if candidates is not None else self.candidates
+        policy = self.resilience
         if use_cache:
             hit = self.cache.get(fp, reuse_hint, workload)
             if hit is not None:
+                # a quarantined triple's cached plan is bypassed, not
+                # evicted (it serves again once the breaker heals), and
+                # the re-plan below is not cached over it
+                if not policy.allows(fp, hit.scheme, hit.reorder):
+                    use_cache = False
                 # a per-call candidate restriction must hold on hits too:
                 # a cached plan outside the caller's set is replanned
                 # fresh (without evicting the general cached plan)
-                if candidates is None or any(
+                elif candidates is None or any(
                         c.reorder == hit.reorder and c.scheme == hit.scheme
                         for c in cands) or hit.is_identity:
                     return hit
-                use_cache = False
+                else:
+                    use_cache = False
+        if policy.ladder and policy.breaker.open_keys():
+            # plan around quarantined (fingerprint, scheme, reorder)
+            # triples; identity stays the implicit fallback either way
+            cands = tuple(c for c in cands
+                          if policy.allows(fp, c.scheme, c.reorder))
         feats = extract_features(a)
-        ranked = self.cost_model.rank(feats, reuse_hint, cands, fp_w)
+        ranked = self.cost_model.rank(feats, reuse_hint, cands, fp_w,
+                                      workload)
         if measure:
             with get_tracer().span("probe", fingerprint=fp,
                                    workload=workload):
@@ -335,7 +375,8 @@ class Planner:
                         continue
                     self.cost_model.observe(fp_w, cand_p,
                                             m.kernel_s, m.preprocess_s)
-            ranked = self.cost_model.rank(feats, reuse_hint, cands, fp_w)
+            ranked = self.cost_model.rank(feats, reuse_hint, cands, fp_w,
+                                          workload)
             # evidence only: an unmeasured candidate's heuristic must not
             # outrank the measured shortlist
             pool = [s for s in ranked if s.measured] or ranked
@@ -343,7 +384,7 @@ class Planner:
             pool = ranked
         chosen = next((s for s in pool if s.amortizes),
                       self.cost_model.score(feats, IDENTITY, reuse_hint,
-                                            fp_w))
+                                            fp_w, workload))
 
         cand = chosen.candidate
         art = self._artifacts.pop((fp_w, cand.key), None)
@@ -484,17 +525,112 @@ class Planner:
         with A row-permuted only. A dense array → tall-skinny SpMM. The
         packed device operands are cached per (plan, operand values), so
         repeated calls skip packing. Every execution is device-synced and
-        its wall time fed to the drift auditor. A non-finite result raises
-        :class:`NonFiniteOutputError` (one float64 sum on the host)."""
+        its wall time fed to the drift auditor.
+
+        With the resilience policy's ladder armed (the default) the
+        product runs under the output guard (a non-finite result raises
+        :class:`NonFiniteOutputError`, one float64 sum on the host), and a
+        failing execution degrades instead of erroring: the request
+        re-runs down the fallback ladder (pallas → fixed clusterwise →
+        rowwise identity, all on ``reorder="original"``), the incident is
+        recorded and the failing (fingerprint, scheme, reorder) triple is
+        quarantined by the circuit breaker, so the next request plans
+        around it. Only when every rung fails does
+        :class:`LadderExhaustedError` escape. With the ladder off a
+        failure propagates as it is."""
+        policy = self.resilience
+        if not policy.ladder:
+            return self._execute_impl(plan, a, b)
+        key = policy.triple(plan.fingerprint, plan.scheme, plan.reorder)
+        try:
+            out = self._guarded_execute(plan, a, b)
+        except Exception as e:           # noqa: BLE001 — ladder catches all
+            primary = e                  # outlives the except block
+            policy.breaker.record_failure(key)
+        else:
+            policy.breaker.record_success(key)
+            return out
+        return self._run_ladder(plan, a, b, primary)
+
+    def _run_ladder(self, plan: Plan, a: HostCSR,
+                    b: HostCSR | np.ndarray | None,
+                    primary: Exception) -> np.ndarray:
+        """Walk the fallback rungs below ``plan.scheme`` after ``primary``
+        failed; records the incident and the ``serve_fallbacks`` metric
+        on the rung that recovers the request."""
+        policy = self.resilience
+        tracer = get_tracer()
+        site = self._classify_failure(primary)
+        causes: list[tuple[str, Exception]] = [(plan.scheme, primary)]
+        for rung in fallback_chain(plan.scheme):
+            fb = self._fallback_plan(plan, rung, a)
+            with tracer.span("fallback", fingerprint=plan.fingerprint,
+                             from_scheme=plan.scheme, to_scheme=rung,
+                             site=site) as sp:
+                try:
+                    if rung == "rowwise":
+                        # the identity rung is the guaranteed-safe floor:
+                        # under the fault harness it runs fault-suppressed
+                        with _faults.suppressed():
+                            out = self._guarded_execute(fb, a, b)
+                    else:
+                        out = self._guarded_execute(fb, a, b)
+                except Exception as e:   # noqa: BLE001 — ladder walks on
+                    causes.append((rung, e))
+                    sp.set(recovered=False)
+                    continue
+                sp.set(recovered=True)
+            policy.record_incident(
+                fingerprint=plan.fingerprint, workload=plan.workload,
+                scheme=plan.scheme, reorder=plan.reorder, site=site,
+                error=primary, fallback=rung)
+            obs_metrics.get_registry().counter(
+                "serve_fallbacks", scheme=plan.scheme).inc()
+            return out
+        policy.record_incident(
+            fingerprint=plan.fingerprint, workload=plan.workload,
+            scheme=plan.scheme, reorder=plan.reorder, site=site,
+            error=primary, fallback="")
+        raise LadderExhaustedError(plan.scheme, causes) from primary
+
+    def _guarded_execute(self, plan: Plan, a: HostCSR,
+                         b: HostCSR | np.ndarray | None) -> np.ndarray:
+        """One execution under the output guard: the fault harness's
+        ``output`` site corrupts here, and a non-finite result raises (one
+        float64 sum on the host)."""
         out = self._execute_impl(plan, a, b)
         out = _faults.corrupt_output("output", out)
         if not np.isfinite(np.sum(out, dtype=np.float64)):
             raise NonFiniteOutputError(plan.scheme)
         return out
 
+    @staticmethod
+    def _classify_failure(e: Exception) -> str:
+        if isinstance(e, NonFiniteOutputError):
+            return "nonfinite"
+        site = getattr(e, "site", None)     # FaultInjectedError carries it
+        return site if isinstance(site, str) else "exception"
+
+    def _fallback_plan(self, plan: Plan, rung: str, a: HostCSR) -> Plan:
+        """A rung's plan: same fingerprint and workload,
+        ``reorder="original"`` (a failing request must not pay a reorder
+        on its recovery path). The fixed rung's boundaries are an O(nrows)
+        recompute; its packed operands exec-cache like any plan's."""
+        if rung == "rowwise":
+            return Plan(fingerprint=plan.fingerprint, reorder="original",
+                        scheme="rowwise", reuse_hint=plan.reuse_hint,
+                        max_cluster=plan.max_cluster,
+                        workload=plan.workload)
+        perm, boundaries, max_cluster, t_pre = _materialize(
+            a, Candidate("original", rung), max_cluster=plan.max_cluster)
+        return Plan(fingerprint=plan.fingerprint, reorder="original",
+                    scheme=rung, reuse_hint=plan.reuse_hint,
+                    max_cluster=max_cluster, workload=plan.workload,
+                    perm=perm, boundaries=boundaries, preprocess_s=t_pre)
+
     def _execute_impl(self, plan: Plan, a: HostCSR,
                       b: HostCSR | np.ndarray | None = None) -> np.ndarray:
-        """:meth:`execute` minus the output guard."""
+        """:meth:`execute` minus the ladder and the output guard."""
         tracer = get_tracer()
         with tracer.span("execute", fingerprint=plan.fingerprint,
                          scheme=plan.scheme, reorder=plan.reorder,
@@ -512,6 +648,126 @@ class Planner:
                            measured_rel=rec.measured_rel,
                            residual=rec.residual)
             return out
+
+    # -- chained products (workload="chain") ---------------------------------
+
+    def execute_chain(self, a: HostCSR, *, hops: int = 2,
+                      reuse_hint: Optional[int] = None,
+                      measure: bool = False,
+                      candidates: Optional[Sequence[Candidate]] = None
+                      ) -> tuple[HostCSR, list[Plan]]:
+        """Chained sparse product ``A^(hops+1)`` — left-chained hops
+        ``C₁ = A·A``, ``C₂ = C₁·A``, … (``hops=2`` is A³).
+
+        Each hop plans the current sparse intermediate under
+        ``workload="chain"`` (the plan cache keys on the per-hop
+        fingerprint, so a repeated chain hits at every hop). Pallas hops
+        run the sparse-C route and feed the ``CompactedC → HostCSR``
+        result straight into the next hop; other hops densify and
+        re-sparsify. Returns ``(C, plans)``: ``C`` a :class:`HostCSR` in
+        the original order, ``plans`` the per-hop plans (``len == hops``).
+        """
+        if a.nrows != a.ncols:
+            raise ValueError("chain workload needs a square matrix")
+        hops = int(hops)
+        if hops < 1:
+            raise ValueError(f"hops must be >= 1, got {hops}")
+        if reuse_hint is None and self.hint_provider is None:
+            # the chain itself is the reuse unit: expect a handful of
+            # repeated chains; with a hint provider None flows through
+            reuse_hint = max(hops, 2)
+        cur = a
+        plans: list[Plan] = []
+        tracer = get_tracer()
+        hop_counter = obs_metrics.get_registry().counter("chain_hops")
+        for k in range(hops):
+            with tracer.span("hop", hop=k, hops=hops) as sp:
+                t0 = time.perf_counter()
+                plan = self.plan(cur, reuse_hint, measure=measure,
+                                 candidates=candidates, workload="chain")
+                # per-hop planning wall time, for the server's plan_s
+                plan.plan_wall_s = time.perf_counter() - t0
+                plans.append(plan)
+                sp.set(fingerprint=plan.fingerprint, scheme=plan.scheme)
+                cur = self._chain_hop(plan, cur, None if k == 0 else a)
+            hop_counter.inc()
+        return cur, plans
+
+    def _chain_hop(self, plan: Plan, cur: HostCSR,
+                   b: Optional[HostCSR]) -> HostCSR:
+        """One hop ``cur · (b if b is not None else cur)`` → HostCSR.
+
+        With the ladder armed, a failing sparse-C route degrades to the
+        dense :meth:`execute` path (itself ladder-guarded), recording the
+        incident and quarantining the triple like any execution failure."""
+        policy = self.resilience
+        if plan.scheme == "pallas":
+            try:
+                host = self._chain_hop_sparse(plan, cur, b)
+            except Exception as e:       # noqa: BLE001 — ladder catches all
+                if not policy.ladder:
+                    raise
+                policy.breaker.record_failure(policy.triple(
+                    plan.fingerprint, plan.scheme, plan.reorder))
+                policy.record_incident(
+                    fingerprint=plan.fingerprint, workload=plan.workload,
+                    scheme=plan.scheme, reorder=plan.reorder,
+                    site=self._classify_failure(e), error=e,
+                    fallback="dense_route")
+                obs_metrics.get_registry().counter(
+                    "serve_fallbacks", scheme=plan.scheme).inc()
+                host = None
+            if host is not None:
+                return host
+        dense = self.execute(plan, cur, b)
+        return HostCSR.from_dense(dense)
+
+    def _chain_hop_sparse(self, plan: Plan, cur: HostCSR,
+                          b: Optional[HostCSR]) -> Optional[HostCSR]:
+        """The sparse-C route of a pallas chain hop, or ``None`` when the
+        live-pair grid does not apply (wide B: the dense :meth:`execute`
+        path runs the padded grid instead). The pack is exec-cached, under
+        the cache's byte cap, like the dense paths'."""
+        bh_cols = (cur if b is None else b).ncols
+        if not kernel_ops.compact_grid_ok_ncols(bh_cols):
+            return None
+        dev = self.device
+        vk = (_value_digest(cur) if b is None else
+              f"{_value_digest(cur)}|{fingerprint(b)}|{_value_digest(b)}")
+        ck = (f"{plan.fingerprint}|{_plan_digest(plan)}|chain"
+              f"|{'sq' if b is None else 'ab'}|{vk}")
+        tracer = get_tracer()
+        cached = self._exec_cache.get(ck, (None, 0))[0]
+        if cached is None:
+            with tracer.span("pack", fingerprint=plan.fingerprint,
+                             scheme=plan.scheme, kind="sparse_c"):
+                _faults.maybe_fault("pack")
+                ap = _apply_plan_perm(cur, plan, symmetric=b is None)
+                bh = ap if b is None else b
+                bk = select_block_k(bh)
+                bcc = bcc_from_host(ap, block_k=bk, device=dev)
+                tiled = tiled_csr_from_host(bh, block_k=bk,
+                                            dtype=self.pallas_b_dtype,
+                                            device=dev)
+                if not kernel_ops.compact_grid_ok(bcc, tiled):
+                    return None
+                cached = ("chain", tiled,
+                          kernel_ops.pack_spgemm(bcc, tiled, sparse_c=True))
+                self._exec_put(ck, cached)
+            self._note_pack()
+        _, tiled, pack = cached
+        with tracer.span("kernel", scheme=plan.scheme, variant="sparse_c"):
+            t0 = time.perf_counter()
+            cc = kernel_ops.bcc_spgemm_sparse_c(None, tiled, pack=pack)
+            synchronize(dev)
+            kernel_s = time.perf_counter() - t0
+        self.auditor.record(plan, kernel_s)
+        host = compacted_c_to_host(cc)
+        if plan.perm is not None:
+            inv = np.argsort(np.asarray(plan.perm, dtype=np.int64))
+            host = (host.permute_symmetric(inv) if b is None
+                    else host.permute_rows(inv))
+        return host
 
     def _build_runner(self, plan: Plan, a: HostCSR,
                       b: HostCSR | np.ndarray | None):
@@ -581,13 +837,14 @@ class Planner:
                     ap = _apply_plan_perm(a, plan, symmetric=False)
                     bh = b
                 if plan.scheme == "pallas":
-                    # BCC(A) × TiledCSR(B) through the window kernel:
-                    # the adaptive k-tile height, the compact A stream,
-                    # the live-pair grid, its route and its window-major
-                    # device stream are packed once per cached operand
-                    # pair — a cache hit goes straight to the kernel. The
-                    # entry keeps B's tiles and the pack, which holds all
-                    # the launch reads of A (not the padded BCC)
+                    # BCC(A) × TiledCSR(B) through the kernel tier: the
+                    # adaptive k-tile height, the compact A stream, the
+                    # route (live-pair grid, or the padded grid for wide
+                    # B) and its device launch are packed once per cached
+                    # operand pair — a cache hit goes straight to the
+                    # kernel. The entry keeps B's tiles and the pack,
+                    # which holds all the launch reads of A (not the
+                    # padded BCC)
                     bk = select_block_k(bh)
                     tiled = tiled_csr_from_host(bh, block_k=bk,
                                                 dtype=self.pallas_b_dtype,
@@ -683,7 +940,9 @@ class Planner:
         def host() -> np.ndarray:
             out = run()
             synchronize(dev)
-            return out.cpu().numpy()
+            # the padded grid returns B's dtype: bf16 widens on the host
+            # (numpy has no bfloat16)
+            return out.cpu().float().numpy()
 
         if perm is None:
             return host
@@ -703,7 +962,8 @@ class Planner:
     def stats(self) -> dict:
         return {**self.cache.stats, "exec_entries": len(self._exec_cache),
                 "exec_bytes": self._exec_cache_nbytes(),
-                "probe_skips": self.probe_skips}
+                "probe_skips": self.probe_skips,
+                "resilience": self.resilience.stats}
 
 
 # ---------------------------------------------------------------------------
@@ -741,3 +1001,10 @@ def execute(plan: Plan, a: HostCSR,
             b: HostCSR | np.ndarray | None = None) -> np.ndarray:
     """Execute a planned product (see :meth:`Planner.execute`)."""
     return default_planner().execute(plan, a, b)
+
+
+def execute_chain(a: HostCSR, *, hops: int = 2,
+                  **kwargs) -> tuple[HostCSR, list]:
+    """Chained product ``A^(hops+1)`` via the default planner (see
+    :meth:`Planner.execute_chain`)."""
+    return default_planner().execute_chain(a, hops=hops, **kwargs)

@@ -91,7 +91,7 @@ def test_window_wrapper_off_the_cpu_launches_or_raises():
     a device the kernel cannot run on, the wrapper raises."""
     bcc, tiled = _small_operands()
     pack = ops.pack_spgemm(bcc, tiled, sparse_c=False)
-    w = pack.windows
+    w = pack.launch
     w_meta = dataclasses.replace(
         w, win_ptr=w.win_ptr.to("meta"), win_out=w.win_out.to("meta"),
         slots=w.slots.to("meta"), a_idx=w.a_idx.to("meta"))

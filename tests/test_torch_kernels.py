@@ -307,9 +307,10 @@ def test_ops_route_labels_and_padded_grid_refusal():
     assert count("resident") == before["resident"] + 1    # small B store
     assert count("sparse_c") == before["sparse_c"] + 1
     pack = pops.pack_spgemm(pb, pt, sparse_c=False)
-    with pytest.raises(ValueError, match="dense-strip"):
+    with pytest.raises(ValueError, match="dense route"):
         pops.bcc_spgemm_sparse_c(pb, pt, pack=pack)
-    # a C row strip past the budget needs the padded grid: ROADMAP K6
+    # a C row strip past the budget is not refused any more: it runs on
+    # the padded per-tile grid, labelled "padded", and builds no pairs
     wide = PF.tiled_csr_from_host(
         PF.HostCSR.from_dense(np.eye(128, 70000, dtype=np.float32)),
         block_k=128, device="cpu")
@@ -317,5 +318,9 @@ def test_ops_route_labels_and_padded_grid_refusal():
         PF.HostCSR.from_dense(np.eye(8, 128, dtype=np.float32)),
         device="cpu")
     assert not pops.compact_grid_ok(a, wide)
-    with pytest.raises(NotImplementedError, match="K6"):
-        pops.bcc_spgemm_tiled(a, wide)
+    pack = pops.pack_spgemm(a, wide)
+    assert pack.route == "padded" and pack.pairs is None
+    padded = count("padded")
+    got = pops.bcc_spgemm_tiled(a, wide, pack=pack)
+    assert count("padded") == padded + 1
+    assert np.array_equal(got.numpy(), np.eye(8, 70000, dtype=np.float32))

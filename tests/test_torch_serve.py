@@ -15,7 +15,9 @@ and ``repro_torch.serve.engine.SpGEMMServer(device="cpu")``:
 
 The port's own rules are pinned too: the cost model's device-keyed
 ``pallas`` score, measured mode probing the kernel tier first on a card,
-and failures propagating (there is no degradation ladder yet).
+and failures propagating when the resilience policy's ladder is off (the
+ladder itself is held against the JAX package in
+``tests/test_torch_resilience.py``).
 """
 import numpy as np
 import pytest
@@ -39,10 +41,10 @@ from repro_torch.planner.cost_model import (DEFAULT_CANDIDATES, IDENTITY,
 from repro_torch.planner.features import extract_features, fingerprint
 from repro_torch.planner.plan_cache import Plan, PlanCache
 from repro_torch.planner.service import Planner, _materialize
-from repro_torch.resilience import faults
+from repro_torch.resilience import ResiliencePolicy, faults
+from repro_torch.resilience import reset_policy as reset_port_policy
 from repro_torch.resilience.errors import (FaultInjectedError,
-                                           InvalidOperandError,
-                                           NonFiniteOutputError)
+                                           InvalidOperandError)
 from repro_torch.serve.engine import SpGEMMServer
 
 from torch_port_helpers import family_pair, integer_dense
@@ -51,9 +53,11 @@ from torch_port_helpers import family_pair, integer_dense
 @pytest.fixture(autouse=True)
 def _fresh_state():
     reset_policy()
+    reset_port_policy()
     faults.disarm()
     yield
     reset_policy()
+    reset_port_policy()
     faults.disarm()
 
 
@@ -283,14 +287,18 @@ def test_failures_propagate_without_a_ladder():
     cache = PlanCache()
     cache.put(Plan(fingerprint=fingerprint(h), reorder="original",
                    scheme="pallas", reuse_hint=20))
-    server = SpGEMMServer(Planner(cache=cache, device="cpu"))
+    server = SpGEMMServer(Planner(cache=cache, device="cpu",
+                                  resilience=ResiliencePolicy(ladder=False)))
     with faults.injected(faults.FaultPlan(0, sites=["kernel_launch"])):
         with pytest.raises(FaultInjectedError):
             server.submit(h)
-    with faults.injected(faults.FaultPlan(0, sites=["output"])):
-        with pytest.raises(NonFiniteOutputError):
+    server.planner._exec_cache.clear()
+    with faults.injected(faults.FaultPlan(0, sites=["pack"])):
+        with pytest.raises(FaultInjectedError):
             server.submit(h)
-    assert np.array_equal(server.submit(h).result, _oracle(h))
+    resp = server.submit(h)
+    assert np.array_equal(resp.result, _oracle(h))
+    assert resp.scheme == "pallas" and not resp.degraded
 
 
 def test_plan_cache_disk_round_trip(tmp_path):

@@ -31,7 +31,9 @@ def test_rehearsal_runs_every_phase(capsys):
     summary = json.loads(next(line for line in lines
                               if line.startswith('{"kernels"')))
     names = [k["name"] for k in summary["kernels"]]
-    assert names == ["cluster_spgemm_windows", "cluster_spmm_compact"]
+    assert names == ["cluster_spgemm_windows", "cluster_spmm_compact",
+                     "cluster_spgemm_padded", "cluster_spgemm_revisit",
+                     "cluster_spgemm_sharded"]
     keys = {"name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"}
     for k in summary["kernels"]:
@@ -39,9 +41,22 @@ def test_rehearsal_runs_every_phase(capsys):
         assert (ROOT / k["source"]).exists()
     served = [json.loads(line.split("request ", 1)[1]) for line in lines
               if line.startswith("  request ")]
-    assert len(served) == 9 and sum(r["repeat"] for r in served) == 2
-    assert all(r["scheme"] == "pallas" and r["plan_cache_hit"] and r["exact"]
-               and r["route_ok"] for r in served)
+    assert len(served) == 12 and sum(r["repeat"] for r in served) == 4
+    assert all(r["exact"] and r["route_ok"] for r in served)
+    routes = [r["route"] for r in served]
+    assert {"dense", "sparse", "spmm", "padded", "chain", "chaos",
+            "replanned"} == set(routes)
+    for r in served:
+        if r["route"] == "chaos":
+            assert r["degraded"] and r["fallback_scheme"] == "fixed"
+        elif r["route"] == "replanned":
+            assert r["scheme"] != "pallas" and not r["degraded"]
+        else:
+            assert r["scheme"] == "pallas" and r["plan_cache_hit"]
+            assert not r["degraded"]
+    calls = [json.loads(line.split("call ", 1)[1]) for line in lines
+             if line.startswith("  call ")]
+    assert len(calls) == 3 and all(c["exact"] for c in calls)
 
 
 def test_device_time_counts_device_events_once():
