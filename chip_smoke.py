@@ -25,7 +25,13 @@ Phases (any failure exits non-zero before the last line is printed):
    tiles), the revisit kernel and the sharded kernel (kron-14 with 1 and
    SM-count shards, caveman-16384 with 1, 8 and SM-count shards, with and
    without the revisit order — each also equal to the window kernel's
-   strips);
+   strips), the padded-lattice SpMM kernel on SparseLinear's weight (a
+   2,560 × 10,240 weight at density 0.1 with seeded tile sets and
+   shuffled rows, 4,096 tokens; exact on integer values), the
+   flash-attention kernel (zamba2-2.7b's prefill shape (128, 1024, 80)
+   causal, a ragged S = 1000 and a D = 128 case) and the SSD chunk-scan
+   kernel (zamba2-2.7b's (320, 4, 256, 64/64) and the single-chunk
+   fallback Q = 300); the last two within the tolerances they print;
 3. the serving path — ``SpGEMMServer.submit`` with pallas plans seeded in
    the plan cache: kron-14 A² on the dense-strip route and caveman-16384
    A² reordered by RCM on the sparse-C route (two fresh-valued requests
@@ -42,18 +48,31 @@ Phases (any failure exits non-zero before the last line is printed):
    choice is printed, not asserted. Phase 3b drives
    ``bcc_spgemm_tiled(shards=…, revisit=…)`` on kron-14 the same way
    (the revisit kernel once, the sharded kernel twice);
+3c. SparseLinear's padded path — ``SparseLinear.apply(x, compact=False)``
+   on the phase-2 layer, once, equal to the dense pruned product;
+3d. LM serving, after the SpGEMM phases' memory is released —
+   ``run_serving("zamba2-2.7b", smoke=False, batch=4, prompt_len=1024,
+   gen=32)``: 54 Mamba2 layers, d_model 2560, 2.42 B random fp32
+   parameters; its prefill must launch the flash-attention kernel 9 times
+   and the SSD kernel 54 times, every greedy token must lie in the
+   vocabulary; then the same weights and prompts are prefilled again
+   through the kernels (profiled: device time per kernel) and through
+   the model's own chunked path, whose logits must agree within the
+   printed tolerance, all finite; prints prefill and decode times, tok/s
+   and the peak device memory;
 4. summary — one ``{"kernels": [...]}`` line, the ``nvidia-smi`` line,
    and last ``{"ok": true, "device": {...}}``.
 
 ``--rehearse`` runs the same phases on the CPU at small sizes through the
-plain versions (no launch counts, no timings) and exits 2 without the
-final line: a dry run of the control flow before a card is used
+plain versions (no launch counts, no timings; the LM phase on
+``smoke_config("zamba2-2.7b")``) and exits 2 without the final line: a dry run of the control flow before a card is used
 (``tests/test_torch_smoke.py`` runs it).
 """
 from __future__ import annotations
 
 import argparse
 import contextlib
+import gc
 import json
 import os
 import statistics
@@ -470,6 +489,210 @@ def stream_cases(label, h, device, configs, *, timing=True):
     return cases
 
 
+def sparse_linear_layer(rows, cols, tokens, device, rng, *,
+                        density=0.1, groups=16, tiles_per_row=10):
+    """SparseLinear's weight as ``examples/sparse_ffn.py`` builds it:
+    groups of output rows draw their support from a few shared 128-wide
+    column tiles (``tiles_per_row`` per row, ``density * cols`` nonzeros
+    per row, integer values ±1..3), then the rows are shuffled; pruned
+    to ``density``, hierarchically reordered and packed on the device.
+    Returns (layer, integer activations (tokens, cols) on the device)."""
+    import torch
+    from repro_torch.models.sparse_linear import SparseLinear
+    ntiles = cols // 128
+    per_row = int(round(density * cols))
+    counts = np.full(tiles_per_row, per_row // tiles_per_row)
+    counts[: per_row % tiles_per_row] += 1
+    tile_sets = [rng.choice(ntiles, tiles_per_row, replace=False)
+                 for _ in range(groups)]
+    w = np.zeros((rows, cols), np.float32)
+    for i in range(rows):
+        for t, cnt in zip(tile_sets[i % groups], counts):
+            sel = t * 128 + rng.choice(128, cnt, replace=False)
+            w[i, sel] = (rng.integers(1, 4, cnt)
+                         * rng.choice([-1, 1], cnt)).astype(np.float32)
+    w = w[rng.permutation(rows)]
+    t0 = time.perf_counter()
+    layer = SparseLinear.from_dense(w, density=density, device=device)
+    log(f"  SparseLinear.from_dense({rows} x {cols}, density {density}): "
+        f"{time.perf_counter() - t0:.1f} s, stats "
+        f"{json.dumps(layer.stats)}")
+    x = torch.from_numpy(rng.integers(-2, 3, (tokens, cols)).astype(
+        np.float32)).to(device)
+    return layer, x
+
+
+def padded_spmm_case(name, layer, x, device, *, timing=True):
+    """The padded-lattice SpMM kernel (K9) at SparseLinear's padded path:
+    the packed weight against the activations' transpose."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.cluster_spmm import (KERNEL_MAX_BN,
+                                                  cluster_spmm,
+                                                  cluster_spmm_plain)
+    launches0 = cluster_spmm.launches
+    bcc = layer.bcc
+    xt = x.T.contiguous()                       # (in, tokens)
+    kw = dict(block_r=bcc.block_r, block_k=bcc.block_k,
+              tiles_per_block=bcc.tiles_per_block)
+    bn = min(KERNEL_MAX_BN, max(8, xt.shape[1]))
+    run = lambda: cluster_spmm(bcc.tile_ids, bcc.values, xt,  # noqa: E731
+                               bn=bn, **kw)
+    plain = lambda: cluster_spmm_plain(  # noqa: E731
+        bcc.tile_ids, bcc.values, xt, **kw)
+    got, want = run(), plain()
+    ok = bool(torch.equal(got, want))
+    err = float((got - want).abs().max())
+    ms = timed_ms(run, device) if timing else None
+    plain_ms = timed_ms(plain, device, reps=3) if timing else None
+    # SparseLinear's default (compact) path on the same operands, its
+    # compact stream rebuilt on the host in every call, as apply does
+    compact_path_ms = (timed_ms(lambda: ops.bcc_spmm_compact(bcc, xt),
+                                device) if timing else None)
+    # the yardstick: cuSPARSE's CSR × dense on the packed weight
+    dense_w = bcc.to_dense()
+    wc = dense_w.to_sparse_csr()
+    del dense_w
+    lib_ms = (library_ms(lambda: torch.sparse.mm(wc, xt), device)
+              if timing else None)
+    # the bound: the product's true flops (2 per weight nonzero per
+    # token), the CSR weight, the activations and the result once each
+    nnz = int(wc.values().numel())
+    tokens = xt.shape[1]
+    true_flops = 2 * nnz * tokens
+    bound_ms, bound_by = bound(
+        csr_bytes(layer.out_features, nnz) + 4 * xt.numel()
+        + 4 * layer.out_features * tokens, true_flops)
+    slabs = bcc.values.shape[0]
+    tile_flops = 2 * slabs * bcc.block_r * bcc.block_k * tokens
+    tile_bound_ms, tile_bound_by = bound(
+        4 * bcc.values.numel() + 4 * xt.numel() + 4 * got.numel()
+        + 4 * slabs, tile_flops)
+    case = {"case": name, "weight": [layer.out_features, layer.in_features],
+            "weight_nnz": nnz, "tokens": tokens, "block_k": bcc.block_k,
+            "nblocks": bcc.nblocks, "tiles_per_block": bcc.tiles_per_block,
+            "live_tiles": layer.stats["live_tiles"], "slabs": slabs,
+            "true_flops": true_flops, "tile_flops": tile_flops,
+            "max_abs_err": err, "tolerance": "exact (torch.equal)",
+            "matched": ok, "ms": ms, "plain_ms": plain_ms,
+            "compact_path_ms_with_host_stream": compact_path_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "bound_rule": ("max(bytes: CSR weight + activations + result "
+                           "once / 3.35 TB/s, 2*nnz*tokens flops / "
+                           "67 TFLOP/s fp32)"),
+            "tile_bound_ms": tile_bound_ms, "tile_bound_by": tile_bound_by,
+            "tile_bound_rule": ("max(bytes: slabs + activations + result + "
+                                "tile ids once / 3.35 TB/s, padded fp32 FMAs "
+                                "2*slabs*8*block_k*tokens / 67 TFLOP/s)"),
+            "library": "torch.sparse.mm(csr weight, dense activations)",
+            "library_ms": lib_ms,
+            "compare_launches": cluster_spmm.launches - launches0}
+    log("  case", json.dumps(case))
+    if not ok:
+        raise SystemExit(f"padded SpMM kernel disagrees with its plain "
+                         f"version on {name}: max abs err {err}")
+    return case
+
+
+FLASH_RTOL, FLASH_ATOL = 1e-4, 1e-5
+
+
+def flash_case(name, bh, s, d, device, *, timing=True):
+    """The flash-attention kernel (K10) on (bh, s, d) fp32 causal inputs
+    from a seeded generator, against its plain version."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_plain)
+    launches0 = flash_attention.launches
+    g = torch.Generator(device=device).manual_seed(bh * s + d)
+    q, k, v = (torch.randn((bh, s, d), generator=g, device=device)
+               for _ in range(3))
+    run = lambda: flash_attention(q, k, v, causal=True)  # noqa: E731
+    plain = lambda: flash_attention_plain(q, k, v, causal=True)  # noqa
+    got, want = run(), plain()
+    err = float((got - want).abs().max())
+    ok = bool(torch.allclose(got, want, rtol=FLASH_RTOL, atol=FLASH_ATOL))
+    ms = timed_ms(run, device) if timing else None
+    plain_ms = timed_ms(plain, device) if timing else None
+    # the bound: QKᵀ and PV on the causal pairs (q_pos >= k_pos) of each
+    # head, 2 flops per multiply-add; Q, K, V read and O written once
+    pairs = s * (s + 1) // 2
+    flops = 4 * bh * pairs * d
+    bound_ms, bound_by = bound(4 * 4 * bh * s * d, flops)
+    lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+        q[None], k[None], v[None], is_causal=True)
+    lib_ms = library_ms(lib, device) if timing else None
+    case = {"case": name, "shape": [bh, s, d], "causal": True,
+            "causal_pairs_per_head": pairs, "flops": flops,
+            "max_abs_err": err,
+            "tolerance": (f"|kernel-plain| <= {FLASH_ATOL:g} + "
+                          f"{FLASH_RTOL:g} |plain| (fp32 summation order)"),
+            "matched": ok, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "bound_rule": ("max(bytes: Q, K, V, O once / 3.35 TB/s, "
+                           "4*D per causal pair / 67 TFLOP/s fp32)"),
+            "library": ("torch.nn.functional.scaled_dot_product_attention("
+                        "is_causal=True)"),
+            "library_ms": lib_ms,
+            "compare_launches": flash_attention.launches - launches0}
+    log("  case", json.dumps(case))
+    if not ok:
+        raise SystemExit(f"flash-attention kernel disagrees with its plain "
+                         f"version on {name}: max abs err {err}")
+    return case
+
+
+SSD_TOL = 1e-4
+
+
+def ssd_case(name, bh, nc, q, p, n, device, *, timing=True):
+    """The SSD chunk-scan kernel (K11) on (bh, nc, q, p/n) fp32 inputs
+    from a seeded generator (log-decays in (-0.3, 0], as dt-scaled
+    -exp(A_log) gives them), against its plain version."""
+    import torch
+    from repro_torch.kernels.ssd_chunk import (ssd_chunk_scan,
+                                               ssd_chunk_scan_plain)
+    launches0 = ssd_chunk_scan.launches
+    g = torch.Generator(device=device).manual_seed(bh * q + n)
+    x = torch.randn((bh, nc, q, p), generator=g, device=device) * 0.3
+    a = -torch.rand((bh, nc, q), generator=g, device=device) * 0.3
+    b, c = (torch.randn((bh, nc, q, n), generator=g, device=device)
+            for _ in range(2))
+    run = lambda: ssd_chunk_scan(x, a, b, c)  # noqa: E731
+    plain = lambda: ssd_chunk_scan_plain(x, a, b, c)  # noqa: E731
+    (y, h), (y0, h0) = run(), plain()
+    err = max(float((y - y0).abs().max()), float((h - h0).abs().max()))
+    scale = max(1.0, float(y0.abs().max()), float(h0.abs().max()))
+    ok = err <= SSD_TOL * scale
+    ms = timed_ms(run, device) if timing else None
+    plain_ms = timed_ms(plain, device) if timing else None
+    # the bound: per (bh, chunk) C·Bᵀ and the decayed product with X on
+    # the lower triangle, the readout C·h and the state update, 2 flops
+    # per multiply-add; x, a, b, c read and y, h written once
+    pairs = q * (q + 1) // 2
+    flops = 2 * bh * nc * (pairs * (n + p) + 2 * q * n * p)
+    nbytes = 4 * (2 * x.numel() + a.numel() + 2 * b.numel() + h.numel())
+    bound_ms, bound_by = bound(nbytes, flops)
+    case = {"case": name, "shape": {"bh": bh, "nc": nc, "q": q, "p": p,
+                                    "n": n},
+            "flops": flops, "bytes": nbytes, "max_abs_err": err,
+            "tolerance": (f"max|kernel-plain| <= {SSD_TOL:g} x max(1, "
+                          "max|plain|) (fp32 summation order)"),
+            "matched": ok, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "bound_rule": ("max(bytes: x, a, b, c, y, h once / 3.35 TB/s, "
+                           "2*(pairs*(N+P) + 2*Q*N*P) per (bh, chunk) / "
+                           "67 TFLOP/s fp32)"),
+            "library": None, "library_ms": None,
+            "compare_launches": ssd_chunk_scan.launches - launches0}
+    log("  case", json.dumps(case))
+    if not ok:
+        raise SystemExit(f"SSD chunk-scan kernel disagrees with its plain "
+                         f"version on {name}: max abs err {err}")
+    return case
+
+
 # ---------------------------------------------------------------------------
 # phase 3: the serving path
 # ---------------------------------------------------------------------------
@@ -756,6 +979,176 @@ def sharded_phase(h, device, sm_count):
     return launches
 
 
+def sparse_linear_phase(layer, x, device):
+    """SparseLinear's padded path, the entry point of K9:
+    ``apply(x, compact=False)`` once, counter zeroed just before and read
+    just after; the result must equal the dense pruned product."""
+    from repro_torch.device import synchronize
+    from repro_torch.kernels.cluster_spmm import cluster_spmm
+    cluster_spmm.launches = 0
+    t0 = time.perf_counter()
+    y = layer.apply(x, compact=False)
+    synchronize(device)
+    wall = time.perf_counter() - t0
+    launches = {"cluster_spmm": cluster_spmm.launches}
+    want = layer.apply(x, use_kernel=False)
+    exact = bool((y == want).all())
+    log("  call", json.dumps({"SparseLinear.apply": {"compact": False},
+                              "out_shape": list(y.shape), "wall_s": wall,
+                              "exact_vs_dense_pruned": exact,
+                              "launches": launches}))
+    if not exact:
+        raise SystemExit("SparseLinear.apply(compact=False) differs from "
+                         "the dense pruned product")
+    if device.type == "cuda" and launches != {"cluster_spmm": 1}:
+        raise SystemExit(f"launch counts off SparseLinear's padded path: "
+                         f"{launches}")
+    return launches
+
+
+LOGIT_TOL = 2e-3
+
+
+def lm_phase(device, *, rehearse):
+    """zamba2-2.7b served through ``run_serving`` (its published size on
+    the card; the smoke config in the rehearsal): the prefill's kernel
+    launches counted, greedy tokens checked against the vocabulary; then
+    the same weights and prompts prefilled through the kernels (profiled)
+    and through the model's own chunked path, whose logits must agree."""
+    import torch
+    from repro_torch.configs.base import get_config, smoke_config
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.ssd_chunk import ssd_chunk_scan
+    from repro_torch.launch.serve import run_serving
+    from repro_torch.models.transformer import init_params, prefill
+    from repro_torch.serve.engine import make_serve_step
+    arch, seed = "zamba2-2.7b", 0
+    cfg = smoke_config(arch) if rehearse else get_config(arch)
+    batch, prompt_len, gen = (2, 64, 8) if rehearse else (4, 1024, 32)
+    log(f"  config {cfg.name}: {cfg.num_layers} Mamba2 layers, d_model "
+        f"{cfg.d_model}, shared attention after every "
+        f"{cfg.hybrid_attn_every} ({cfg.num_heads} heads of "
+        f"{cfg.head_dim}), ssm_state {cfg.ssm_state}, "
+        f"{cfg.ssm_num_heads} SSM heads of {cfg.ssm_head_dim}, chunk "
+        f"{cfg.ssm_chunk}, vocab {cfg.vocab_size}; "
+        f"{cfg.param_count():,} parameters "
+        f"({cfg.param_count() * 4 / 1e9:.2f} GB fp32)")
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    # the main path's run: counters zeroed just before, read just after
+    flash_attention.launches = 0
+    ssd_chunk_scan.launches = 0
+    t0 = time.perf_counter()
+    out = run_serving(arch, smoke=rehearse, batch=batch,
+                      prompt_len=prompt_len, gen=gen, seed=seed,
+                      device=device, use_pallas=True)
+    wall = time.perf_counter() - t0
+    launches = {"flash_attention": flash_attention.launches,
+                "ssd_chunk_scan": ssd_chunk_scan.launches}
+    peak = (torch.cuda.max_memory_allocated(device)
+            if device.type == "cuda" else None)
+    toks = out["tokens"]
+    in_vocab = bool(((toks >= 0) & (toks < cfg.vocab_size)).all())
+    row = {"arch": arch, "params": cfg.param_count(), "batch": batch,
+           "prompt_len": prompt_len, "gen": gen,
+           "prefill_s": out["prefill_s"], "decode_s": out["decode_s"],
+           "decode_tok_per_s": out["decode_tok_per_s"],
+           "prefill_tok_per_s": batch * prompt_len / out["prefill_s"],
+           "run_serving_wall_s": wall, "launches_per_prefill": launches,
+           "expected_launches": {"flash_attention": cfg.num_attn_layers,
+                                 "ssd_chunk_scan": cfg.num_layers},
+           "tokens_shape": list(toks.shape), "tokens_in_vocab": in_vocab,
+           "sample_tokens": toks[0][:8].tolist(),
+           "peak_device_bytes": peak}
+    log("  serving", json.dumps(row))
+    if not in_vocab or toks.shape != (batch, gen):
+        raise SystemExit(f"greedy tokens off the vocabulary: {row}")
+    if device.type == "cuda" and launches != row["expected_launches"]:
+        raise SystemExit(f"launch counts off the LM prefill: {launches}")
+    del out
+
+    # the same weights and prompts (run_serving's seed), prefilled through
+    # the kernels and through the model's own chunked path
+    params = init_params(cfg, seed, device=device)
+    rng = np.random.default_rng(seed)
+    tokens = torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (batch, prompt_len))).to(device)
+    max_len = prompt_len + gen
+    profile = device.type == "cuda"
+    ctx = (torch.profiler.profile(activities=[
+        torch.profiler.ProfilerActivity.CPU,
+        torch.profiler.ProfilerActivity.CUDA])
+        if profile else contextlib.nullcontext())
+    with ctx as prof:
+        t0 = time.perf_counter()
+        kern, cache = prefill(cfg, params, {"tokens": tokens}, max_len,
+                              use_pallas=True)
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        kern_s = time.perf_counter() - t0
+    kern = kern[..., : cfg.vocab_size].clone()
+    nxt = kern[:, -1].argmax(-1)[:, None]
+    t0 = time.perf_counter()
+    chunked, _ = prefill(cfg, params, {"tokens": tokens}, max_len,
+                         use_pallas=False)
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    chunked_s = time.perf_counter() - t0
+    chunked = chunked[..., : cfg.vocab_size]
+    finite = bool(torch.isfinite(kern).all() and torch.isfinite(chunked).all())
+    err = float((kern - chunked).abs().max())
+    scale = float(chunked.abs().max())
+    same_argmax = float((kern.argmax(-1) == chunked.argmax(-1)).float().mean())
+    per_kernel = None
+    busy = None
+    if profile:
+        busy, _ = device_time(prof)
+        per_kernel = {}
+        for ev in prof.events():
+            if ev.device_type == torch.autograd.DeviceType.CUDA:
+                for key, tag in (("flash_attention", "flash_kernel"),
+                                 ("ssd_chunk_scan", "ssd_chunk_kernel")):
+                    if tag in ev.name:
+                        ms, cnt = per_kernel.get(key, (0.0, 0))
+                        per_kernel[key] = (
+                            ms + ev.time_range.elapsed_us() / 1e3, cnt + 1)
+        per_kernel = {k: {"device_ms": v[0], "launches": v[1]}
+                      for k, v in per_kernel.items()}
+    # one decode step after the kernel prefill, profiled: how much of a
+    # step the card is busy
+    step = make_serve_step(cfg)
+    step(params, cache, {"tokens": nxt})           # warm-up
+    with (torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA])
+          if profile else contextlib.nullcontext()) as dprof:
+        t0 = time.perf_counter()
+        step(params, cache, {"tokens": nxt})
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        step_s = time.perf_counter() - t0
+    step_busy, step_top = device_time(dprof) if profile else (None, None)
+    step_events = (sum(1 for ev in dprof.events() if ev.device_type
+                       == torch.autograd.DeviceType.CUDA)
+                   if profile else None)
+    del cache
+    check = {"kernel_prefill_s": kern_s, "chunked_prefill_s": chunked_s,
+             "prefill_device_busy_s": busy,
+             "kernel_device_time": per_kernel,
+             "max_abs_logit_diff": err, "max_abs_logit": scale,
+             "tolerance": (f"max|kernel - chunked| <= {LOGIT_TOL:g} x "
+                           "max|chunked| over the real vocabulary"),
+             "argmax_agreement": same_argmax, "finite": finite,
+             "decode_step_s": step_s, "decode_step_device_busy_s": step_busy,
+             "decode_step_device_events": step_events,
+             "decode_step_device_top_ms": step_top}
+    log("  kernel vs chunked prefill", json.dumps(check))
+    if not finite or not err <= LOGIT_TOL * scale:
+        raise SystemExit(f"kernel prefill disagrees with the chunked path: "
+                         f"{check}")
+    return launches, row, check
+
+
 # ---------------------------------------------------------------------------
 # main
 # ---------------------------------------------------------------------------
@@ -783,6 +1176,10 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
+    log(f"  IEEE fp32 matmuls: torch.backends.cuda.matmul.allow_tf32 = "
+        f"{torch.backends.cuda.matmul.allow_tf32}, "
+        f"torch.backends.cudnn.allow_tf32 = "
+        f"{torch.backends.cudnn.allow_tf32}")
 
     # -- phase 1: environment ------------------------------------------------
     if args.rehearse:
@@ -819,6 +1216,11 @@ def main(argv=None) -> int:
         # still wider than the live-pair grid's strip budget (65,536)
         mesh, wide_rows = suite.gen_mesh2d(258, seed=0, stencil=5), 256
         spmm_cols, ragged_cols = 16, 10
+        # SparseLinear weight (rows, cols), tokens; attention (BH, S, D);
+        # SSD (BH, nc, Q, P, N)
+        linear = (96, 1280, 64)
+        flash_shapes = [(4, 128, 80), (2, 100, 80), (2, 64, 128)]
+        ssd_shapes = [(8, 4, 64, 16, 16), (8, 1, 75, 16, 16)]
     else:
         kron = suite.gen_kron(14, 16, seed=0)
         cave = suite.gen_caveman(16384, 24, seed=0)
@@ -826,6 +1228,12 @@ def main(argv=None) -> int:
                                    if s.name == "plaw_4096_12"))
         mesh, wide_rows = suite.gen_mesh2d(288, seed=0, stencil=5), 8192
         spmm_cols, ragged_cols = 64, 40
+        # zamba2-2.7b: d_model 2560 × d_ff 10240 at 4 × 1024 tokens;
+        # B·Hq = 4 × 32 heads of 80 at S = 1024; B·H = 4 × 80 SSM heads,
+        # 4 chunks of 256, P = N = 64
+        linear = (2560, 10240, 4096)
+        flash_shapes = [(128, 1024, 80), (128, 1000, 80), (64, 1024, 128)]
+        ssd_shapes = [(320, 4, 256, 64, 64), (320, 1, 300, 64, 64)]
     # the wide A·B: a 2-hop frontier expansion of a batch of source
     # vertices (A = the first rows of the mesh, all its columns)
     wide_b = integer_valued(mesh, rng)
@@ -893,12 +1301,35 @@ def main(argv=None) -> int:
         [(1, True), (8, False), (8, True), (sm_count, False),
          (sm_count, True)], timing=timing)
     stream_all = kron_streams + cave_streams
+    lin_layer, lin_x = sparse_linear_layer(*linear, device, rng)
+    padded_spmm = padded_spmm_case(
+        "padded-lattice SpMM, SparseLinear d_model x d_ff weight",
+        lin_layer, lin_x, device, timing=timing)
+    flash_cases = [flash_case(
+        f"flash attention causal (BH={bh}, S={sq}, D={d})", bh, sq, d,
+        device, timing=timing) for bh, sq, d in flash_shapes]
+    ssd_cases = [ssd_case(
+        f"SSD chunk scan (BH={bh}, nc={nc}, Q={q}, P={p}, N={n})",
+        bh, nc, q, p, n, device, timing=timing)
+        for bh, nc, q, p, n in ssd_shapes]
 
     # -- phase 3: the serving path ---------------------------------------------
     log("phase 3: SpGEMMServer.submit with seeded pallas plans")
     launches, _ = serve_phase(mats, device, rng, spmm_cols)
     log("phase 3b: bcc_spgemm_tiled(shards=..., revisit=...) on kron")
     launches.update(sharded_phase(kron_i, device, sm_count))
+    log("phase 3c: SparseLinear.apply(compact=False)")
+    launches.update(sparse_linear_phase(lin_layer, lin_x, device))
+    del lin_layer, lin_x
+    # the SpGEMM phases' device memory is released before the LM phase
+    gc.collect()
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+        log(f"  device memory held before the LM phase: "
+            f"{torch.cuda.memory_allocated(device) / 1e9:.3f} GB")
+    log("phase 3d: LM serving, run_serving('zamba2-2.7b')")
+    lm_launches, _, _ = lm_phase(device, rehearse=args.rehearse)
+    launches.update(lm_launches)
 
     # -- phase 4: summary ------------------------------------------------------
     win_cases = [dense, slab, tall, bf16]
@@ -917,7 +1348,7 @@ def main(argv=None) -> int:
                 "max_abs_err": max(c["max_abs_err"] for c in cases),
                 "ms": main["ms"], "plain_ms": main["plain_ms"],
                 "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
-                "tile_bound_ms": main["tile_bound_ms"],
+                "tile_bound_ms": main.get("tile_bound_ms"),
                 "library_ms": main["library_ms"],
                 "matched": all(c["matched"] for c in cases),
                 "cases": cases}
@@ -949,6 +1380,18 @@ def main(argv=None) -> int:
               "window_sharded_kernel here, segment_sharded_kernel in "
               "csrc/cluster_spgemm_revisit.cu)", sharded_cases,
               sharded_main),
+        entry("cluster_spmm",
+              "src/repro_torch/kernels/csrc/cluster_spmm.cu",
+              "src/repro/kernels/cluster_spmm.py:103 (K9 cluster_spmm, "
+              "the padded grid)", [padded_spmm], padded_spmm),
+        entry("flash_attention",
+              "src/repro_torch/kernels/csrc/flash_attention.cu",
+              "src/repro/kernels/flash_attention.py:87 (K10 "
+              "flash_attention)", flash_cases, flash_cases[0]),
+        entry("ssd_chunk_scan",
+              "src/repro_torch/kernels/csrc/ssd_chunk.cu",
+              "src/repro/kernels/ssd_chunk.py:94 (K11 ssd_chunk_scan)",
+              ssd_cases, ssd_cases[0]),
     ]}
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps(kernels), flush=True)

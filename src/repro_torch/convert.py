@@ -5,7 +5,9 @@ A caller that holds one of the JAX package's device formats turns it into
 ``{field name: numpy value}`` (``np.asarray`` of every dataclass field)
 and hands the dict to :func:`packed_from_numpy`; a plan goes through
 :func:`plan_from_numpy` the same way. Both packages then compute on the
-same packed operands.
+same packed operands. An LM's parameters cross the same way:
+:func:`lm_params_from_numpy` takes the reference's parameter tree with
+numpy leaves.
 """
 from __future__ import annotations
 
@@ -18,7 +20,7 @@ from repro_torch.core.formats import BCC, CSR, CSRCluster, CompactedC, TiledCSR
 from repro_torch.planner.plan_cache import Plan
 
 __all__ = ["PACKED_KINDS", "tensor_from_numpy", "packed_from_numpy",
-           "plan_from_numpy"]
+           "plan_from_numpy", "lm_params_from_numpy"]
 
 PACKED_KINDS = {cls.__name__: cls
                 for cls in (CSR, CSRCluster, BCC, TiledCSR, CompactedC)}
@@ -65,3 +67,46 @@ def plan_from_numpy(fields: dict) -> Plan:
             value = value.item()
         kwargs[f.name] = value
     return Plan(**kwargs)
+
+
+def lm_params_from_numpy(cfg, tree: dict, *, device):
+    """Load an LM parameter tree laid out as the JAX package's
+    ``init_params`` makes it — ``{"embed", "layers": {"ssm": {name:
+    (L, …)}}, "shared_attn": {"attn": {…}, "mlp": {…}}, "final_norm",
+    "lm_head"}`` with numpy leaves, the Mamba2 leaves stacked on a
+    leading layer axis — into the port's modules
+    (:func:`repro_torch.models.transformer.init_params`'s layout) on
+    ``device``."""
+    from torch import nn
+
+    from repro_torch.device import resolve_device
+    from repro_torch.models.layers import ParamGroup
+    from repro_torch.models.mamba2 import MAMBA2_PARAM_NAMES
+    from repro_torch.models.transformer import check_family
+
+    check_family(cfg)
+    dev = resolve_device(device)
+
+    def group(leaves: dict, index=None) -> ParamGroup:
+        return ParamGroup(**{
+            name: tensor_from_numpy(value if index is None
+                                    else np.asarray(value)[index],
+                                    device=dev)
+            for name, value in leaves.items()})
+
+    ssm = tree["layers"]["ssm"]
+    missing = set(MAMBA2_PARAM_NAMES) - set(ssm)
+    if missing:
+        raise KeyError(f"Mamba2 leaves missing: {sorted(missing)}")
+    members = {
+        "embed": tensor_from_numpy(tree["embed"], device=dev),
+        "layers": nn.ModuleList(group(ssm, i)
+                                for i in range(cfg.num_layers))}
+    if cfg.family == "hybrid":
+        members["shared_attn"] = ParamGroup(
+            attn=group(tree["shared_attn"]["attn"]),
+            mlp=group(tree["shared_attn"]["mlp"]))
+    members["final_norm"] = tensor_from_numpy(tree["final_norm"], device=dev)
+    if not cfg.tie_embeddings:
+        members["lm_head"] = tensor_from_numpy(tree["lm_head"], device=dev)
+    return ParamGroup(**members)

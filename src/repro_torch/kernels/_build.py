@@ -31,6 +31,8 @@ SOURCES = {
     "cluster_spgemm_revisit": os.path.join(_HERE, "csrc",
                                            "cluster_spgemm_revisit.cu"),
     "cluster_spmm": os.path.join(_HERE, "csrc", "cluster_spmm.cu"),
+    "flash_attention": os.path.join(_HERE, "csrc", "flash_attention.cu"),
+    "ssd_chunk": os.path.join(_HERE, "csrc", "ssd_chunk.cu"),
 }
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

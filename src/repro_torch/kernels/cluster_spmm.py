@@ -1,16 +1,22 @@
 """Cluster-wise SpMM on the card: C = A_bcc @ B with B dense (tall-skinny).
 
-A is BCC's compact (block, tile) stream — ``block_ids`` non-decreasing,
-``tile_ids`` the k-tile each slab multiplies, empty blocks carrying one
-zero slab and the tail padded with zero slabs. The kernel
-(``csrc/cluster_spmm.cu``, the counterpart of the JAX package's
-``cluster_spmm_compact``) gives each (row block, column strip) to one CTA,
-which walks its block's segment of the stream and writes its strip once.
+Two forms of A, one kernel (``csrc/cluster_spmm.cu``) that gives each
+(row block, column strip) to one CTA, which walks its block's slabs in
+order and writes its strip once:
 
-:func:`cluster_spmm_compact` is the wrapper: on a CUDA tensor it launches
-the kernel (counting the launch in its ``launches`` attribute) or raises;
-on a CPU tensor it runs :func:`cluster_spmm_compact_plain`, the same sum
-written with ``torch.bmm`` and ``index_add_``.
+* :func:`cluster_spmm_compact` (the counterpart of the JAX package's
+  ``cluster_spmm_compact``) takes BCC's compact (block, tile) stream —
+  ``block_ids`` non-decreasing, ``tile_ids`` the k-tile each slab
+  multiplies, empty blocks carrying one zero slab and the tail padded with
+  zero slabs;
+* :func:`cluster_spmm` (the counterpart of ``cluster_spmm``) takes BCC's
+  padded lattice as it is: ``tiles_per_block`` slabs per block, the pad
+  slabs zero and pointing at tile 0, all of them summed.
+
+Each wrapper, on a CUDA tensor, launches the kernel (counting the launch in
+its ``launches`` attribute) or raises; on a CPU tensor it runs its plain
+version (:func:`cluster_spmm_compact_plain`, :func:`cluster_spmm_plain`),
+the same sums written with ``torch.bmm``.
 """
 from __future__ import annotations
 
@@ -21,7 +27,8 @@ import torch.nn.functional as F
 
 from repro_torch.kernels import _build
 
-__all__ = ["cluster_spmm_compact", "cluster_spmm_compact_plain"]
+__all__ = ["cluster_spmm", "cluster_spmm_plain", "cluster_spmm_compact",
+           "cluster_spmm_compact_plain"]
 
 KERNEL_BLOCK_R = 8
 KERNEL_MAX_BN = 128
@@ -126,3 +133,101 @@ def _launch(block_ids, tile_ids, a_values, b, *, block_r, block_k, nblocks,
         raise RuntimeError(f"cluster_spmm_compact launch failed: {msg}")
     cluster_spmm_compact.launches += 1
     return out
+
+
+def _padded_operands(tile_ids, a_values, b, *, block_r, block_k,
+                     tiles_per_block):
+    dev = a_values.device
+    tile_ids = torch.as_tensor(tile_ids, device=dev).int().contiguous()
+    if a_values.shape[1:] != (block_r, block_k):
+        raise ValueError(f"a_values {tuple(a_values.shape)} is not "
+                         f"(S, {block_r}, {block_k})")
+    if tiles_per_block <= 0 or a_values.shape[0] % tiles_per_block \
+            or tile_ids.shape[0] != a_values.shape[0]:
+        raise ValueError(f"{a_values.shape[0]} slabs and "
+                         f"{tile_ids.shape[0]} tile ids are not nblocks x "
+                         f"tiles_per_block={tiles_per_block}")
+    if b.dim() != 2 or b.device != dev:
+        raise ValueError(f"b must be a 2-D tensor on {dev}")
+    if a_values.dtype != torch.float32 or b.dtype != torch.float32:
+        raise ValueError("a_values and b must be float32")
+    return tile_ids
+
+
+def cluster_spmm(tile_ids, a_values: torch.Tensor, b: torch.Tensor, *,
+                 block_r: int, block_k: int, tiles_per_block: int,
+                 bn: int = 128) -> torch.Tensor:
+    """C = A_bcc @ B over BCC's padded lattice: ``tile_ids``
+    ``(nblocks * tiles_per_block,)`` and the matching value slabs, pad
+    slabs zero. ``b`` is ``(K, N)`` fp32 (rows past K and the ragged last
+    column strip are masked, no padding needed); ``bn`` is the kernel's
+    column-strip width (≤ 128). Returns ``(nblocks * block_r, N)`` in
+    B's dtype (fp32).
+
+    CUDA tensors launch the hand-written kernel (and add one to
+    ``cluster_spmm.launches``); CPU tensors run the plain version; any
+    other device raises."""
+    if a_values.device.type == "cpu":
+        return cluster_spmm_plain(tile_ids, a_values, b, block_r=block_r,
+                                  block_k=block_k,
+                                  tiles_per_block=tiles_per_block)
+    tile_ids = _padded_operands(tile_ids, a_values, b, block_r=block_r,
+                                block_k=block_k,
+                                tiles_per_block=tiles_per_block)
+    dev = a_values.device
+    if dev.type != "cuda":
+        raise ValueError(f"cluster_spmm: tensors on {dev}; the kernel runs "
+                         "on CUDA, the plain version on the CPU")
+    if block_r != KERNEL_BLOCK_R or not 0 < bn <= KERNEL_MAX_BN:
+        raise ValueError(f"kernel takes block_r={KERNEL_BLOCK_R} and "
+                         f"0 < bn <= {KERNEL_MAX_BN}, got block_r={block_r}, "
+                         f"bn={bn}")
+    k, n = b.shape
+    nblocks = a_values.shape[0] // tiles_per_block
+    # every (block, strip) CTA writes its whole strip: no zero-fill
+    out = torch.empty((nblocks * block_r, n), dtype=b.dtype, device=dev)
+    if nblocks == 0 or n == 0:
+        return out
+    a_values = a_values.contiguous()
+    b = b.contiguous()
+    lib = _build.load("cluster_spmm")
+    fn = lib.cluster_spmm_padded_f32
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [
+        ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    rc = fn(tile_ids.data_ptr(), a_values.data_ptr(), b.data_ptr(),
+            out.data_ptr(), nblocks, tiles_per_block, block_k, k, n, bn,
+            stream)
+    if rc != 0:
+        lib.cluster_spmm_error_string.restype = ctypes.c_char_p
+        lib.cluster_spmm_error_string.argtypes = [ctypes.c_int]
+        msg = lib.cluster_spmm_error_string(rc).decode()
+        raise RuntimeError(f"cluster_spmm launch failed: {msg}")
+    cluster_spmm.launches += 1
+    return out
+
+
+cluster_spmm.launches = 0
+
+
+def cluster_spmm_plain(tile_ids, a_values: torch.Tensor, b: torch.Tensor, *,
+                       block_r: int, block_k: int,
+                       tiles_per_block: int) -> torch.Tensor:
+    """The plain PyTorch version of :func:`cluster_spmm`, on any device:
+    slot by slot over the padded lattice, every block's slab at that slot
+    against the B row band it names (``torch.bmm`` in fp32), summed in
+    slot order — pad slots included."""
+    tile_ids = _padded_operands(tile_ids, a_values, b, block_r=block_r,
+                                block_k=block_k,
+                                tiles_per_block=tiles_per_block)
+    k, n = b.shape
+    bands = F.pad(b, (0, 0, 0, (-k) % block_k)).view(-1, block_k, n)
+    nblocks = a_values.shape[0] // tiles_per_block
+    slabs = a_values.view(nblocks, tiles_per_block, block_r, block_k)
+    ids = tile_ids.long().view(nblocks, tiles_per_block)
+    c = torch.zeros((nblocks, block_r, n), dtype=torch.float32,
+                    device=b.device)
+    for t in range(tiles_per_block):
+        c += torch.bmm(slabs[:, t], bands[ids[:, t]])
+    return c.view(nblocks * block_r, n).to(b.dtype)

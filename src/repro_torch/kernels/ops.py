@@ -27,6 +27,13 @@ keep the JAX package's selection *rules*:
 Host packing stays numpy; the packed streams are moved to the operands'
 device once, in :func:`pack_spgemm`, so a caller that keeps the pack
 (the planner's serving path) launches with no host work at all.
+
+The dense-B SpMM wrappers (:func:`bcc_spmm` on BCC's padded lattice,
+:func:`bcc_spmm_compact` on its compact stream) back ``SparseLinear``;
+:func:`fused_ssd` and :func:`flash_mha` adapt the LM zoo's layouts to the
+SSD chunk-scan and flash-attention kernels. Every wrapper follows the
+port's rule: a CUDA tensor launches the kernel or raises, a CPU tensor
+runs the kernel's plain version.
 """
 from __future__ import annotations
 
@@ -53,17 +60,21 @@ from repro_torch.kernels.cluster_spgemm import (PaddedGrid, Segments,
                                                 segments_from_shards,
                                                 windows_from_pairs,
                                                 windows_from_shards)
-from repro_torch.kernels.cluster_spmm import (KERNEL_MAX_BN,
+from repro_torch.kernels.cluster_spmm import (KERNEL_MAX_BN, cluster_spmm,
                                               cluster_spmm_compact)
+from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.ssd_chunk import ssd_chunk_scan
 from repro_torch.obs import metrics as obs_metrics
 from repro_torch.obs.trace import get_tracer
 from repro_torch.resilience import faults as _faults
 
-__all__ = ["pallas_shard_count", "bcc_compact_stream", "bcc_spmm_compact",
+__all__ = ["pallas_shard_count", "bcc_spmm", "bcc_compact_stream",
+           "bcc_spmm_compact",
            "spmm_compact_stream", "build_live_pairs", "build_shard_pack",
            "build_sparse_c_pairs", "predict_c_window_density",
            "compact_grid_ok", "compact_grid_ok_ncols", "SpGEMMPack",
-           "pack_spgemm", "bcc_spgemm_tiled", "bcc_spgemm_sparse_c"]
+           "pack_spgemm", "bcc_spgemm_tiled", "bcc_spgemm_sparse_c",
+           "fused_ssd", "flash_mha"]
 
 # the JAX package's VMEM budget for pinning B's tile store on-chip; here it
 # only decides the ``resident`` label of a dense-strip launch
@@ -102,6 +113,20 @@ def pallas_shard_count() -> int:
     package fans out over its TPU cores; on one card the shards would be
     CTAs, and a default count for them is left to measurement.)"""
     return 1
+
+
+def bcc_spmm(a: BCC, b: torch.Tensor, *, bn: int = 128) -> torch.Tensor:
+    """C = A_bcc @ B (B dense ``(a.ncols, N)``) via the padded-lattice
+    kernel: every block visits all of its ``tiles_per_block`` slabs, pads
+    included. Column strips are ``min(bn, max(8, N))`` wide, as in the JAX
+    package; B's ragged rows and columns are masked in the kernel rather
+    than padded. Returns ``(a.nrows, N)`` in B's dtype (fp32)."""
+    n0 = b.shape[1]
+    bn_eff = min(bn, max(8, n0), KERNEL_MAX_BN)
+    out = cluster_spmm(a.tile_ids, a.values, b, block_r=a.block_r,
+                       block_k=a.block_k, tiles_per_block=a.tiles_per_block,
+                       bn=bn_eff)
+    return out[: a.nrows]
 
 
 def bcc_compact_stream(a: BCC, *, cover_all_blocks: bool = False
@@ -447,3 +472,55 @@ def bcc_spgemm_tiled(a: BCC | None, b: TiledCSR, *,
     _note_kernel_launch(variant, pairs=pack.pairs, block_r=pack.block_r,
                         block_k=pack.block_k, bn=b.bn)
     return out[: pack.nrows, : b.ncols]
+
+
+def fused_ssd(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
+              b: torch.Tensor, c: torch.Tensor, chunk: int
+              ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Drop-in for ``models.mamba2.ssd_chunked`` backed by the fused SSD
+    chunk-scan kernel. x (B,S,H,P); dt (B,S,H); a_log (H,); b/c
+    (B,S,G,N) with G groups broadcast over heads. dt is folded into x and
+    into the log-decay ``-exp(a_log)·dt`` here, and every tensor is laid
+    out as (B·H, nc, Q, …). Returns (y (B,S,H,P) in x's dtype, state
+    (B,H,P,N) fp32)."""
+    bsz, s, h, p = x.shape
+    g, n = b.shape[2], b.shape[3]
+    if s % chunk:
+        raise ValueError(f"sequence {s} is not a multiple of chunk {chunk}")
+    nc = s // chunk
+    rep = h // g
+    dt32 = dt.float()
+    a_step = (-torch.exp(a_log.float()))[None, None, :] * dt32   # (B,S,H)
+    xd = x.float() * dt32[..., None]
+
+    def to_bh(t):   # (B,S,H,...) -> (B*H, nc, Q, ...)
+        t = t.movedim(2, 1)                                       # (B,H,S,...)
+        return t.reshape(bsz * h, nc, chunk, *t.shape[3:])
+
+    def heads(t):   # (B,S,G,N) -> (B,S,H,N), each group over its heads
+        return t[:, :, :, None, :].expand(bsz, s, g, rep, n).reshape(
+            bsz, s, h, n)
+
+    y, hfin = ssd_chunk_scan(to_bh(xd), to_bh(a_step),
+                             to_bh(heads(b).float()),
+                             to_bh(heads(c).float()))
+    y = y.reshape(bsz, h, s, p).movedim(1, 2).to(x.dtype)
+    state = hfin.reshape(bsz, h, n, p).movedim(2, 3)              # (B,H,P,N)
+    return y, state
+
+
+def flash_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+              causal: bool = True) -> torch.Tensor:
+    """GQA flash attention: q (B,Hq,S,D), k/v (B,Hkv,S,D), Hq % Hkv == 0;
+    each KV head is repeated over its Hq / Hkv query heads."""
+    bsz, hq, sq, d = q.shape
+    _, hkv, sk, _ = k.shape
+    if hq % hkv:
+        raise ValueError(f"{hq} query heads do not share {hkv} KV heads")
+    rep = hq // hkv
+    k = torch.repeat_interleave(k, rep, dim=1)
+    v = torch.repeat_interleave(v, rep, dim=1)
+    out = flash_attention(q.reshape(bsz * hq, sq, d),
+                          k.reshape(bsz * hq, sk, d),
+                          v.reshape(bsz * hq, sk, d), causal=causal)
+    return out.reshape(bsz, hq, sq, d)

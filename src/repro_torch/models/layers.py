@@ -1,0 +1,81 @@
+"""Shared neural-net primitives: RMSNorm, SwiGLU, RoPE, and the parameter
+container of the model zoo.
+
+The counterparts of the JAX package's ``models/layers.py`` for the
+families the port runs. M-RoPE (the VLM family) and the cross-entropy
+(training) come with those paths.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+__all__ = ["rmsnorm", "swiglu", "rope_cos_sin", "apply_rope", "ParamGroup",
+           "normal_init"]
+
+
+def rmsnorm(x: torch.Tensor, w: torch.Tensor,
+            eps: float = 1e-5) -> torch.Tensor:
+    """RMS-normalise the last axis in fp32 and scale by ``1 + w`` (the
+    weights are stored as offsets from one, so zeros are the identity)."""
+    dt = x.dtype
+    x = x.float()
+    x = x * torch.rsqrt(torch.mean(x * x, dim=-1, keepdim=True) + eps)
+    return (x * (1.0 + w.float())).to(dt)
+
+
+def swiglu(x: torch.Tensor, wg: torch.Tensor, wu: torch.Tensor,
+           wd: torch.Tensor) -> torch.Tensor:
+    return (F.silu(x @ wg) * (x @ wu)) @ wd
+
+
+def rope_cos_sin(positions: torch.Tensor, head_dim: int,
+                 theta: float) -> tuple[torch.Tensor, torch.Tensor]:
+    """positions (..., S) → cos/sin (..., S, head_dim//2) in fp32."""
+    half = head_dim // 2
+    exponent = -torch.arange(half, dtype=torch.float32,
+                             device=positions.device) / half
+    freq = torch.pow(torch.tensor(theta, dtype=torch.float32,
+                                  device=positions.device), exponent)
+    ang = positions[..., None].float() * freq
+    return torch.cos(ang), torch.sin(ang)
+
+
+def apply_rope(x: torch.Tensor, cos: torch.Tensor,
+               sin: torch.Tensor) -> torch.Tensor:
+    """x (B, S, H, D); cos/sin (B, S, D//2) — rotate-half convention."""
+    dt = x.dtype
+    x = x.float()
+    half = x.shape[-1] // 2
+    x1, x2 = x[..., :half], x[..., half:]
+    c = cos[:, :, None, :]
+    s = sin[:, :, None, :]
+    return torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], dim=-1).to(dt)
+
+
+class ParamGroup(nn.Module):
+    """One block's weights — a node of the JAX package's parameter tree —
+    as frozen parameters (tensors) and child groups (modules). Members are
+    read by name, ``p["wz"]``, as the reference reads its dicts."""
+
+    def __init__(self, **members):
+        super().__init__()
+        for name, value in members.items():
+            if isinstance(value, nn.Module):
+                self.add_module(name, value)
+            else:
+                self.register_parameter(
+                    name, nn.Parameter(value, requires_grad=False))
+
+    def __getitem__(self, name: str):
+        return getattr(self, name)
+
+
+def normal_init(shape, scale: float, generator: torch.Generator, *,
+                device, dtype=torch.float32) -> torch.Tensor:
+    """``scale · N(0, 1)`` of ``shape``, drawn in fp32 from ``generator``
+    on ``device`` and cast to ``dtype``."""
+    x = torch.randn(shape, generator=generator, device=device,
+                    dtype=torch.float32)
+    return (x * scale).to(dtype)

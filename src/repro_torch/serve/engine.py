@@ -1,4 +1,9 @@
-"""Planner-driven SpGEMM serving on the card.
+"""Serving on the card: the LM serving step and planner-driven SpGEMM
+serving.
+
+``make_serve_step`` returns the one-token step of LM serving (greedy, or
+sampled with an explicit :class:`torch.Generator`); ``launch/serve.py``
+drives it after a prefill.
 
 ``SpGEMMServer`` serves repeated sparse products: requests are (matrix,
 operand, reuse hint) triples, and every pattern goes through the
@@ -13,11 +18,13 @@ from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Optional
+from typing import Callable, Optional
 
 import numpy as np
+import torch
 
 from repro_torch.core.formats import HostCSR
+from repro_torch.models.transformer import decode_step
 from repro_torch.obs import metrics as obs_metrics
 from repro_torch.obs.trace import get_tracer
 from repro_torch.planner.plan_cache import PlanCache
@@ -25,7 +32,30 @@ from repro_torch.planner.service import Planner
 from repro_torch.resilience.errors import InvalidOperandError
 from repro_torch.resilience.validation import validate_request_pair
 
-__all__ = ["SpGEMMResponse", "SpGEMMServer"]
+__all__ = ["make_serve_step", "SpGEMMResponse", "SpGEMMServer"]
+
+
+def make_serve_step(cfg, *, sample: bool = False,
+                    temperature: float = 1.0) -> Callable:
+    """Returns ``f(params, cache, batch, generator=None) -> (next_token,
+    cache)``: one :func:`~repro_torch.models.transformer.decode_step`,
+    then the argmax of the last logits — or, with ``sample``, of the
+    logits over ``temperature`` plus Gumbel noise drawn from
+    ``generator`` (a :class:`torch.Generator` on the logits' device)."""
+
+    def serve_step(params, cache, batch, generator=None):
+        logits, cache = decode_step(cfg, params, batch, cache)
+        last = logits[:, -1]
+        if not sample:
+            return torch.argmax(last, dim=-1), cache
+        if generator is None:
+            raise ValueError("sampling needs an explicit generator")
+        # -log(E) with E ~ Exp(1) is a standard Gumbel draw
+        gumbel = -torch.log(torch.empty_like(last).exponential_(
+            generator=generator))
+        return torch.argmax(last / temperature + gumbel, dim=-1), cache
+
+    return serve_step
 
 
 @dataclasses.dataclass

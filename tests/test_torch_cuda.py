@@ -8,7 +8,11 @@ Every test here needs an NVIDIA card (Hopper: the kernels are built for
 This file imports no JAX, so it runs where only the port is installed.
 Integer-valued operands compare exactly (``torch.equal``); bf16 B tiles
 are compared with the plain version on the same bf16 inputs within 1e-5
-of the largest value (fp32 summation order is the only difference).
+of the largest value (fp32 summation order is the only difference). The
+flash-attention and SSD chunk-scan kernels sum in another order than
+their plain versions: attention within 1e-5 absolute plus 1e-4 relative,
+the scan within 1e-4 of its largest output (its sums run over up to 300
+decayed terms).
 """
 import numpy as np
 import pytest
@@ -22,8 +26,16 @@ from repro_torch.kernels.cluster_spgemm import (
     cluster_spgemm_revisit, cluster_spgemm_revisit_plain,
     cluster_spgemm_sharded, cluster_spgemm_sharded_plain,
     cluster_spgemm_windows, cluster_spgemm_windows_plain)
-from repro_torch.kernels.cluster_spmm import (cluster_spmm_compact,
-                                              cluster_spmm_compact_plain)
+from repro_torch.kernels.cluster_spmm import (cluster_spmm,
+                                              cluster_spmm_compact,
+                                              cluster_spmm_compact_plain,
+                                              cluster_spmm_plain)
+from repro_torch.kernels.flash_attention import (flash_attention,
+                                                 flash_attention_plain)
+from repro_torch.kernels.ssd_chunk import (ssd_chunk_scan,
+                                           ssd_chunk_scan_plain)
+from repro_torch.launch.serve import run_serving
+from repro_torch.models.sparse_linear import SparseLinear
 from repro_torch.planner.features import fingerprint
 from repro_torch.planner.plan_cache import Plan, PlanCache
 from repro_torch.planner.service import Planner
@@ -197,3 +209,108 @@ def test_server_ladder_degrades_to_the_fixed_rung_on_the_card(card):
     assert np.array_equal(resp.result, a.to_dense() @ a.to_dense())
     nxt = server.submit(a)
     assert nxt.scheme != "pallas" and not nxt.degraded
+
+
+@pytest.mark.parametrize("n_cols", [64, 40, 5])
+def test_padded_spmm_kernel_matches_plain(card, n_cols):
+    """BCC's padded lattice (K9): every block's tiles_per_block slabs,
+    pads included; ragged K (260 rows) and N masked in the kernel."""
+    a = _host(300, 260, 0.05, 12)
+    bcc = bcc_from_host(a, device=card)
+    assert int(bcc.ntiles.min()) < bcc.tiles_per_block   # some pad slabs
+    rng = np.random.default_rng(n_cols)
+    bd = torch.from_numpy(rng.integers(-2, 3, (260, n_cols)).astype(
+        np.float32)).to(card)
+    kw = dict(block_r=8, block_k=128, tiles_per_block=bcc.tiles_per_block)
+    before = cluster_spmm.launches
+    got = cluster_spmm(bcc.tile_ids, bcc.values, bd,
+                       bn=min(128, max(8, n_cols)), **kw)
+    torch.cuda.synchronize()
+    assert cluster_spmm.launches == before + 1
+    assert torch.equal(got, cluster_spmm_plain(bcc.tile_ids, bcc.values,
+                                               bd, **kw))
+    assert np.array_equal(ops.bcc_spmm(bcc, bd).cpu().numpy(),
+                          a.to_dense() @ bd.cpu().numpy())
+
+
+@pytest.mark.parametrize("compact", [False, True])
+def test_sparse_linear_on_the_card(card, compact):
+    rng = np.random.default_rng(13)
+    w = ((rng.random((96, 700)) < 0.08)
+         * rng.integers(1, 4, (96, 700))).astype(np.float32)
+    lin = SparseLinear.from_dense(w, density=0.05, device=card)
+    x = torch.from_numpy(rng.integers(-2, 3, (3, 5, 700)).astype(
+        np.float32)).to(card)
+    got = lin.apply(x, compact=compact)
+    want = lin.apply(x, use_kernel=False)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("bh,sq,sk,d,causal", [
+    (3, 128, 128, 16, True),
+    (2, 256, 256, 64, True),
+    (4, 1000, 1000, 80, True),       # ragged tail of a 64-row block
+    (2, 300, 300, 128, True),
+    (2, 100, 260, 80, False),
+    (1, 1, 1, 80, True),
+])
+def test_flash_attention_kernel_matches_plain(card, bh, sq, sk, d, causal):
+    g = torch.Generator(device=card).manual_seed(bh * sq + d)
+    q, k, v = (torch.randn((bh, s, d), generator=g, device=card)
+               for s in (sq, sk, sk))
+    before = flash_attention.launches
+    got = flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    want = flash_attention_plain(q, k, v, causal=causal)
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-5)
+
+
+def test_flash_mha_gqa_on_the_card(card):
+    g = torch.Generator(device=card).manual_seed(14)
+    q = torch.randn((2, 8, 192, 80), generator=g, device=card)
+    k, v = (torch.randn((2, 2, 192, 80), generator=g, device=card)
+            for _ in range(2))
+    got = ops.flash_mha(q, k, v)
+    want = flash_attention_plain(
+        q.reshape(16, 192, 80),
+        torch.repeat_interleave(k, 4, dim=1).reshape(16, 192, 80),
+        torch.repeat_interleave(v, 4, dim=1).reshape(16, 192, 80))
+    torch.testing.assert_close(got, want.reshape(2, 8, 192, 80), rtol=1e-4,
+                               atol=1e-5)
+
+
+@pytest.mark.parametrize("bh,nc,q,p,n", [
+    (4, 3, 64, 16, 16),
+    (3, 2, 256, 64, 64),             # the zamba2 chunk
+    (2, 1, 300, 64, 64),             # one ragged chunk of a whole sequence
+    (2, 2, 32, 64, 128),
+    (2, 3, 1, 8, 8),
+])
+def test_ssd_chunk_kernel_matches_plain(card, bh, nc, q, p, n):
+    g = torch.Generator(device=card).manual_seed(bh * q + n)
+    x = torch.randn((bh, nc, q, p), generator=g, device=card) * 0.3
+    a = -torch.rand((bh, nc, q), generator=g, device=card) * 0.3
+    b, c = (torch.randn((bh, nc, q, n), generator=g, device=card)
+            for _ in range(2))
+    before = ssd_chunk_scan.launches
+    y, h = ssd_chunk_scan(x, a, b, c)
+    torch.cuda.synchronize()
+    assert ssd_chunk_scan.launches == before + 1
+    y0, h0 = ssd_chunk_scan_plain(x, a, b, c)
+    for got, want in ((y, y0), (h, h0)):
+        err = float((got - want).abs().max())
+        assert err <= 1e-4 * max(1.0, float(want.abs().max())), err
+
+
+def test_run_serving_launches_both_lm_kernels(card):
+    """The zamba2 smoke config (4 Mamba2 layers, the shared attention
+    block after every 2): one prefill is 2 flash-attention and 4 SSD
+    launches; decoding launches neither."""
+    flash_attention.launches = 0
+    ssd_chunk_scan.launches = 0
+    out = run_serving("zamba2-2.7b", smoke=True, batch=2, prompt_len=40,
+                      gen=4)
+    assert (flash_attention.launches, ssd_chunk_scan.launches) == (2, 4)
+    assert out["tokens"].shape == (2, 4)
+    assert (out["tokens"] < 128).all()

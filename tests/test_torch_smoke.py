@@ -1,8 +1,9 @@
 """``chip_smoke.py`` — the script that drives the port on a card — keeps
 its contract off the card: without CUDA it exits non-zero and prints no
 result, and its ``--rehearse`` dry run (every phase on the CPU at small
-sizes, through the plain versions) runs to its end and exits 2 without
-the final ``{"ok": true, ...}`` line."""
+sizes, through the plain versions; the LM phase on the zamba2 smoke
+config) runs to its end and exits 2 without the final
+``{"ok": true, ...}`` line."""
 import json
 import pathlib
 import sys
@@ -33,7 +34,8 @@ def test_rehearsal_runs_every_phase(capsys):
     names = [k["name"] for k in summary["kernels"]]
     assert names == ["cluster_spgemm_windows", "cluster_spmm_compact",
                      "cluster_spgemm_padded", "cluster_spgemm_revisit",
-                     "cluster_spgemm_sharded"]
+                     "cluster_spgemm_sharded", "cluster_spmm",
+                     "flash_attention", "ssd_chunk_scan"]
     keys = {"name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"}
     for k in summary["kernels"]:
@@ -56,7 +58,20 @@ def test_rehearsal_runs_every_phase(capsys):
             assert not r["degraded"]
     calls = [json.loads(line.split("call ", 1)[1]) for line in lines
              if line.startswith("  call ")]
-    assert len(calls) == 3 and all(c["exact"] for c in calls)
+    assert len(calls) == 4
+    assert all(c["exact"] for c in calls[:3])
+    assert calls[3]["SparseLinear.apply"] == {"compact": False}
+    assert calls[3]["exact_vs_dense_pruned"]
+    serving = json.loads(next(line for line in lines
+                              if line.startswith("  serving "))
+                         .split("serving ", 1)[1])
+    assert serving["arch"] == "zamba2-2.7b" and serving["tokens_in_vocab"]
+    assert serving["expected_launches"] == {"flash_attention": 2,
+                                            "ssd_chunk_scan": 4}
+    check = json.loads(next(line for line in lines if line.startswith(
+        "  kernel vs chunked prefill ")).split("prefill ", 1)[1])
+    assert check["finite"]
+    assert check["max_abs_logit_diff"] <= 2e-3 * check["max_abs_logit"]
 
 
 def test_device_time_counts_device_events_once():
