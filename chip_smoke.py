@@ -17,9 +17,14 @@ Phases (any failure exits non-zero before the last line is printed):
    version's, the bound (from the work the product needs: true flops, CSR
    operands read once, the result written once), the bound of the
    kernel's tile-padded work beside it, and one PyTorch library call
-   timed as a yardstick the port never calls. The kernels: the window
+   timed as a yardstick the port never calls; the two kernels that walk
+   A's live slab columns also print their own device time (profiler),
+   the work bound of that walk and the time to build the live-column
+   form. The kernels: the window
    kernel (kron-14 dense strips, caveman-16384 slabs, a block_k = 512
-   case, bf16 tiles), the compact SpMM kernel, the padded-grid kernel on
+   case, bf16 tiles), the compact SpMM kernel (kron-14 with N = 64 and a
+   ragged 40, caveman-16384, the block_k = 512 powerlaw, and
+   SparseLinear's dense-slab layer), the padded-grid kernel on
    a wide A·B (the first 8,192 rows of a 288 × 288 mesh times the mesh:
    82,944 columns, past the live-pair grid's strip budget; fp32 and bf16
    tiles), the revisit kernel and the sharded kernel (kron-14 with 1 and
@@ -48,8 +53,10 @@ Phases (any failure exits non-zero before the last line is printed):
    choice is printed, not asserted. Phase 3b drives
    ``bcc_spgemm_tiled(shards=…, revisit=…)`` on kron-14 the same way
    (the revisit kernel once, the sharded kernel twice);
-3c. SparseLinear's padded path — ``SparseLinear.apply(x, compact=False)``
-   on the phase-2 layer, once, equal to the dense pruned product;
+3c. SparseLinear — ``SparseLinear.apply(x, compact=False)`` (the padded
+   lattice) and ``apply(x)`` (the compact stream's live columns, kept
+   with the layer) on the phase-2 layer, once each, equal to the dense
+   pruned product;
 3d. LM serving, after the SpGEMM phases' memory is released —
    ``run_serving("zamba2-2.7b", smoke=False, batch=4, prompt_len=1024,
    gen=32)``: 54 Mamba2 layers, d_model 2560, 2.42 B random fp32
@@ -131,11 +138,81 @@ def timed_ms(fn, device, reps: int = 5) -> float:
     return statistics.median(times)
 
 
+def kernel_device_ms(fn, device, kernel: str, reps: int = 5):
+    """Median device time of the kernel named ``kernel`` in one call of
+    ``fn``, from the profiler's device events: the kernel alone, without
+    the wrapper's host work and its other launches (zero-fill, stream
+    offsets), which the CUDA-event time of a call includes. None on the
+    CPU."""
+    import torch
+    from torch.autograd import DeviceType
+    if device.type != "cuda":
+        return None
+    fn()
+    times = []
+    for _ in range(reps):
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        times.append(sum(ev.time_range.elapsed_us() for ev in prof.events()
+                         if ev.device_type == DeviceType.CUDA
+                         and kernel in ev.name) / 1e3)
+    return statistics.median(times)
+
+
 def bound(nbytes: int, flops: int) -> tuple[float, str]:
     t_bytes = nbytes / PEAK_BYTES_PER_S
     t_ops = flops / PEAK_FP32_FLOPS
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
+
+
+def column_work(cols, unit_slabs, row_keys, row_bytes: int, out_bytes: int,
+                width: int) -> dict:
+    """The live-column walk's own work, for its bound: every visit of a
+    unit (a stream step, or a live pair) to a live column of its slab is
+    8 FMAs per output column (``2 * 8 * width`` flops); its bytes are the
+    column lists once, each distinct B row the visits select once
+    (``row_bytes`` each) and the output once. ``row_keys(visit_slab,
+    visit_col, visit_unit)`` names the B row of each visit."""
+    import torch
+    dev = cols.col_ptr.device
+    slab = unit_slabs.long()
+    c0 = cols.col_ptr[:-1].long()[slab]
+    ncol = cols.col_ptr[1:].long()[slab] - c0
+    visits = int(ncol.sum())
+    unit = torch.repeat_interleave(torch.arange(slab.shape[0], device=dev),
+                                   ncol)
+    first = torch.cumsum(ncol, 0) - ncol
+    col = c0[unit] + torch.arange(visits, device=dev) - first[unit]
+    rows = int(torch.unique(row_keys(slab[unit], col, unit)).numel())
+    del unit, col
+    col_bytes = 4 * (cols.nslabs + 1) + 36 * cols.ncols
+    flops = 2 * 8 * width * visits
+    nbytes = col_bytes + rows * row_bytes + out_bytes
+    ms, by = bound(nbytes, flops)
+    return {"live_columns": cols.ncols, "live_column_visits": visits,
+            "distinct_b_rows": rows, "work_flops": flops,
+            "work_bytes": nbytes, "work_bound_ms": ms, "work_bound_by": by,
+            "work_bound_rule": ("max(bytes: column lists + distinct B rows "
+                                "selected + output once / 3.35 TB/s, "
+                                "2*8*width flops per live-column visit / "
+                                "67 TFLOP/s fp32)")}
+
+
+def spmm_work(cols, tile_ids, block_k: int, n_cols: int,
+              out_bytes: int) -> dict:
+    """:func:`column_work` of the compact SpMM: each step visits its own
+    slab's live columns once, and a visit selects B's row
+    ``tile_ids[step] * block_k + k`` (``n_cols`` fp32 values)."""
+    import torch
+    steps = torch.arange(cols.nslabs, device=cols.col_ptr.device)
+    return column_work(
+        cols, steps,
+        lambda slab, col, unit: (tile_ids.long()[slab] * block_k
+                                 + cols.col_k.long()[col]),
+        4 * n_cols, out_bytes, n_cols)
 
 
 def csr_bytes(nrows: int, nnz: int) -> int:
@@ -191,14 +268,18 @@ def window_case(name, h, device, *, sparse_c, b_dtype=None, windows=None,
                                 dtype=b_dtype or torch.float32)
     if windows is None:
         pack = ops.pack_spgemm(bcc, tiled, sparse_c=sparse_c)
-        windows, a_vals = pack.launch, pack.stream[2]
+        windows, a_vals, cols = pack.launch, pack.stream[2], pack.cols
     else:
         a_vals = ops.bcc_compact_stream(bcc, cover_all_blocks=True)[2]
+        cols = ops.slab_columns(a_vals)
     del bcc
+    # the live-column form is built once per packed operand: timed alone
+    cols_ms = (timed_ms(lambda: ops.slab_columns(a_vals), device)
+               if timing else None)
     run = lambda: cluster_spgemm_windows(windows, a_vals,  # noqa: E731
-                                         tiled.tiles)
+                                         tiled.tiles, cols)
     plain = lambda: cluster_spgemm_windows_plain(  # noqa: E731
-        windows, a_vals, tiled.tiles)
+        windows, a_vals, tiled.tiles, cols)
     got, want = run(), plain()
     err = float((got - want).abs().max()) if got.numel() else 0.0
     if tol is None:
@@ -208,6 +289,8 @@ def window_case(name, h, device, *, sparse_c, b_dtype=None, windows=None,
         ok = err <= tol * max(float(want.abs().max()), 1e-30)
         tol_txt = f"max|kernel-plain| <= {tol:g} x max|plain|"
     ms = timed_ms(run, device) if timing else None
+    device_ms = (kernel_device_ms(run, device, "window_kernel")
+                 if timing else None)
     plain_ms = timed_ms(plain, device) if timing else None
     # the bound: what A @ A needs — its true flops, the CSR operand read
     # once, the result written once (dense C on the dense route; on the
@@ -230,6 +313,14 @@ def window_case(name, h, device, *, sparse_c, b_dtype=None, windows=None,
                   + 4 * (windows.nwin + 1) + 8 * windows.nwin
                   + 8 * windows.npairs)
     tile_bound_ms, tile_bound_by = bound(tile_bytes, tile_flops)
+    # the live-column walk's own work: each pair's visits to its slab's
+    # live columns, the B tile rows (slot, k) they select
+    work = column_work(
+        cols, windows.a_idx,
+        lambda slab, col, unit: (windows.slots.long()[unit] * bk
+                                 + cols.col_k.long()[col]),
+        windows.bn * tiled.tiles.element_size(), got.numel() * 4,
+        windows.bn)
     hc = torch_csr(h, device)
     lib = (lambda: torch.sparse.mm(hc, hc)) if sparse_c else (
         lambda: torch.sparse.mm(hc, hc).to_dense())
@@ -243,7 +334,8 @@ def window_case(name, h, device, *, sparse_c, b_dtype=None, windows=None,
             "a_stream_bytes": a_bytes, "b_tile_bytes": b_bytes,
             "out_bytes": got.numel() * 4,
             "max_abs_err": err, "tolerance": tol_txt, "matched": ok,
-            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "ms": ms, "kernel_device_ms": device_ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms,
             "bound_by": bound_by,
             "bound_rule": ("max(bytes: CSR A once + result once (dense C, "
                            "or C's nonzeros as CSR on the slab route) / "
@@ -253,6 +345,7 @@ def window_case(name, h, device, *, sparse_c, b_dtype=None, windows=None,
             "tile_bound_rule": ("max(bytes: A stream + B tiles + output + "
                                 "index arrays once / 3.35 TB/s, tile fp32 "
                                 "FMAs 2*pairs*8*block_k*bn / 67 TFLOP/s)"),
+            **work, "slab_columns_ms": cols_ms,
             "library": "torch.sparse.mm(csr, csr)"
                        + ("" if sparse_c else ".to_dense()"),
             "library_ms": lib_ms,
@@ -265,15 +358,20 @@ def window_case(name, h, device, *, sparse_c, b_dtype=None, windows=None,
 
 
 def spmm_case(name, h, n_cols, device, rng, *, timing=True):
+    """The compact SpMM kernel (K4) on ``h`` times a dense integer B of
+    ``n_cols`` columns, at the serving path's adaptive ``block_k``."""
     import torch
-    from repro_torch.core.formats import bcc_from_host
+    from repro_torch.core.formats import bcc_from_host, select_block_k
     from repro_torch.kernels import ops
     from repro_torch.kernels.cluster_spmm import (
         KERNEL_MAX_BN, cluster_spmm_compact, cluster_spmm_compact_plain)
     launches0 = cluster_spmm_compact.launches
-    bcc = bcc_from_host(h, device=device)
+    bcc = bcc_from_host(h, block_k=select_block_k(h), device=device)
     block_ids, tile_ids, a_vals = ops.bcc_compact_stream(
         bcc, cover_all_blocks=True)
+    cols = ops.slab_columns(a_vals)
+    cols_ms = (timed_ms(lambda: ops.slab_columns(a_vals), device)
+               if timing else None)
     nblocks = bcc.nblocks
     b = torch.from_numpy(rng.integers(1, 4, (h.ncols, n_cols)).astype(
         np.float32)).to(device)
@@ -282,13 +380,15 @@ def spmm_case(name, h, n_cols, device, rng, *, timing=True):
     kw = dict(block_r=bcc.block_r, block_k=bcc.block_k, nblocks=nblocks)
     bn = min(KERNEL_MAX_BN, n_cols)
     run = lambda: cluster_spmm_compact(bids, tids, a_vals, b,  # noqa: E731
-                                       bn=bn, **kw)
+                                       bn=bn, cols=cols, **kw)
     plain = lambda: cluster_spmm_compact_plain(  # noqa: E731
-        bids, tids, a_vals, b, **kw)
+        bids, tids, a_vals, b, cols=cols, **kw)
     got, want = run(), plain()
     err = float((got - want).abs().max())
     ok = bool(torch.equal(got, want))
     ms = timed_ms(run, device) if timing else None
+    device_ms = (kernel_device_ms(run, device, "spmm_columns_kernel")
+                 if timing else None)
     plain_ms = timed_ms(plain, device) if timing else None
     steps = int(a_vals.shape[0])
     # the bound: 2 flops per nonzero per column, CSR A + B read once, C
@@ -301,6 +401,7 @@ def spmm_case(name, h, n_cols, device, rng, *, timing=True):
     tile_bytes = (a_vals.numel() * 4 + b.numel() * 4 + got.numel() * 4
                   + 8 * steps + 4 * (nblocks + 1))
     tile_bound_ms, tile_bound_by = bound(tile_bytes, tile_flops)
+    work = spmm_work(cols, tids, bcc.block_k, n_cols, got.numel() * 4)
     hc = torch_csr(h, device)
     lib_ms = (library_ms(lambda: torch.sparse.mm(hc, b), device)
               if timing else None)
@@ -309,14 +410,15 @@ def spmm_case(name, h, n_cols, device, rng, *, timing=True):
             "steps": steps, "true_flops": true_flops,
             "tile_flops": tile_flops, "max_abs_err": err,
             "tolerance": "exact (torch.equal)", "matched": ok, "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by,
+            "kernel_device_ms": device_ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
             "bound_rule": ("max(bytes: CSR A + B + C once / 3.35 TB/s, "
                            "2*nnz*N flops / 67 TFLOP/s fp32)"),
             "tile_bound_ms": tile_bound_ms, "tile_bound_by": tile_bound_by,
             "tile_bound_rule": ("max(bytes: A stream + B + C + index arrays "
                                 "once / 3.35 TB/s, tile fp32 FMAs "
                                 "2*steps*8*block_k*N / 67 TFLOP/s)"),
+            **work, "slab_columns_ms": cols_ms,
             "library": "torch.sparse.mm(csr, dense)", "library_ms": lib_ms,
             "compare_launches": cluster_spmm_compact.launches - launches0}
     log("  case", json.dumps(case))
@@ -422,7 +524,8 @@ def stream_cases(label, h, device, configs, *, timing=True):
     bcc = bcc_from_host(h, block_k=bk, device=device)
     tiled = tiled_csr_from_host(h, block_k=bk, device=device)
     flat = ops.pack_spgemm(bcc, tiled, sparse_c=False)
-    base = cluster_spgemm_windows(flat.launch, flat.stream[2], tiled.tiles)
+    base = cluster_spgemm_windows(flat.launch, flat.stream[2], tiled.tiles,
+                                  flat.cols)
     del flat
     true_flops = flops_spgemm(h, h)
     bound_ms, bound_by = bound(csr_bytes(h.nrows, h.nnz)
@@ -444,8 +547,11 @@ def stream_cases(label, h, device, configs, *, timing=True):
                                     cluster_spgemm_sharded,
                                     cluster_spgemm_sharded_plain)
         launches0 = fn.launches
-        run = lambda: fn(work, a_vals, tiled.tiles)  # noqa: E731
-        plain = lambda: plain_fn(work, a_vals, tiled.tiles)  # noqa: E731
+        # the window variant walks live columns, packed with the shards
+        extra = (pack.cols,) if kernel == "cluster_spgemm_sharded" else ()
+        run = lambda: fn(work, a_vals, tiled.tiles, *extra)  # noqa: E731
+        plain = lambda: plain_fn(  # noqa: E731
+            work, a_vals, tiled.tiles, *extra)
         got, want = run(), plain()
         ok = bool(torch.equal(got, want)) and bool(torch.equal(got, base))
         err = max(float((got - want).abs().max()),
@@ -459,6 +565,11 @@ def stream_cases(label, h, device, configs, *, timing=True):
         tile_bytes = (a_vals.numel() * 4 + tiled.tiles.numel() * 4
                       + got.numel() * 4 + 12 * npairs)
         tile_bound_ms, tile_bound_by = bound(tile_bytes, tile_flops)
+        walk = ({} if pack.cols is None else column_work(
+            pack.cols, work.a_idx,
+            lambda slab, col, unit: (work.slots.long()[unit] * bk
+                                     + pack.cols.col_k.long()[col]),
+            work.bn * 4, got.numel() * 4, work.bn))
         case = {"case": f"{kernel} ({label}, shards={shards}, "
                         f"revisit={revisit})",
                 "kernel": kernel, "rows": h.nrows, "nnz": h.nnz,
@@ -475,7 +586,7 @@ def stream_cases(label, h, device, configs, *, timing=True):
                 "bound_rule": ("max(bytes: CSR A once + dense C once / "
                                "3.35 TB/s, true flops / 67 TFLOP/s fp32)"),
                 "tile_bound_ms": tile_bound_ms,
-                "tile_bound_by": tile_bound_by,
+                "tile_bound_by": tile_bound_by, **walk,
                 "library": "torch.sparse.mm(csr, csr).to_dense()",
                 "library_ms": lib_ms,
                 "compare_launches": fn.launches - launches0}
@@ -526,7 +637,6 @@ def padded_spmm_case(name, layer, x, device, *, timing=True):
     """The padded-lattice SpMM kernel (K9) at SparseLinear's padded path:
     the packed weight against the activations' transpose."""
     import torch
-    from repro_torch.kernels import ops
     from repro_torch.kernels.cluster_spmm import (KERNEL_MAX_BN,
                                                   cluster_spmm,
                                                   cluster_spmm_plain)
@@ -545,10 +655,6 @@ def padded_spmm_case(name, layer, x, device, *, timing=True):
     err = float((got - want).abs().max())
     ms = timed_ms(run, device) if timing else None
     plain_ms = timed_ms(plain, device, reps=3) if timing else None
-    # SparseLinear's default (compact) path on the same operands, its
-    # compact stream rebuilt on the host in every call, as apply does
-    compact_path_ms = (timed_ms(lambda: ops.bcc_spmm_compact(bcc, xt),
-                                device) if timing else None)
     # the yardstick: cuSPARSE's CSR × dense on the packed weight
     dense_w = bcc.to_dense()
     wc = dense_w.to_sparse_csr()
@@ -575,7 +681,6 @@ def padded_spmm_case(name, layer, x, device, *, timing=True):
             "true_flops": true_flops, "tile_flops": tile_flops,
             "max_abs_err": err, "tolerance": "exact (torch.equal)",
             "matched": ok, "ms": ms, "plain_ms": plain_ms,
-            "compact_path_ms_with_host_stream": compact_path_ms,
             "bound_ms": bound_ms, "bound_by": bound_by,
             "bound_rule": ("max(bytes: CSR weight + activations + result "
                            "once / 3.35 TB/s, 2*nnz*tokens flops / "
@@ -590,6 +695,75 @@ def padded_spmm_case(name, layer, x, device, *, timing=True):
     log("  case", json.dumps(case))
     if not ok:
         raise SystemExit(f"padded SpMM kernel disagrees with its plain "
+                         f"version on {name}: max abs err {err}")
+    return case
+
+
+def linear_compact_case(name, layer, x, device, *, timing=True):
+    """The compact SpMM kernel (K4) at SparseLinear's default path: the
+    layer's kept compact stream and live columns (built once with the
+    layer) against the activations' transpose. Its slabs are dense — every
+    column live — the live-column form's worst case; K9's padded-lattice
+    kernel on the same slabs is timed beside it."""
+    import torch
+    from repro_torch.kernels.cluster_spmm import (
+        KERNEL_MAX_BN, cluster_spmm, cluster_spmm_compact,
+        cluster_spmm_compact_plain)
+    launches0 = cluster_spmm_compact.launches
+    bcc = layer.bcc
+    (block_ids, tile_ids, a_vals), cols = layer.stream, layer.cols
+    bids = torch.from_numpy(block_ids).to(device)
+    tids = torch.from_numpy(tile_ids).to(device)
+    xt = x.T.contiguous()                       # (in, tokens)
+    tokens = xt.shape[1]
+    kw = dict(block_r=bcc.block_r, block_k=bcc.block_k, nblocks=bcc.nblocks)
+    bn = min(KERNEL_MAX_BN, tokens)
+    run = lambda: cluster_spmm_compact(bids, tids, a_vals, xt,  # noqa: E731
+                                       bn=bn, cols=cols, **kw)
+    plain = lambda: cluster_spmm_compact_plain(  # noqa: E731
+        bids, tids, a_vals, xt, cols=cols, **kw)
+    got, want = run(), plain()
+    ok = bool(torch.equal(got, want))
+    err = float((got - want).abs().max())
+    ms = timed_ms(run, device) if timing else None
+    device_ms = (kernel_device_ms(run, device, "spmm_columns_kernel")
+                 if timing else None)
+    plain_ms = timed_ms(plain, device, reps=3) if timing else None
+    # K9 on the same (pad-free) slabs: the tile-padded body this kernel
+    # replaced on the compact stream
+    padded_ms = (timed_ms(lambda: cluster_spmm(
+        bcc.tile_ids, bcc.values, xt, block_r=bcc.block_r,
+        block_k=bcc.block_k, tiles_per_block=bcc.tiles_per_block,
+        bn=min(KERNEL_MAX_BN, max(8, tokens))), device)
+        if timing else None)
+    dense_w = bcc.to_dense()
+    wc = dense_w.to_sparse_csr()
+    del dense_w
+    nnz = int(wc.values().numel())
+    lib_ms = (library_ms(lambda: torch.sparse.mm(wc, xt), device)
+              if timing else None)
+    bound_ms, bound_by = bound(
+        csr_bytes(layer.out_features, nnz) + 4 * xt.numel()
+        + 4 * layer.out_features * tokens, 2 * nnz * tokens)
+    work = spmm_work(cols, tids, bcc.block_k, tokens, got.numel() * 4)
+    case = {"case": name, "weight": [layer.out_features, layer.in_features],
+            "weight_nnz": nnz, "tokens": tokens, "block_k": bcc.block_k,
+            "steps": int(a_vals.shape[0]),
+            "dense_slab_columns": int(a_vals.shape[0]) * bcc.block_k,
+            "true_flops": 2 * nnz * tokens, "max_abs_err": err,
+            "tolerance": "exact (torch.equal)", "matched": ok, "ms": ms,
+            "kernel_device_ms": device_ms, "plain_ms": plain_ms,
+            "padded_lattice_kernel_ms": padded_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "bound_rule": ("max(bytes: CSR weight + activations + result "
+                           "once / 3.35 TB/s, 2*nnz*tokens flops / "
+                           "67 TFLOP/s fp32)"), **work,
+            "library": "torch.sparse.mm(csr weight, dense activations)",
+            "library_ms": lib_ms,
+            "compare_launches": cluster_spmm_compact.launches - launches0}
+    log("  case", json.dumps(case))
+    if not ok:
+        raise SystemExit(f"compact SpMM kernel disagrees with its plain "
                          f"version on {name}: max abs err {err}")
     return case
 
@@ -919,9 +1093,24 @@ def serve_phase(mats, device, rng, spmm_cols):
             "exec_cap_bytes": planner._exec_cache_bytes_cap,
             "peak_device_bytes": (torch.cuda.max_memory_allocated(device)
                                   if device.type == "cuda" else None)}
+    # the kept packs of the window and SpMM routes carry A's live columns
+    # (built once per packed operand); the padded grid reads slabs
+    kinds = {}
+    for e, _ in planner._exec_cache.values():
+        if e[0] == "spmm_pallas":
+            kind, cols = e[0], e[3]
+        elif e[0] in ("pallas", "chain"):
+            kind, cols = f"{e[0]}:{e[2].route}", e[2].cols
+        else:
+            continue
+        kinds.setdefault(kind, []).append(cols is not None)
+    held["live_columns_kept"] = {k: all(v) for k, v in kinds.items()}
     log("  exec cache", json.dumps(held))
     if held["exec_bytes"] > held["exec_cap_bytes"]:
         raise SystemExit(f"exec cache over its byte cap: {held}")
+    if not all(ok for k, ok in held["live_columns_kept"].items()
+               if not k.endswith(":padded")):
+        raise SystemExit(f"a kept pack lacks its live columns: {held}")
     if device.type == "cuda" and launches != {"cluster_spgemm_windows": 8,
                                               "cluster_spmm_compact": 1,
                                               "cluster_spgemm_padded": 2}:
@@ -980,29 +1169,37 @@ def sharded_phase(h, device, sm_count):
 
 
 def sparse_linear_phase(layer, x, device):
-    """SparseLinear's padded path, the entry point of K9:
-    ``apply(x, compact=False)`` once, counter zeroed just before and read
-    just after; the result must equal the dense pruned product."""
+    """SparseLinear's two kernel paths: ``apply(x, compact=False)`` (the
+    padded lattice, the entry point of K9) and ``apply(x)`` (the compact
+    stream's live columns, K4, kept with the layer), once each, counters
+    zeroed just before and read just after each; both results must equal
+    the dense pruned product. Returns K9's count (K4's main-path count is
+    the SpMM request's)."""
     from repro_torch.device import synchronize
-    from repro_torch.kernels.cluster_spmm import cluster_spmm
-    cluster_spmm.launches = 0
-    t0 = time.perf_counter()
-    y = layer.apply(x, compact=False)
-    synchronize(device)
-    wall = time.perf_counter() - t0
-    launches = {"cluster_spmm": cluster_spmm.launches}
+    from repro_torch.kernels.cluster_spmm import (cluster_spmm,
+                                                  cluster_spmm_compact)
     want = layer.apply(x, use_kernel=False)
-    exact = bool((y == want).all())
-    log("  call", json.dumps({"SparseLinear.apply": {"compact": False},
-                              "out_shape": list(y.shape), "wall_s": wall,
-                              "exact_vs_dense_pruned": exact,
-                              "launches": launches}))
-    if not exact:
-        raise SystemExit("SparseLinear.apply(compact=False) differs from "
-                         "the dense pruned product")
-    if device.type == "cuda" and launches != {"cluster_spmm": 1}:
-        raise SystemExit(f"launch counts off SparseLinear's padded path: "
-                         f"{launches}")
+    launches = {}
+    for compact, fn in ((False, cluster_spmm), (True, cluster_spmm_compact)):
+        fn.launches = 0
+        t0 = time.perf_counter()
+        y = layer.apply(x, compact=compact)
+        synchronize(device)
+        wall = time.perf_counter() - t0
+        count = {fn.__name__: fn.launches}
+        exact = bool((y == want).all())
+        log("  call", json.dumps({"SparseLinear.apply": {"compact": compact},
+                                  "out_shape": list(y.shape), "wall_s": wall,
+                                  "exact_vs_dense_pruned": exact,
+                                  "launches": count}))
+        if not exact:
+            raise SystemExit(f"SparseLinear.apply(compact={compact}) "
+                             "differs from the dense pruned product")
+        if device.type == "cuda" and count != {fn.__name__: 1}:
+            raise SystemExit(f"launch counts off SparseLinear's path: "
+                             f"{count}")
+        if not compact:
+            launches.update(count)
     return launches
 
 
@@ -1283,6 +1480,11 @@ def main(argv=None) -> int:
                      device, rng, timing=timing)
     ragged = spmm_case("compact SpMM, ragged N (kron)", kron_i, ragged_cols,
                        device, rng, timing=timing)
+    spmm_cave = spmm_case("compact SpMM, dense B (caveman)", cave_i,
+                          spmm_cols, device, rng, timing=timing)
+    spmm_plaw = spmm_case("compact SpMM, block_k=512 (powerlaw)",
+                          integer_valued(plaw, rng), spmm_cols, device, rng,
+                          timing=timing)
     wide_i = integer_valued(wide_a, rng)
     padded = padded_case("padded grid, wide A·B (mesh)", wide_i, wide_b,
                          device, timing=timing)
@@ -1304,6 +1506,9 @@ def main(argv=None) -> int:
     lin_layer, lin_x = sparse_linear_layer(*linear, device, rng)
     padded_spmm = padded_spmm_case(
         "padded-lattice SpMM, SparseLinear d_model x d_ff weight",
+        lin_layer, lin_x, device, timing=timing)
+    linear_compact = linear_compact_case(
+        "compact SpMM, SparseLinear d_model x d_ff weight (dense slabs)",
         lin_layer, lin_x, device, timing=timing)
     flash_cases = [flash_case(
         f"flash attention causal (BH={bh}, S={sq}, D={d})", bh, sq, d,
@@ -1333,7 +1538,7 @@ def main(argv=None) -> int:
 
     # -- phase 4: summary ------------------------------------------------------
     win_cases = [dense, slab, tall, bf16]
-    spmm_cases = [spmm, ragged]
+    spmm_cases = [spmm, ragged, spmm_cave, spmm_plaw, linear_compact]
     revisit_cases = [c for c in stream_all
                      if c["kernel"] == "cluster_spgemm_revisit"]
     sharded_cases = [c for c in stream_all
@@ -1346,9 +1551,13 @@ def main(argv=None) -> int:
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": launches[name],
                 "max_abs_err": max(c["max_abs_err"] for c in cases),
-                "ms": main["ms"], "plain_ms": main["plain_ms"],
+                "ms": main["ms"],
+                "kernel_device_ms": main.get("kernel_device_ms"),
+                "plain_ms": main["plain_ms"],
                 "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
                 "tile_bound_ms": main.get("tile_bound_ms"),
+                "work_bound_ms": main.get("work_bound_ms"),
+                "slab_columns_ms": main.get("slab_columns_ms"),
                 "library_ms": main["library_ms"],
                 "matched": all(c["matched"] for c in cases),
                 "cases": cases}

@@ -4,9 +4,10 @@ Each source under ``kernels/csrc/`` has a plain C interface and is
 compiled by ``nvcc`` into its own shared library, loaded with
 :mod:`ctypes` (no PyTorch headers, so a build takes seconds). Builds
 happen at first use, into ``build/repro_torch/`` at the repository root
-(git-ignored), under a name that carries the hash of the source and the
-flags: an edited source rebuilds, an unchanged one loads the library on
-disk. Nothing here runs at import time.
+(git-ignored), under a name that carries the hash of the source, the
+shared headers and the flags: an edited source or header rebuilds, an
+unchanged one loads the library on disk. Nothing here runs at import
+time.
 """
 from __future__ import annotations
 
@@ -59,8 +60,14 @@ def _nvcc() -> str:
 
 
 def _lib_path(name: str) -> str:
-    with open(SOURCES[name], "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    """The library's path, named by the hash of its source, of the shared
+    headers beside it (``csrc/*.cuh``) and of the flags."""
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    csrc = os.path.dirname(SOURCES[name])
+    headers = sorted(f for f in os.listdir(csrc) if f.endswith(".cuh"))
+    for path in [SOURCES[name]] + [os.path.join(csrc, h) for h in headers]:
+        with open(path, "rb") as f:
+            digest.update(f.read())
     return os.path.join(build_dir(), f"{name}-{digest.hexdigest()[:16]}.so")
 
 

@@ -8,7 +8,9 @@ this module regroups it *window-major* — one entry per live ``(blk, j)``
 window of C, its pairs s-ascending — and hands it to one kernel
 (``csrc/cluster_spgemm.cu``) that gives each window to one CTA and writes
 the window once: into a strip of a dense C, or into one slab of the
-``CompactedC`` store. That single kernel is the counterpart of the JAX
+``CompactedC`` store. The kernel walks A's slabs over their live columns
+(:class:`~repro_torch.kernels.columns.SlabColumns`): per pair, one read
+of the B tile's row for each column of the slab that holds a nonzero. That single kernel is the counterpart of the JAX
 package's five pair kernels (``cluster_spgemm_pairs{,_resident,_db}``,
 dense strips; ``cluster_spgemm_pairs_sparse{,_db}``, slabs), which differ
 only in VMEM placement and output addressing.
@@ -19,7 +21,7 @@ CompactedC slabs placed through the ``compacted_c_table`` lookup table.
 :func:`cluster_spgemm_windows` is the wrapper: on a CUDA tensor it
 launches the kernel (counting the launch in its ``launches`` attribute)
 or raises; on a CPU tensor it runs :func:`cluster_spgemm_windows_plain`,
-the same sum written with ``torch.bmm`` and ``index_add_``.
+the same sum over the same live columns written with ``index_add_``.
 
 Three more launches serve the JAX package's other pair-grid kernels, each
 with the same wrapper contract and a plain version beside it:
@@ -27,7 +29,8 @@ with the same wrapper contract and a plain version beside it:
 * :func:`cluster_spgemm_padded` (``csrc/cluster_spgemm_padded.cu``) — the
   padded per-tile grid (``cluster_spgemm_tiled`` / ``_resident``) for B
   too wide for the live-pair grid: one CTA per C tile, the B table lookup
-  in the kernel, output in B's dtype;
+  in the kernel, output in B's dtype, rounded after every step as the JAX
+  package's kernel rounds it;
 * :func:`cluster_spgemm_revisit` (``csrc/cluster_spgemm_revisit.cu``) —
   ``cluster_spgemm_pairs_window`` over a revisit-ordered stream: one CTA
   per (window, j) segment, each B tile staged once per run of blocks;
@@ -44,6 +47,7 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.columns import SlabColumns, columns_for
 
 __all__ = ["Windows", "windows_from_pairs", "windows_from_shards",
            "cluster_spgemm_windows", "cluster_spgemm_windows_plain",
@@ -65,8 +69,10 @@ class Windows:
     ``slots``/``a_idx`` (s ascending); ``win_out[w]`` is the flat element
     offset of the window's ``(0, 0)`` in an output of ``out_shape`` whose
     rows are ``ldc`` elements apart. Only live pairs (slot > 0) are kept.
-    ``shard_ptr`` (sharded launches only) splits the windows into the
-    shards' contiguous ranges.
+    ``order`` is the kernel's launch order of the windows — column strip
+    major, so that CTAs running together read the same strip of B's tiles
+    — and does not change any sum. ``shard_ptr`` (sharded launches only)
+    splits the windows into the shards' contiguous ranges.
     """
 
     win_ptr: torch.Tensor      # (W+1,) int32
@@ -78,6 +84,7 @@ class Windows:
     block_r: int
     bn: int
     shard_ptr: torch.Tensor | None = None   # (nshards+1,) int32
+    order: torch.Tensor | None = None       # (W,) int32 launch order
 
     @property
     def nwin(self) -> int:
@@ -119,6 +126,9 @@ def windows_from_pairs(blocks, js, slots, a_idx, *, nblocks: int, nnb: int,
     keys = (torch.as_tensor(blocks, device=device).long() * nnb
             + torch.as_tensor(js, device=device).long())
     ukey, win_ptr, sl, ai = _group(keys, slots, a_idx, device)
+    # launch strip by strip: (j, blk) order
+    order = torch.argsort((ukey % nnb) * nblocks + ukey // nnb,
+                          stable=True).int().contiguous()
     if table is None:
         ldc = nnb * bn
         win_out = (ukey // nnb) * (block_r * ldc) + (ukey % nnb) * bn
@@ -130,7 +140,8 @@ def windows_from_pairs(blocks, js, slots, a_idx, *, nblocks: int, nnb: int,
         nslabs = int(table.max()) + 1 if table.numel() else 1
         out_shape = (nslabs, block_r, bn)
     return Windows(win_ptr=win_ptr, win_out=win_out, slots=sl, a_idx=ai,
-                   out_shape=out_shape, ldc=ldc, block_r=block_r, bn=bn)
+                   out_shape=out_shape, ldc=ldc, block_r=block_r, bn=bn,
+                   order=order)
 
 
 def windows_from_shards(ranges, shard_pairs, *, nblocks: int, nnb: int,
@@ -147,7 +158,7 @@ def windows_from_shards(ranges, shard_pairs, *, nblocks: int, nnb: int,
     starts = np.asarray(ranges, dtype=np.int64)[:, 0]
     shard_ptr = np.append(np.searchsorted(win_blk, starts, side="left"),
                           win_blk.size).astype(np.int32)
-    return dataclasses.replace(w, shard_ptr=torch.from_numpy(
+    return dataclasses.replace(w, order=None, shard_ptr=torch.from_numpy(
         shard_ptr).to(device))
 
 
@@ -175,13 +186,32 @@ def _check(w: Windows, a_values: torch.Tensor, b_tiles: torch.Tensor):
                     w.win_out, w.slots, w.a_idx, w.shard_ptr)
 
 
+def _place_plain(acc: torch.Tensor, tile_out: torch.Tensor,
+                 out: torch.Tensor, *, block_r: int, bn: int,
+                 ldc: int) -> torch.Tensor:
+    """Write each ``(block_r, bn)`` tile of ``acc`` (cast to ``out``'s
+    dtype) at flat offset ``tile_out[t]`` of ``out``, rows ``ldc``
+    apart."""
+    dev = out.device
+    within = (torch.arange(block_r, device=dev)[:, None] * ldc
+              + torch.arange(bn, device=dev)[None, :])
+    flat = out.view(-1)
+    ntiles = int(tile_out.shape[0])
+    tchunk = max(1, (1 << 24) // (block_r * bn))
+    for lo in range(0, ntiles, tchunk):
+        hi = min(lo + tchunk, ntiles)
+        idx = tile_out[lo:hi, None, None] + within
+        flat[idx.reshape(-1)] = acc[lo:hi].reshape(-1).to(out.dtype)
+    return out
+
+
 def _tile_sum_plain(pair_tile: torch.Tensor, tile_out: torch.Tensor,
                     slots: torch.Tensor, a_idx: torch.Tensor,
                     a_values: torch.Tensor, b_tiles: torch.Tensor,
                     out: torch.Tensor, *, block_r: int, bn: int,
                     ldc: int) -> torch.Tensor:
-    """The plain versions' common sum: for every pair ``p`` (in the given
-    order), ``a_values[a_idx[p]] @ b_tiles[slots[p]]`` in fp32 is
+    """The padded plain versions' common sum: for every pair ``p`` (in the
+    given order), ``a_values[a_idx[p]] @ b_tiles[slots[p]]`` in fp32 is
     ``index_add_``ed into output tile ``pair_tile[p]``, and each tile is
     then written (cast to ``out``'s dtype) at flat offset ``tile_out[t]``
     of ``out``, rows ``ldc`` apart. Chunked so that the gathered B tiles
@@ -201,33 +231,101 @@ def _tile_sum_plain(pair_tile: torch.Tensor, tile_out: torch.Tensor,
         prod = torch.bmm(a_values[a_idx[lo:hi].long()],
                          b_tiles[slots[lo:hi].long()].float())
         acc.index_add_(0, pair_tile[lo:hi], prod)
-    # place each tile at its origin: rows ldc apart, bn contiguous
-    within = (torch.arange(block_r, device=dev)[:, None] * ldc
-              + torch.arange(bn, device=dev)[None, :])
-    flat = out.view(-1)
-    tchunk = max(1, (1 << 24) // (block_r * bn))
-    for lo in range(0, ntiles, tchunk):
-        hi = min(lo + tchunk, ntiles)
-        idx = tile_out[lo:hi, None, None] + within
-        flat[idx.reshape(-1)] = acc[lo:hi].reshape(-1).to(out.dtype)
-    return out
+    return _place_plain(acc, tile_out, out, block_r=block_r, bn=bn, ldc=ldc)
+
+
+def _column_sum_plain(pair_tile: torch.Tensor, tile_out: torch.Tensor,
+                      slots: torch.Tensor, a_idx: torch.Tensor,
+                      cols: SlabColumns, b_tiles: torch.Tensor,
+                      out: torch.Tensor, *, block_r: int, bn: int,
+                      ldc: int) -> torch.Tensor:
+    """:func:`_tile_sum_plain` over A's live columns: every pair ``p``
+    visits the live columns ``k`` of slab ``a_idx[p]``, and each visit's
+    ``block_r`` values times row ``k`` of B tile ``slots[p]`` (fp32) is
+    ``index_add_``ed into tile ``pair_tile[p]`` — the window kernel's
+    visits, in chunks of about 512 MiB of products."""
+    dev = out.device
+    ntiles = int(tile_out.shape[0])
+    if ntiles == 0:
+        return out
+    acc = torch.zeros((ntiles, block_r, bn), dtype=torch.float32,
+                      device=dev)
+    a = a_idx.long()
+    c0 = cols.col_ptr[:-1].long()[a]
+    ncol = cols.col_ptr[1:].long()[a] - c0
+    first = torch.cumsum(ncol, 0) - ncol
+    visits = int(ncol.sum())
+    vis_pair = torch.repeat_interleave(
+        torch.arange(a.shape[0], device=dev), ncol)
+    chunk = max(1, (1 << 27) // (block_r * bn))
+    for lo in range(0, visits, chunk):
+        hi = min(lo + chunk, visits)
+        p = vis_pair[lo:hi]
+        col = c0[p] + torch.arange(lo, hi, device=dev) - first[p]
+        rows = b_tiles[slots[p].long(), cols.col_k[col].long()].float()
+        acc.index_add_(0, pair_tile[p],
+                       cols.col_vals[col][:, :, None] * rows[:, None, :])
+    return _place_plain(acc, tile_out, out, block_r=block_r, bn=bn, ldc=ldc)
+
+
+def _ranked_sum_plain(pair_tile: torch.Tensor, tile_out: torch.Tensor,
+                      slots: torch.Tensor, a_idx: torch.Tensor,
+                      a_values: torch.Tensor, b_tiles: torch.Tensor,
+                      out: torch.Tensor, *, block_r: int, bn: int,
+                      ldc: int) -> torch.Tensor:
+    """:func:`_tile_sum_plain` with the running tile kept in B's dtype and
+    rounded after every pair, ``o = round(o + round(a @ b))`` in pair order
+    — the JAX package's padded kernels with bf16 B tiles. The pairs of a
+    tile are grouped by their rank within it, and the ranks are added in
+    ascending order, one vectorised step per rank."""
+    dev = out.device
+    ntiles = int(tile_out.shape[0])
+    if ntiles == 0:
+        return out
+    npairs = int(pair_tile.shape[0])
+    order = torch.argsort(pair_tile, stable=True)
+    counts = torch.bincount(pair_tile, minlength=ntiles)
+    start = torch.cumsum(counts, 0) - counts
+    rank = torch.empty_like(pair_tile)
+    rank[order] = (torch.arange(npairs, device=dev)
+                   - start[pair_tile[order]])
+    by_rank = torch.argsort(rank, stable=True)
+    per_rank = torch.bincount(rank).tolist() if npairs else []
+    acc = torch.zeros((ntiles, block_r, bn), dtype=b_tiles.dtype,
+                      device=dev)
+    block_k = a_values.shape[2]
+    chunk = max(1, (1 << 27) // (block_k * bn))
+    lo = 0
+    for n in per_rank:
+        for c in range(lo, lo + n, chunk):
+            sel = by_rank[c: min(c + chunk, lo + n)]
+            prod = torch.bmm(a_values[a_idx[sel].long()],
+                             b_tiles[slots[sel].long()].float())
+            t = pair_tile[sel]
+            acc[t] = (acc[t].float() + prod.to(acc.dtype).float()).to(
+                acc.dtype)
+        lo += n
+    return _place_plain(acc, tile_out, out, block_r=block_r, bn=bn, ldc=ldc)
 
 
 def cluster_spgemm_windows(w: Windows, a_values: torch.Tensor,
-                           b_tiles: torch.Tensor) -> torch.Tensor:
+                           b_tiles: torch.Tensor,
+                           cols: SlabColumns | None = None) -> torch.Tensor:
     """Σ over each live window's pairs of ``a_values[a_idx] @
     b_tiles[slot]`` (fp32 accumulate; bf16 tiles upcast), written once per
-    window into a zero-filled float32 output of ``w.out_shape``.
+    window into a zero-filled float32 output of ``w.out_shape``. ``cols``
+    is the slabs' live-column form (:func:`slab_columns`, built here when
+    absent — callers that launch again keep it).
 
     CUDA tensors launch the hand-written kernel (and add one to
     ``cluster_spgemm_windows.launches``); CPU tensors run the plain
     version; any other device raises."""
     if a_values.device.type == "cpu":
-        return cluster_spgemm_windows_plain(w, a_values, b_tiles)
+        return cluster_spgemm_windows_plain(w, a_values, b_tiles, cols)
     _check(w, a_values, b_tiles)
     out = torch.zeros(w.out_shape, dtype=torch.float32,
                       device=a_values.device)
-    if _launch(w, a_values, b_tiles, out, sharded=False):
+    if _launch(w, a_values, b_tiles, out, cols, sharded=False):
         cluster_spgemm_windows.launches += 1
     return out
 
@@ -236,20 +334,22 @@ cluster_spgemm_windows.launches = 0
 
 
 def cluster_spgemm_windows_plain(w: Windows, a_values: torch.Tensor,
-                                 b_tiles: torch.Tensor) -> torch.Tensor:
+                                 b_tiles: torch.Tensor,
+                                 cols: SlabColumns | None = None
+                                 ) -> torch.Tensor:
     """The plain PyTorch version of :func:`cluster_spgemm_windows`, on any
-    device: gathers ``A[a_idx]`` and ``B[slot]`` in chunks, multiplies
-    them with ``torch.bmm`` in fp32 and ``index_add_``s the products into
-    their windows, s ascending."""
+    device: each pair's visits to its slab's live columns (B tile rows
+    gathered in chunks, fp32) ``index_add_``ed into their windows."""
     _check(w, a_values, b_tiles)
+    cols = columns_for(a_values, cols)
     dev = a_values.device
     out = torch.zeros(w.out_shape, dtype=torch.float32, device=dev)
     counts = (w.win_ptr[1:] - w.win_ptr[:-1]).long()
     pair_win = torch.repeat_interleave(
         torch.arange(w.nwin, device=dev), counts)
-    return _tile_sum_plain(pair_win, w.win_out, w.slots, w.a_idx, a_values,
-                           b_tiles, out, block_r=w.block_r, bn=w.bn,
-                           ldc=w.ldc)
+    return _column_sum_plain(pair_win, w.win_out, w.slots, w.a_idx, cols,
+                             b_tiles, out, block_r=w.block_r, bn=w.bn,
+                             ldc=w.ldc)
 
 
 def _kernel_fn(lib_name: str, fn_base: str, b_tiles: torch.Tensor,
@@ -282,25 +382,32 @@ def _on_card(what: str, out: torch.Tensor, block_r: int, bn: int) -> None:
                          f"bn={bn}")
 
 
-def _launch(w: Windows, a_values, b_tiles, out, *, sharded: bool) -> bool:
-    """Launch the window kernel: one CTA per window, or (``sharded``)
-    one persistent CTA per shard. False when nothing is live (C stays
-    zero and no kernel runs)."""
+def _launch(w: Windows, a_values, b_tiles, out, cols, *,
+            sharded: bool) -> bool:
+    """Launch the window kernel over the slabs' live columns: one CTA per
+    window, or (``sharded``) one persistent CTA per shard. False when
+    nothing is live (C stays zero and no kernel runs)."""
     what = "cluster_spgemm_sharded" if sharded else "cluster_spgemm_windows"
     _on_card(what, out, w.block_r, w.bn)
-    a_values = a_values.contiguous()
+    cols = columns_for(a_values, cols)
     b_tiles = b_tiles.contiguous()
     if w.nwin == 0:
         return False
     stream = torch.cuda.current_stream(out.device).cuda_stream
     args = [w.win_ptr.data_ptr(), w.win_out.data_ptr(), w.slots.data_ptr(),
-            w.a_idx.data_ptr(), a_values.data_ptr(), b_tiles.data_ptr(),
-            out.data_ptr(), w.nwin, a_values.shape[2], w.bn, w.ldc, stream]
-    types = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3 + [
+            w.a_idx.data_ptr(), cols.col_ptr.data_ptr(),
+            cols.col_k.data_ptr(), cols.col_vals.data_ptr(),
+            b_tiles.data_ptr(), out.data_ptr(), w.nwin, w.npairs,
+            a_values.shape[2], w.bn, w.ldc, stream]
+    types = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4 + [
         ctypes.c_longlong, ctypes.c_void_p]
     if not sharded:
         lib, fn = _kernel_fn("cluster_spgemm", "cluster_spgemm_windows",
-                             b_tiles, types)
+                             b_tiles, [ctypes.c_void_p] + types)
+        if w.order is not None and w.order.device != out.device:
+            raise ValueError(f"window order on {w.order.device}, operands "
+                             f"on {out.device}")
+        args = [None if w.order is None else w.order.data_ptr()] + args
     else:
         lib, fn = _kernel_fn("cluster_spgemm",
                              "cluster_spgemm_windows_sharded", b_tiles,
@@ -371,8 +478,10 @@ def cluster_spgemm_padded(g: PaddedGrid, a_values: torch.Tensor,
     """C = A_bcc @ B_tiled on the padded per-tile grid: every tile
     ``(blk, j)`` is the s-ascending sum over block ``blk``'s steps ``s``
     with a live ``slot = table[tile_ids[s] * nnb + j]`` of
-    ``a_values[s] @ b_tiles[slot]``, accumulated in fp32 and returned in
-    B's dtype (as the JAX package's padded kernels return it).
+    ``a_values[s] @ b_tiles[slot]``, returned in B's dtype and rounded as
+    the JAX package's padded kernels round it: each step's fp32 product is
+    rounded to B's dtype and added to the running tile, which is rounded
+    again (with fp32 tiles, the plain fp32 sum).
 
     CUDA tensors launch the hand-written kernel (and add one to
     ``cluster_spgemm_padded.launches``); CPU tensors run the plain
@@ -407,7 +516,8 @@ def cluster_spgemm_padded_plain(g: PaddedGrid, a_values: torch.Tensor,
     """The plain PyTorch version of :func:`cluster_spgemm_padded`, on any
     device: looks every step up in B's table for every ``j`` (in chunks
     of steps), keeps the live ``(s, j)`` pairs s-major, and sums them per
-    tile with ``torch.bmm`` and ``index_add_`` in fp32."""
+    tile with ``torch.bmm`` — with ``index_add_`` in fp32 for fp32 tiles,
+    rank by rank with the per-step rounding for bf16 tiles."""
     _check_grid(g, a_values, b_tiles)
     dev = a_values.device
     out = torch.zeros(g.out_shape, dtype=b_tiles.dtype, device=dev)
@@ -430,9 +540,10 @@ def cluster_spgemm_padded_plain(g: PaddedGrid, a_values: torch.Tensor,
     ukey, pair_tile = torch.unique(key, return_inverse=True)
     ldc = g.nnb * g.bn
     tile_out = (ukey // g.nnb) * (g.block_r * ldc) + (ukey % g.nnb) * g.bn
-    return _tile_sum_plain(pair_tile, tile_out, torch.cat(slots), step,
-                           a_values, b_tiles, out, block_r=g.block_r,
-                           bn=g.bn, ldc=ldc)
+    tile_sum = (_tile_sum_plain if b_tiles.dtype == torch.float32
+                else _ranked_sum_plain)
+    return tile_sum(pair_tile, tile_out, torch.cat(slots), step, a_values,
+                    b_tiles, out, block_r=g.block_r, bn=g.bn, ldc=ldc)
 
 
 # ---------------------------------------------------------------------------
@@ -594,18 +705,21 @@ def cluster_spgemm_revisit_plain(g: Segments, a_values: torch.Tensor,
 
 
 def cluster_spgemm_sharded(work: Windows | Segments, a_values: torch.Tensor,
-                           b_tiles: torch.Tensor) -> torch.Tensor:
+                           b_tiles: torch.Tensor,
+                           cols: SlabColumns | None = None) -> torch.Tensor:
     """C = A_bcc @ B_tiled over a partitioned pair stream, one persistent
     CTA per shard: ``work`` is :func:`windows_from_shards`' dense-strip
     windows or :func:`segments_from_shards`' revisit segments, each with
     its ``shard_ptr``. Shards own disjoint block ranges, so the result is
     the unsharded kernel's, bit for bit. Returns the zero-filled fp32 C.
+    ``cols`` (windows only: the revisit kernel reads the padded slabs) is
+    the slabs' live-column form, built here when absent.
 
     CUDA tensors launch the hand-written kernel (and add one to
     ``cluster_spgemm_sharded.launches``); CPU tensors run the plain
     version; any other device raises."""
     if a_values.device.type == "cpu":
-        return cluster_spgemm_sharded_plain(work, a_values, b_tiles)
+        return cluster_spgemm_sharded_plain(work, a_values, b_tiles, cols)
     if work.shard_ptr is None:
         raise ValueError("cluster_spgemm_sharded needs a shard_ptr")
     out = torch.zeros(work.out_shape, dtype=torch.float32,
@@ -616,7 +730,8 @@ def cluster_spgemm_sharded(work: Windows | Segments, a_values: torch.Tensor,
                                     sharded=True)
     else:
         _check(work, a_values, b_tiles)
-        launched = _launch(work, a_values, b_tiles, out, sharded=True)
+        launched = _launch(work, a_values, b_tiles, out, cols,
+                           sharded=True)
     if launched:
         cluster_spgemm_sharded.launches += 1
     return out
@@ -627,10 +742,12 @@ cluster_spgemm_sharded.launches = 0
 
 def cluster_spgemm_sharded_plain(work: Windows | Segments,
                                  a_values: torch.Tensor,
-                                 b_tiles: torch.Tensor) -> torch.Tensor:
+                                 b_tiles: torch.Tensor,
+                                 cols: SlabColumns | None = None
+                                 ) -> torch.Tensor:
     """The plain PyTorch version of :func:`cluster_spgemm_sharded`: the
     shards split the work, not the sum, so it is the windows' or the
     segments' plain version."""
     if isinstance(work, Segments):
         return cluster_spgemm_revisit_plain(work, a_values, b_tiles)
-    return cluster_spgemm_windows_plain(work, a_values, b_tiles)
+    return cluster_spgemm_windows_plain(work, a_values, b_tiles, cols)

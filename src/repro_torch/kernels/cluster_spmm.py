@@ -1,22 +1,23 @@
 """Cluster-wise SpMM on the card: C = A_bcc @ B with B dense (tall-skinny).
 
-Two forms of A, one kernel (``csrc/cluster_spmm.cu``) that gives each
-(row block, column strip) to one CTA, which walks its block's slabs in
-order and writes its strip once:
+Two forms of A, two kernels in ``csrc/cluster_spmm.cu``, each giving a
+(row block, column strip) to one CTA that writes its strip once:
 
 * :func:`cluster_spmm_compact` (the counterpart of the JAX package's
   ``cluster_spmm_compact``) takes BCC's compact (block, tile) stream —
   ``block_ids`` non-decreasing, ``tile_ids`` the k-tile each slab
   multiplies, empty blocks carrying one zero slab and the tail padded with
-  zero slabs;
+  zero slabs — and walks each slab's live columns
+  (:class:`~repro_torch.kernels.columns.SlabColumns`): one read of B's row
+  per live column, applied to the 8 rows of the block;
 * :func:`cluster_spmm` (the counterpart of ``cluster_spmm``) takes BCC's
   padded lattice as it is: ``tiles_per_block`` slabs per block, the pad
-  slabs zero and pointing at tile 0, all of them summed.
+  slabs zero and pointing at tile 0, all of them summed as dense slabs.
 
 Each wrapper, on a CUDA tensor, launches the kernel (counting the launch in
 its ``launches`` attribute) or raises; on a CPU tensor it runs its plain
-version (:func:`cluster_spmm_compact_plain`, :func:`cluster_spmm_plain`),
-the same sums written with ``torch.bmm``.
+version (:func:`cluster_spmm_compact_plain`, over the same live columns;
+:func:`cluster_spmm_plain`, the padded sums with ``torch.bmm``).
 """
 from __future__ import annotations
 
@@ -26,6 +27,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.columns import SlabColumns, columns_for
 
 __all__ = ["cluster_spmm", "cluster_spmm_plain", "cluster_spmm_compact",
            "cluster_spmm_compact_plain"]
@@ -53,10 +55,13 @@ def _operands(block_ids, tile_ids, a_values, b, *, block_r, block_k):
 
 def cluster_spmm_compact(block_ids, tile_ids, a_values: torch.Tensor,
                          b: torch.Tensor, *, block_r: int, block_k: int,
-                         nblocks: int, bn: int = 128) -> torch.Tensor:
+                         nblocks: int, bn: int = 128,
+                         cols: SlabColumns | None = None) -> torch.Tensor:
     """C = A_bcc @ B over the compact stream. ``b`` is ``(K, N)`` fp32
     (rows past K and the ragged last column strip are masked, no padding
-    needed); ``bn`` is the kernel's column-strip width (≤ 128). Returns
+    needed); ``bn`` is the kernel's column-strip width (≤ 128); ``cols``
+    is the slabs' live-column form (:func:`slab_columns`, built here when
+    absent — callers that launch again keep it). Returns
     ``(nblocks * block_r, N)`` fp32; blocks with no step in the stream
     are zero.
 
@@ -66,11 +71,11 @@ def cluster_spmm_compact(block_ids, tile_ids, a_values: torch.Tensor,
     if a_values.device.type == "cpu":
         return cluster_spmm_compact_plain(block_ids, tile_ids, a_values, b,
                                           block_r=block_r, block_k=block_k,
-                                          nblocks=nblocks)
+                                          nblocks=nblocks, cols=cols)
     block_ids, tile_ids = _operands(block_ids, tile_ids, a_values, b,
                                     block_r=block_r, block_k=block_k)
     return _launch(block_ids, tile_ids, a_values, b, block_r=block_r,
-                   block_k=block_k, nblocks=nblocks, bn=bn)
+                   block_k=block_k, nblocks=nblocks, bn=bn, cols=cols)
 
 
 cluster_spmm_compact.launches = 0
@@ -78,26 +83,37 @@ cluster_spmm_compact.launches = 0
 
 def cluster_spmm_compact_plain(block_ids, tile_ids, a_values: torch.Tensor,
                                b: torch.Tensor, *, block_r: int,
-                               block_k: int, nblocks: int) -> torch.Tensor:
+                               block_k: int, nblocks: int,
+                               cols: SlabColumns | None = None
+                               ) -> torch.Tensor:
     """The plain PyTorch version of :func:`cluster_spmm_compact`, on any
-    device: B's row bands gathered per step in chunks, ``torch.bmm`` in
-    fp32 against the slabs, ``index_add_`` into the owning block."""
+    device, over the same live columns: each live column's ``block_r``
+    values times the B row it selects (rows past K read as zero), in
+    chunks, ``index_add_``ed into the owning block in fp32."""
     block_ids, tile_ids = _operands(block_ids, tile_ids, a_values, b,
                                     block_r=block_r, block_k=block_k)
+    cols = columns_for(a_values, cols)
     k, n = b.shape
-    bands = F.pad(b, (0, 0, 0, (-k) % block_k)).view(-1, block_k, n)
-    c = torch.zeros((nblocks, block_r, n), dtype=torch.float32,
-                    device=b.device)
-    chunk = max(1, (1 << 26) // (block_k * max(n, 1)))
-    for lo in range(0, a_values.shape[0], chunk):
-        hi = min(lo + chunk, a_values.shape[0])
-        prod = torch.bmm(a_values[lo:hi], bands[tile_ids[lo:hi].long()])
-        c.index_add_(0, block_ids[lo:hi].long(), prod)
+    dev = b.device
+    c = torch.zeros((nblocks, block_r, n), dtype=torch.float32, device=dev)
+    step = torch.repeat_interleave(
+        torch.arange(cols.nslabs, device=dev),
+        (cols.col_ptr[1:] - cols.col_ptr[:-1]).long())
+    rows = tile_ids[step].long() * block_k + cols.col_k.long()
+    blocks = block_ids[step].long()
+    # a zero row stands in for B's rows past K
+    bz = torch.cat([b, b.new_zeros((1, n))])
+    rows = torch.where(rows < k, rows, k)
+    chunk = max(1, (1 << 26) // (block_r * max(n, 1)))
+    for lo in range(0, cols.ncols, chunk):
+        hi = min(lo + chunk, cols.ncols)
+        prod = cols.col_vals[lo:hi, :, None] * bz[rows[lo:hi]][:, None, :]
+        c.index_add_(0, blocks[lo:hi], prod)
     return c.view(nblocks * block_r, n)
 
 
 def _launch(block_ids, tile_ids, a_values, b, *, block_r, block_k, nblocks,
-            bn):
+            bn, cols):
     dev = a_values.device
     if dev.type != "cuda":
         raise ValueError(f"cluster_spmm_compact: tensors on {dev}; the "
@@ -106,6 +122,7 @@ def _launch(block_ids, tile_ids, a_values, b, *, block_r, block_k, nblocks,
         raise ValueError(f"kernel takes block_r={KERNEL_BLOCK_R} and "
                          f"0 < bn <= {KERNEL_MAX_BN}, got block_r={block_r}, "
                          f"bn={bn}")
+    cols = columns_for(a_values, cols)
     k, n = b.shape
     # zero-filled: a block the stream does not visit reads back zero
     out = torch.zeros((nblocks * block_r, n), dtype=torch.float32,
@@ -116,16 +133,17 @@ def _launch(block_ids, tile_ids, a_values, b, *, block_r, block_k, nblocks,
     blk_ptr = torch.searchsorted(
         block_ids, torch.arange(nblocks + 1, dtype=torch.int32, device=dev),
         out_int32=True)
-    a_values = a_values.contiguous()
     b = b.contiguous()
     lib = _build.load("cluster_spmm")
-    fn = lib.cluster_spmm_compact_f32
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [
+    fn = lib.cluster_spmm_columns_f32
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [
         ctypes.c_void_p]
     fn.restype = ctypes.c_int
     stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = fn(blk_ptr.data_ptr(), tile_ids.data_ptr(), a_values.data_ptr(),
-            b.data_ptr(), out.data_ptr(), nblocks, block_k, k, n, bn, stream)
+    rc = fn(blk_ptr.data_ptr(), tile_ids.data_ptr(), cols.col_ptr.data_ptr(),
+            cols.col_k.data_ptr(), cols.col_vals.data_ptr(), b.data_ptr(),
+            out.data_ptr(), nblocks, a_values.shape[0], block_k, k, n, bn,
+            stream)
     if rc != 0:
         lib.cluster_spmm_error_string.restype = ctypes.c_char_p
         lib.cluster_spmm_error_string.argtypes = [ctypes.c_int]

@@ -23,203 +23,213 @@
 //    relied on Pallas writing an output block back when its index changed;
 //    a GPU grid has no order, so each window is owned by exactly one CTA:
 //    no atomics, and every element keeps the s-ascending order of the sum.
-//  * 256 threads. The 8 x bn (bn <= 128) fp32 accumulator lives in
-//    registers, 4 values per thread: thread t owns column t % 128 and rows
-//    4 * (t / 128) .. + 3.
-//  * A slabs and B tiles are staged through shared memory in K sub-tiles of
-//    at most 64 rows: block_k reaches 512, and one 512 x 128 fp32 B tile is
-//    256 KB, more than the 227 KB a block can have.
-//  * bf16 B tiles are upcast on load. Each pair's product is summed in
-//    registers and then added to the window's accumulator, the reference's
-//    `o += dot(a, b)`.
+//  * The window's pairs are walked over A's live columns (live_columns.cuh):
+//    for pair p, each live column k of slab a_idx[p] reads row k of B tile
+//    slots[p] (bn values; at bn = 128 a warp of 16-byte loads, bf16 tiles
+//    upcast on load from 8-byte loads) and applies it to the 8 rows of the
+//    window, 8 FMAs per B element. The padded slab is never read, and the
+//    64 KB B tile is read only where A has a column.
+//  * Each pair is summed in its own part (k ascending) and added to the
+//    window's accumulator in pair order -- the reference's `o += dot(a, b)`
+//    -- so the result equals the tile-padded kernel's bit for bit on finite
+//    data. Where windows hold many pairs (kron-14: 31.7 on average), a CTA
+//    runs up to 4 pairs at a time (a warp each at bn = 128) and adds their
+//    parts in order through shared memory, which shortens the chain of a
+//    hub window; at about one pair per window (caveman) it is one warp.
+//  * Windows launch column strip by column strip (Windows.order), so the
+//    CTAs in flight read one strip of B's tiles, which stays in L2.
 //
-// What bounds it: the kernel does tile-padded fp32 multiply-adds, 2 * 8 *
-// block_k * bn per live pair. At kron-14 (16,384 rows, 8.2M live pairs) that
-// is ~2.1 TFLOP, ~31 ms at the 67 TFLOP/s fp32 rate of the H100 SXM data
-// sheet, while its bytes (A 287 MB + B 763 MB + C 1 GiB) move in ~0.6 ms at
-// 3.35 TB/s: compute-bound on padded work. That is the tile design's own
-// floor, not the product's: A^2 at kron-14 needs only ~3.2e8 flops, and its
-// least bytes (the CSR operand read once, the 1 GiB dense C written once)
-// take ~0.3 ms, the bound a kernel of this product is held to. This first
-// version is held further by the load/store units (two shared-memory loads
-// per four FMAs, scalar global loads) and by no overlap of loads with
-// compute. wgmma and TMA pipelines (tensor cores need TF32 or bf16 inputs
-// and 64-row tiles) are later work; PERF.md has its measured times.
+// What bounds it: kron-14 A^2 (16,384 rows, 8.2M live pairs in 258,210
+// windows) visits ~41M live columns, one 512-byte B row each: ~21 GB of
+// B rows, most of them L2 hits, against ~540 GB of tile traffic for the
+// padded design (a 4 KB slab and a 64 KB B tile per pair). Its least bytes
+// are the 1 GiB dense C written once (~0.32 ms at 3.35 TB/s), the bound a
+// kernel of this product is held to; the flops the walk does, 2 * 8 * bn
+// per visit (~84 GFLOP, ~1.3 ms at 67 TFLOP/s fp32), bound the walk
+// itself. It runs far from both: each pair waits on dependent loads (its
+// metadata, its columns, then its B rows) with a few columns each, so the
+// kernel is held by load latency at the occupancy its registers allow.
+// PERF.md has the measured times.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
+#include "live_columns.cuh"
+
 namespace {
 
-constexpr int kBR = 8;          // rows of a BCC block (block_r)
 constexpr int kBNMax = 128;     // widest window (bn)
-constexpr int kKT = 64;         // K sub-tile staged per step
-constexpr int kThreads = 256;
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
+// A window's live pairs: pair p walks the live columns of slab a_idx[p]
+// against B tile slots[p].
+struct PairUnits {
+  const int32_t* a_idx;
+  const int32_t* slots;
+  const int32_t* col_ptr;
+  __device__ live_columns::Meta meta(int p) const {
+    const int a = a_idx[p];
+    return {col_ptr[a], col_ptr[a + 1], slots[p]};
+  }
+};
 
-// One window: the sum of its pairs, written once. Shared memory is passed in
-// so that the one-window-per-CTA kernel and the persistent sharded kernel
-// run the same body.
-template <typename TB>
+// One window: the sum of its pairs over their live columns, written once.
+// The one-window-per-CTA kernel and the persistent sharded kernel run the
+// same body.
+template <typename TB, int V>
 __device__ __forceinline__ void window_body(
     int w, const int32_t* __restrict__ win_ptr,
-    const int64_t* __restrict__ win_out, const int32_t* __restrict__ slots,
-    const int32_t* __restrict__ a_idx, const float* __restrict__ a_values,
+    const int64_t* __restrict__ win_out, const PairUnits& units,
+    const int32_t* __restrict__ col_k, const float* __restrict__ col_vals,
     const TB* __restrict__ b_tiles, float* __restrict__ out, int block_k,
-    int bn, int64_t ldc, float (*a_s)[kBR], float (*b_s)[kBNMax]) {
-  const int t = threadIdx.x;
-  const int col = t & (kBNMax - 1);
-  const int row0 = (t >> 7) * 4;
-  const int p0 = win_ptr[w];
-  const int p1 = win_ptr[w + 1];
-  float acc[4] = {0.f, 0.f, 0.f, 0.f};
-  for (int p = p0; p < p1; ++p) {
-    const float* a = a_values + static_cast<int64_t>(a_idx[p]) * kBR * block_k;
-    const TB* b = b_tiles + static_cast<int64_t>(slots[p]) * block_k * bn;
-    float part[4] = {0.f, 0.f, 0.f, 0.f};
-    for (int k0 = 0; k0 < block_k; k0 += kKT) {
-      const int kt = min(kKT, block_k - k0);
-      __syncthreads();  // every thread is done with the previous sub-tile
-      for (int i = t; i < kBR * kt; i += kThreads) {
-        const int r = i / kt;
-        const int k = i - r * kt;
-        a_s[k][r] = a[r * block_k + k0 + k];
-      }
-      for (int i = t; i < kt * kBNMax; i += kThreads) {
-        const int k = i >> 7;
-        const int c = i & (kBNMax - 1);
-        b_s[k][c] = c < bn ? to_f32(b[static_cast<int64_t>(k0 + k) * bn + c])
-                           : 0.f;
-      }
-      __syncthreads();
-#pragma unroll 8
-      for (int k = 0; k < kt; ++k) {
-        const float4 av = *reinterpret_cast<const float4*>(&a_s[k][row0]);
-        const float bv = b_s[k][col];
-        part[0] = fmaf(av.x, bv, part[0]);
-        part[1] = fmaf(av.y, bv, part[1]);
-        part[2] = fmaf(av.z, bv, part[2]);
-        part[3] = fmaf(av.w, bv, part[3]);
-      }
-    }
+    int bn, int64_t ldc, int groups_q, const live_columns::Geometry& g) {
+  using namespace live_columns;
+  const int c = g.q * V;
+  const bool active = g.lane_used && c < bn;
+  const TB* cols = b_tiles + (active ? c : 0);
+  const int64_t tile_elems = static_cast<int64_t>(block_k) * bn;
+  float acc[kRows][V];
 #pragma unroll
-    for (int q = 0; q < 4; ++q) acc[q] += part[q];
-  }
-  if (col < bn) {
-    float* o = out + win_out[w] + col;
+  for (int r = 0; r < kRows; ++r)
 #pragma unroll
-    for (int q = 0; q < 4; ++q) o[static_cast<int64_t>(row0 + q) * ldc] = acc[q];
+    for (int v = 0; v < V; ++v) acc[r][v] = 0.f;
+  const auto band_of = [&](const Meta& m) {
+    return Band<TB>{cols + m.band * tile_elems, block_k};
+  };
+  walk<TB, V>(win_ptr[w], win_ptr[w + 1], units, band_of, col_k, col_vals,
+              bn, active, g, groups_q, acc);
+  if (g.grp == 0 && active) {
+    store_rows<V>(out + win_out[w] + c, ldc, acc);
   }
 }
 
-template <typename TB>
-__global__ void __launch_bounds__(kThreads)
-window_kernel(const int32_t* __restrict__ win_ptr,
-              const int64_t* __restrict__ win_out,
-              const int32_t* __restrict__ slots,
-              const int32_t* __restrict__ a_idx,
-              const float* __restrict__ a_values,
+// One CTA per window; `order` (optional) is the launch order of the
+// windows, so that CTAs running together share B's column strip.
+template <typename TB, int V>
+__global__ void __launch_bounds__(live_columns::kMaxThreads,
+                                  live_columns::kMinBlocks)
+window_kernel(const int32_t* __restrict__ order,
+              const int32_t* __restrict__ win_ptr,
+              const int64_t* __restrict__ win_out, PairUnits units,
+              const int32_t* __restrict__ col_k,
+              const float* __restrict__ col_vals,
               const TB* __restrict__ b_tiles, float* __restrict__ out,
-              int block_k, int bn, int64_t ldc) {
-  __shared__ __align__(16) float a_s[kKT][kBR];  // A sub-tile, k-major
-  __shared__ float b_s[kKT][kBNMax];             // B sub-tile
-  window_body<TB>(blockIdx.x, win_ptr, win_out, slots, a_idx, a_values,
-                  b_tiles, out, block_k, bn, ldc, a_s, b_s);
+              int block_k, int bn, int64_t ldc, int groups_q) {
+  extern __shared__ float4 smem4[];
+  const live_columns::Geometry g(groups_q, smem4);
+  const int w = order ? order[blockIdx.x] : static_cast<int>(blockIdx.x);
+  window_body<TB, V>(w, win_ptr, win_out, units, col_k, col_vals, b_tiles,
+                     out, block_k, bn, ldc, groups_q, g);
 }
 
 // K8, the sharded pair stream: one persistent CTA per shard walks the
 // windows shard_ptr[shard] .. shard_ptr[shard + 1] in order. A shard is a
 // contiguous range of row blocks, so its windows are a contiguous range of
 // the window-major stream and no two CTAs write the same C rows.
-template <typename TB>
-__global__ void __launch_bounds__(kThreads)
+template <typename TB, int V>
+__global__ void __launch_bounds__(live_columns::kMaxThreads,
+                                  live_columns::kMinBlocks)
 window_sharded_kernel(const int32_t* __restrict__ shard_ptr,
                       const int32_t* __restrict__ win_ptr,
-                      const int64_t* __restrict__ win_out,
-                      const int32_t* __restrict__ slots,
-                      const int32_t* __restrict__ a_idx,
-                      const float* __restrict__ a_values,
+                      const int64_t* __restrict__ win_out, PairUnits units,
+                      const int32_t* __restrict__ col_k,
+                      const float* __restrict__ col_vals,
                       const TB* __restrict__ b_tiles, float* __restrict__ out,
-                      int block_k, int bn, int64_t ldc) {
-  __shared__ __align__(16) float a_s[kKT][kBR];
-  __shared__ float b_s[kKT][kBNMax];
+                      int block_k, int bn, int64_t ldc, int groups_q) {
+  extern __shared__ float4 smem4[];
+  const live_columns::Geometry g(groups_q, smem4);
   const int w1 = shard_ptr[blockIdx.x + 1];
   for (int w = shard_ptr[blockIdx.x]; w < w1; ++w) {
-    window_body<TB>(w, win_ptr, win_out, slots, a_idx, a_values, b_tiles,
-                    out, block_k, bn, ldc, a_s, b_s);
+    window_body<TB, V>(w, win_ptr, win_out, units, col_k, col_vals, b_tiles,
+                       out, block_k, bn, ldc, groups_q, g);
   }
 }
 
 template <typename TB>
-int launch(const void* shard_ptr, int nshards, const void* win_ptr,
-           const void* win_out, const void* slots, const void* a_idx,
-           const void* a_values, const void* b_tiles, void* out, int nwin,
-           int block_k, int bn, long long ldc, void* stream) {
+int launch(const void* shard_ptr, int nshards, const void* order,
+           const void* win_ptr, const void* win_out, const void* slots,
+           const void* a_idx, const void* col_ptr, const void* col_k,
+           const void* col_vals, const void* b_tiles, void* out, int nwin,
+           int npairs, int block_k, int bn, long long ldc, void* stream) {
   if (nwin <= 0 || block_k <= 0 || bn <= 0 || bn > kBNMax ||
       (shard_ptr != nullptr && nshards <= 0)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  // V-wide loads and stores need V-aligned strips: bn, ldc and every
+  // window origin (a multiple of bn) divisible by V, aligned bases
+  const auto aligned = [&](int v) {
+    return bn % v == 0 && ldc % v == 0 &&
+           reinterpret_cast<uintptr_t>(b_tiles) % (v * sizeof(TB)) == 0 &&
+           reinterpret_cast<uintptr_t>(out) % (4 * v) == 0;
+  };
+  const int vec = live_columns::vec_for(bn, aligned(4) ? 4
+                                            : aligned(2) ? 2 : 1);
+  const auto shape = live_columns::shape_for(bn, vec, npairs, nwin);
   const auto s = static_cast<cudaStream_t>(stream);
   const auto wp = static_cast<const int32_t*>(win_ptr);
   const auto wo = static_cast<const int64_t*>(win_out);
-  const auto sl = static_cast<const int32_t*>(slots);
-  const auto ai = static_cast<const int32_t*>(a_idx);
-  const auto av = static_cast<const float*>(a_values);
+  const PairUnits units{static_cast<const int32_t*>(a_idx),
+                        static_cast<const int32_t*>(slots),
+                        static_cast<const int32_t*>(col_ptr)};
+  const auto ck = static_cast<const int32_t*>(col_k);
+  const auto cv = static_cast<const float*>(col_vals);
   const auto bt = static_cast<const TB*>(b_tiles);
   const auto o = static_cast<float*>(out);
-  if (shard_ptr == nullptr) {
-    window_kernel<TB><<<nwin, kThreads, 0, s>>>(wp, wo, sl, ai, av, bt, o,
-                                                block_k, bn, ldc);
+  const auto go = [&](auto vec) {
+    constexpr int V = decltype(vec)::value;
+    if (shard_ptr == nullptr) {
+      window_kernel<TB, V><<<nwin, shape.threads, shape.smem_bytes, s>>>(
+          static_cast<const int32_t*>(order), wp, wo, units, ck, cv, bt, o,
+          block_k, bn, ldc, shape.groups_q);
+    } else {
+      window_sharded_kernel<TB, V>
+          <<<nshards, shape.threads, shape.smem_bytes, s>>>(
+              static_cast<const int32_t*>(shard_ptr), wp, wo, units, ck, cv,
+              bt, o, block_k, bn, ldc, shape.groups_q);
+    }
+  };
+  if (vec == 4) {
+    go(std::integral_constant<int, 4>());
+  } else if (vec == 2) {
+    go(std::integral_constant<int, 2>());
   } else {
-    window_sharded_kernel<TB><<<nshards, kThreads, 0, s>>>(
-        static_cast<const int32_t*>(shard_ptr), wp, wo, sl, ai, av, bt, o,
-        block_k, bn, ldc);
+    go(std::integral_constant<int, 1>());
   }
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-extern "C" int cluster_spgemm_windows_f32(
-    const void* win_ptr, const void* win_out, const void* slots,
-    const void* a_idx, const void* a_values, const void* b_tiles, void* out,
-    int nwin, int block_k, int bn, long long ldc, void* stream) {
-  return launch<float>(nullptr, 0, win_ptr, win_out, slots, a_idx, a_values,
-                       b_tiles, out, nwin, block_k, bn, ldc, stream);
-}
+#define WINDOWS_ENTRY(NAME, TB)                                              \
+  extern "C" int NAME(const void* order, const void* win_ptr,                \
+                      const void* win_out, const void* slots,                \
+                      const void* a_idx, const void* col_ptr,                \
+                      const void* col_k, const void* col_vals,               \
+                      const void* b_tiles, void* out, int nwin, int npairs,  \
+                      int block_k, int bn, long long ldc, void* stream) {    \
+    return launch<TB>(nullptr, 0, order, win_ptr, win_out, slots, a_idx,     \
+                      col_ptr, col_k, col_vals, b_tiles, out, nwin, npairs,  \
+                      block_k, bn, ldc, stream);                             \
+  }
+#define SHARDED_ENTRY(NAME, TB)                                              \
+  extern "C" int NAME(const void* shard_ptr, int nshards,                    \
+                      const void* win_ptr, const void* win_out,              \
+                      const void* slots, const void* a_idx,                  \
+                      const void* col_ptr, const void* col_k,                \
+                      const void* col_vals, const void* b_tiles, void* out,  \
+                      int nwin, int npairs, int block_k, int bn,             \
+                      long long ldc, void* stream) {                         \
+    return launch<TB>(shard_ptr, nshards, nullptr, win_ptr, win_out, slots,  \
+                      a_idx, col_ptr, col_k, col_vals, b_tiles, out, nwin,   \
+                      npairs, block_k, bn, ldc, stream);                     \
+  }
 
-extern "C" int cluster_spgemm_windows_bf16(
-    const void* win_ptr, const void* win_out, const void* slots,
-    const void* a_idx, const void* a_values, const void* b_tiles, void* out,
-    int nwin, int block_k, int bn, long long ldc, void* stream) {
-  return launch<__nv_bfloat16>(nullptr, 0, win_ptr, win_out, slots, a_idx,
-                               a_values, b_tiles, out, nwin, block_k, bn, ldc,
-                               stream);
-}
-
-extern "C" int cluster_spgemm_windows_sharded_f32(
-    const void* shard_ptr, int nshards, const void* win_ptr,
-    const void* win_out, const void* slots, const void* a_idx,
-    const void* a_values, const void* b_tiles, void* out, int nwin,
-    int block_k, int bn, long long ldc, void* stream) {
-  return launch<float>(shard_ptr, nshards, win_ptr, win_out, slots, a_idx,
-                       a_values, b_tiles, out, nwin, block_k, bn, ldc, stream);
-}
-
-extern "C" int cluster_spgemm_windows_sharded_bf16(
-    const void* shard_ptr, int nshards, const void* win_ptr,
-    const void* win_out, const void* slots, const void* a_idx,
-    const void* a_values, const void* b_tiles, void* out, int nwin,
-    int block_k, int bn, long long ldc, void* stream) {
-  return launch<__nv_bfloat16>(shard_ptr, nshards, win_ptr, win_out, slots,
-                               a_idx, a_values, b_tiles, out, nwin, block_k,
-                               bn, ldc, stream);
-}
+WINDOWS_ENTRY(cluster_spgemm_windows_f32, float)
+WINDOWS_ENTRY(cluster_spgemm_windows_bf16, __nv_bfloat16)
+SHARDED_ENTRY(cluster_spgemm_windows_sharded_f32, float)
+SHARDED_ENTRY(cluster_spgemm_windows_sharded_bf16, __nv_bfloat16)
 
 extern "C" const char* cluster_spgemm_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));

@@ -23,10 +23,13 @@
 //  * The 8 x bn accumulator is fp32 in registers (4 values a thread, as in
 //    the window kernel); A slabs and B tiles are staged in K sub-tiles of 64
 //    rows, because block_k reaches 512.
-//  * The output has B's dtype, as the TPU kernel's does: with bf16 B tiles
-//    the tile is accumulated in fp32 and rounded to bf16 once at the store
-//    (the TPU kernel rounded after every step, so the two agree within the
-//    documented 2e-2 bound, not bit for bit).
+//  * The output has B's dtype, as the TPU kernel's does, and is rounded
+//    where the TPU kernel rounded it: the TPU kernel's tile was a bf16
+//    block updated as o = bf16(o + bf16(dot)) at every live step, s
+//    ascending, so with bf16 B tiles each step's fp32 product is rounded
+//    to bf16 and added to the running tile, which is rounded to bf16 again
+//    (kept in an fp32 register, where every bf16 value is exact). With
+//    fp32 tiles both roundings are the identity.
 //
 // What bounds it: writing the dense C once (nblocks * 8 * nnb * bn values)
 // and the tile-padded multiply-adds of the live (step, j) pairs, 2 * 8 *
@@ -48,6 +51,10 @@ constexpr int kThreads = 256;
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
   return __bfloat162float(x);
+}
+__device__ __forceinline__ float round_to(float, float x) { return x; }
+__device__ __forceinline__ float round_to(__nv_bfloat16, float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
 }
 __device__ __forceinline__ void store(float* o, float v) { *o = v; }
 __device__ __forceinline__ void store(__nv_bfloat16* o, float v) {
@@ -104,8 +111,11 @@ padded_kernel(const int32_t* __restrict__ block_ptr,
         part[3] = fmaf(av.w, bv, part[3]);
       }
     }
+    // the TPU kernel's per-step rounding of its output tile
 #pragma unroll
-    for (int q = 0; q < 4; ++q) acc[q] += part[q];
+    for (int q = 0; q < 4; ++q) {
+      acc[q] = round_to(TB(), acc[q] + round_to(TB(), part[q]));
+    }
   }
   if (col < bn) {
     TB* o = out + blk * kBR * ldc + static_cast<int64_t>(j) * bn + col;

@@ -1,48 +1,53 @@
 // Cluster-wise SpMM C = A_bcc @ B (B dense, tall-skinny), hand-written for
-// Hopper (sm_90a), IEEE fp32 on the CUDA cores. Two entry points share one
-// kernel:
+// Hopper (sm_90a), IEEE fp32 on the CUDA cores. Two kernels:
 //
-//  * cluster_spmm_compact_f32 replaces the TPU kernel
-//    src/repro/kernels/cluster_spmm.py::cluster_spmm_compact, whose grid
-//    (N / bn, S) added A_slab[s] @ B[tile_ids[s] * block_k : +block_k,
-//    j * bn : +bn] into C[blk] over the compact (block, tile) stream and
-//    zeroed the accumulator when the block id changed along the serial S
-//    axis;
-//  * cluster_spmm_padded_f32 replaces src/repro/kernels/cluster_spmm.py::
-//    cluster_spmm, the padded grid (N / bn, nblocks, tiles_per_block): every
-//    block visits all of its tiles_per_block slabs, and the pad slabs (zero,
-//    pointing at tile 0) are summed like the others, as on the TPU.
+//  * spmm_columns_kernel (entry point cluster_spmm_columns_f32) replaces the
+//    TPU kernel src/repro/kernels/cluster_spmm.py::cluster_spmm_compact,
+//    whose grid (N / bn, S) added A_slab[s] @ B[tile_ids[s] * block_k :
+//    +block_k, j * bn : +bn] into C[blk] over the compact (block, tile)
+//    stream and zeroed the accumulator when the block id changed along the
+//    serial S axis;
+//  * spmm_kernel (entry point cluster_spmm_padded_f32) replaces
+//    src/repro/kernels/cluster_spmm.py::cluster_spmm, the padded grid
+//    (N / bn, nblocks, tiles_per_block): every block visits all of its
+//    tiles_per_block slabs, and the pad slabs (zero, pointing at tile 0) are
+//    summed like the others, as on the TPU.
 //
-// Design:
-//  * One CTA per (row block, column strip of bn <= 128). On the compact
-//    stream block_ids is non-decreasing, so the host hands each block its
-//    segment of the stream as blk_ptr offsets; on the padded lattice a
-//    block's slabs are blk * tiles_per_block .. + tiles_per_block. The CTA
-//    walks its segment in order (the TPU's serial axis becomes a loop inside
-//    the block) and writes its 8 x bn strip of C once. A compact stream
-//    built for this kernel has every block (empty blocks carry one zero
-//    slab), so every element of C is written exactly once; the compact
-//    wrapper zero-fills C all the same, for a block a stream leaves out.
-//  * 256 threads; the 8 x bn fp32 accumulator lives in registers, 4 values
-//    per thread (column t % 128, rows 4 * (t / 128) .. + 3).
-//  * A slabs and B row bands are staged through shared memory in K
-//    sub-tiles of at most 64 rows. B rows past K and columns past N are
-//    masked to zero, so ragged shapes need no padded copy of B. Tail-pad
-//    steps carry zero slabs, as in the reference.
+// Both give one CTA to a (row block, column strip of bn <= 128), walk the
+// block's slabs in order (the TPU's serial axis becomes a loop inside the
+// block) and write the 8 x bn strip of C once. A compact stream built for
+// the kernel has every block (empty blocks carry one zero slab); the
+// compact wrapper zero-fills C all the same, for a block a stream leaves
+// out. Rows of B past K and columns past N are masked, so ragged shapes
+// need no padded copy of B.
 //
-// What bounds it: the kernel does 2 * 8 * block_k * N_strip multiply-adds
-// per stream step (tile-padded) and reads A's slabs, the B rows they select
-// and C. At the spmm request of the smoke run (kron-14 A, B 16384 x 64) that
-// padded work is ~9.6 GFLOP against the product's 2 * nnz * N ~ 5.7e7
-// flops, whose least bytes (CSR A, B and C once) take ~4 us; on SparseLinear's
-// padded path (a 2560 x 10240 weight at density 0.1, 4096 tokens) the
-// product's own 21.5 GFLOP bound it by operations at ~0.32 ms. The kernel is
-// held by load latency and the load/store units, as the Sp x Sp kernel is.
-// PERF.md has its measured times. Tensor-core (wgmma) versions are later
-// work.
+// spmm_columns_kernel walks each slab's live columns (live_columns.cuh):
+// for every live column k of step s it reads B's row tile_ids[s] * block_k
+// + k, strip col0 .. col0 + bn, once and does 8 FMAs per B element, the
+// column's 8 values broadcast. Threads map to the strip width, not to a
+// fixed 128: a group of bn / V threads per step (V = 2 at bn = 64, 4 at
+// bn = 128: one full warp, 8- or 16-byte loads), and as many step groups
+// per CTA as the mean steps per block keep busy (kron-14: 8). Each step is summed in its own part and added to
+// the block's accumulator in step order, so the result equals the
+// tile-padded kernel's bit for bit on finite data.
+//
+// What bounds it: the work the product needs, not the padding. At the SpMM
+// request of the smoke run (kron-14 A: 73,432 slabs of 8 x 128 holding
+// 346,348 live columns; B 16384 x 64) it reads ~12 MB of live columns, one
+// 256-byte B row per live column (89 MB, from the 4 MB B that stays in the
+// 50 MB L2) and writes C (4 MB): a few microseconds of HBM traffic. What
+// holds it is the chain of a block: the steps of a block run in order
+// (8 at a time), each a few dependent loads long, and the longest block (a
+// power-law hub: 127 steps, 5,316 live columns) decides the kernel's end.
+// The tile-padded design did ~9.6 GFLOP for the product's ~5.7e7.
+// spmm_kernel on SparseLinear's padded path (a 2560 x 10240 weight at
+// density 0.1, 4096 tokens, dense slabs) is bounded by the product's own
+// 21.5 GFLOP, ~0.32 ms at 67 TFLOP/s. PERF.md has the measured times.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "live_columns.cuh"
 
 namespace {
 
@@ -51,11 +56,10 @@ constexpr int kBNMax = 128;
 constexpr int kKT = 64;
 constexpr int kThreads = 256;
 
-// blk_ptr: per-block stream offsets (compact), or null for the padded
-// lattice of tiles_per_block slabs per block
+// The padded lattice: block blk's slabs are blk * tiles_per_block .. +
+// tiles_per_block, dense slabs staged through shared memory.
 __global__ void __launch_bounds__(kThreads)
-spmm_kernel(const int32_t* __restrict__ blk_ptr,
-            const int32_t* __restrict__ tile_ids,
+spmm_kernel(const int32_t* __restrict__ tile_ids,
             const float* __restrict__ a_values, const float* __restrict__ b,
             float* __restrict__ out, int tiles_per_block, int block_k, int K,
             int N, int bn) {
@@ -67,8 +71,8 @@ spmm_kernel(const int32_t* __restrict__ blk_ptr,
   const int blk = blockIdx.x;
   const int col0 = blockIdx.y * bn;
   const int width = min(bn, N - col0);
-  const int s0 = blk_ptr ? blk_ptr[blk] : blk * tiles_per_block;
-  const int s1 = blk_ptr ? blk_ptr[blk + 1] : s0 + tiles_per_block;
+  const int s0 = blk * tiles_per_block;
+  const int s1 = s0 + tiles_per_block;
   float acc[4] = {0.f, 0.f, 0.f, 0.f};
   for (int s = s0; s < s1; ++s) {
     const float* a = a_values + static_cast<int64_t>(s) * kBR * block_k;
@@ -109,22 +113,92 @@ spmm_kernel(const int32_t* __restrict__ blk_ptr,
   }
 }
 
+// The compact stream's live columns: one CTA per (block, column strip),
+// the block's steps blk_ptr[blk] .. blk_ptr[blk + 1] walked in order.
+struct StepUnits {
+  const int32_t* tile_ids;
+  const int32_t* col_ptr;
+  __device__ live_columns::Meta meta(int s) const {
+    return {col_ptr[s], col_ptr[s + 1], tile_ids[s]};
+  }
+};
+
+template <int V>
+__global__ void __launch_bounds__(live_columns::kMaxThreads,
+                                  live_columns::kMinBlocks)
+spmm_columns_kernel(const int32_t* __restrict__ blk_ptr,
+                    const int32_t* __restrict__ tile_ids,
+                    const int32_t* __restrict__ col_ptr,
+                    const int32_t* __restrict__ col_k,
+                    const float* __restrict__ col_vals,
+                    const float* __restrict__ b, float* __restrict__ out,
+                    int block_k, int K, int N, int bn, int groups_q) {
+  using namespace live_columns;
+  extern __shared__ float4 smem4[];
+  const Geometry g(groups_q, smem4);
+  const int blk = blockIdx.x;
+  const int col0 = blockIdx.y * bn;
+  const int width = min(bn, N - col0);
+  const int c = g.q * V;
+  const bool active = g.lane_used && c < width;
+  const float* strip = b + col0 + (active ? c : 0);
+  float acc[kRows][V];
+#pragma unroll
+  for (int r = 0; r < kRows; ++r)
+#pragma unroll
+    for (int v = 0; v < V; ++v) acc[r][v] = 0.f;
+  const auto band_of = [&](const Meta& m) {
+    const int64_t row0 = static_cast<int64_t>(m.band) * block_k;
+    return Band<float>{strip + row0 * N, K - row0};
+  };
+  walk<float, V>(blk_ptr[blk], blk_ptr[blk + 1], StepUnits{tile_ids, col_ptr},
+                 band_of, col_k, col_vals, N, active, g, groups_q, acc);
+  if (g.grp == 0 && active) {
+    store_rows<V>(out + static_cast<int64_t>(blk) * kRows * N + col0 + c, N,
+                  acc);
+  }
+}
+
 }  // namespace
 
-extern "C" int cluster_spmm_compact_f32(const void* blk_ptr,
+extern "C" int cluster_spmm_columns_f32(const void* blk_ptr,
                                         const void* tile_ids,
-                                        const void* a_values, const void* b,
-                                        void* out, int nblocks, int block_k,
-                                        int K, int N, int bn, void* stream) {
+                                        const void* col_ptr,
+                                        const void* col_k,
+                                        const void* col_vals, const void* b,
+                                        void* out, int nblocks, int nsteps,
+                                        int block_k, int K, int N, int bn,
+                                        void* stream) {
   if (nblocks <= 0 || block_k <= 0 || N <= 0 || bn <= 0 || bn > kBNMax) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  // V-wide loads and stores need every strip to start V-aligned
+  const auto aligned = [&](int v) {
+    return N % v == 0 && bn % v == 0 &&
+           reinterpret_cast<uintptr_t>(b) % (4 * v) == 0 &&
+           reinterpret_cast<uintptr_t>(out) % (4 * v) == 0;
+  };
+  const int vec = live_columns::vec_for(bn, aligned(4) ? 4
+                                            : aligned(2) ? 2 : 1);
+  const auto shape = live_columns::shape_for(bn, vec, nsteps, nblocks);
   const dim3 grid(nblocks, (N + bn - 1) / bn);
-  spmm_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int32_t*>(blk_ptr),
-      static_cast<const int32_t*>(tile_ids),
-      static_cast<const float*>(a_values), static_cast<const float*>(b),
-      static_cast<float*>(out), 0, block_k, K, N, bn);
+  const auto s = static_cast<cudaStream_t>(stream);
+  const auto args = [&](auto kernel) {
+    kernel<<<grid, shape.threads, shape.smem_bytes, s>>>(
+        static_cast<const int32_t*>(blk_ptr),
+        static_cast<const int32_t*>(tile_ids),
+        static_cast<const int32_t*>(col_ptr),
+        static_cast<const int32_t*>(col_k),
+        static_cast<const float*>(col_vals), static_cast<const float*>(b),
+        static_cast<float*>(out), block_k, K, N, bn, shape.groups_q);
+  };
+  if (vec == 4) {
+    args(spmm_columns_kernel<4>);
+  } else if (vec == 2) {
+    args(spmm_columns_kernel<2>);
+  } else {
+    args(spmm_columns_kernel<1>);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -139,7 +213,7 @@ extern "C" int cluster_spmm_padded_f32(const void* tile_ids,
   }
   const dim3 grid(nblocks, (N + bn - 1) / bn);
   spmm_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      nullptr, static_cast<const int32_t*>(tile_ids),
+      static_cast<const int32_t*>(tile_ids),
       static_cast<const float*>(a_values), static_cast<const float*>(b),
       static_cast<float*>(out), tiles_per_block, block_k, K, N, bn);
   return static_cast<int>(cudaGetLastError());

@@ -26,7 +26,10 @@ keep the JAX package's selection *rules*:
 
 Host packing stays numpy; the packed streams are moved to the operands'
 device once, in :func:`pack_spgemm`, so a caller that keeps the pack
-(the planner's serving path) launches with no host work at all.
+(the planner's serving path) launches with no host work at all. The pack
+also holds the live-column form of A's slabs (:func:`slab_columns`),
+which the window and compact SpMM kernels walk instead of the padded
+slabs; it is built on the device once per packed operand.
 
 The dense-B SpMM wrappers (:func:`bcc_spmm` on BCC's padded lattice,
 :func:`bcc_spmm_compact` on its compact stream) back ``SparseLinear``;
@@ -62,6 +65,7 @@ from repro_torch.kernels.cluster_spgemm import (PaddedGrid, Segments,
                                                 windows_from_shards)
 from repro_torch.kernels.cluster_spmm import (KERNEL_MAX_BN, cluster_spmm,
                                               cluster_spmm_compact)
+from repro_torch.kernels.columns import SlabColumns, slab_columns
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.ssd_chunk import ssd_chunk_scan
 from repro_torch.obs import metrics as obs_metrics
@@ -69,7 +73,7 @@ from repro_torch.obs.trace import get_tracer
 from repro_torch.resilience import faults as _faults
 
 __all__ = ["pallas_shard_count", "bcc_spmm", "bcc_compact_stream",
-           "bcc_spmm_compact",
+           "SlabColumns", "slab_columns", "bcc_spmm_compact",
            "spmm_compact_stream", "build_live_pairs", "build_shard_pack",
            "build_sparse_c_pairs", "predict_c_window_density",
            "compact_grid_ok", "compact_grid_ok_ncols", "SpGEMMPack",
@@ -163,29 +167,32 @@ def bcc_compact_stream(a: BCC, *, cover_all_blocks: bool = False
 
 
 def bcc_spmm_compact(a: BCC, b: torch.Tensor, *,
-                     stream: tuple | None = None) -> torch.Tensor:
+                     stream: tuple | None = None,
+                     cols: SlabColumns | None = None) -> torch.Tensor:
     """C = A_bcc @ B (B dense ``(a.ncols, N)``) via the compact-stream
-    kernel, in column strips of up to 128. Returns ``(a.nrows, N)``
-    fp32."""
+    kernel, in column strips of up to 128. ``stream`` and ``cols`` (its
+    slabs' live columns) are built here when absent; a caller that
+    launches again keeps them. Returns ``(a.nrows, N)`` fp32."""
     if stream is None:
         # cover_all_blocks: a block with no live tiles must still appear
         # once so its C strip is written
         stream = bcc_compact_stream(a, cover_all_blocks=True)
-    return spmm_compact_stream(stream, b, nrows=a.nrows)
+    return spmm_compact_stream(stream, b, nrows=a.nrows, cols=cols)
 
 
-def spmm_compact_stream(stream: tuple, b: torch.Tensor, *,
-                        nrows: int) -> torch.Tensor:
+def spmm_compact_stream(stream: tuple, b: torch.Tensor, *, nrows: int,
+                        cols: SlabColumns | None = None) -> torch.Tensor:
     """:func:`bcc_spmm_compact` from A's compact stream alone (built with
-    ``cover_all_blocks=True``): all the launch reads of A, so a caller that
-    keeps the stream need not keep A's padded slab array."""
+    ``cover_all_blocks=True``) and its slabs' live columns: all the launch
+    reads of A, so a caller that keeps them need not keep A's padded slab
+    array."""
     block_ids, tile_ids, values = stream
     _, block_r, block_k = values.shape
     nblocks = (nrows + block_r - 1) // block_r
     bn_eff = max(1, min(KERNEL_MAX_BN, b.shape[1]))
     out = cluster_spmm_compact(block_ids, tile_ids, values, b,
                                block_r=block_r, block_k=block_k,
-                               nblocks=nblocks, bn=bn_eff)
+                               nblocks=nblocks, bn=bn_eff, cols=cols)
     return out[:nrows]
 
 
@@ -316,7 +323,9 @@ class SpGEMMPack:
     builds no live pairs). On the sparse-C route ``table`` is the
     CompactedC table on the device. A caller that keeps the pack (the
     planner's exec cache) launches from it and B alone, without A's
-    padded slab array."""
+    padded slab array. ``cols`` is the live-column form of the stream's
+    slabs on the routes whose launch is a window stream (``dense``,
+    ``sparse_c``, ``sharded``)."""
 
     stream: tuple              # (block_ids, tile_ids, values)
     pairs: tuple | None        # (blocks, js, slots, a_idx) host int32
@@ -328,6 +337,7 @@ class SpGEMMPack:
     block_r: int
     block_k: int
     shard_pack: tuple | None = None   # (ranges, shard_pairs, window_blocks)
+    cols: SlabColumns | None = None
 
     @property
     def sparse_c(self) -> bool:
@@ -383,7 +393,8 @@ def pack_spgemm(a: BCC, b: TiledCSR, *, sparse_c: bool | None = None,
                                           window_blocks=wb, **geometry)
         return SpGEMMPack(
             pairs=pairs, route="sharded" if wb is None else "sharded_revisit",
-            launch=launch, table=None, shard_pack=shard_pack, **common)
+            launch=launch, table=None, shard_pack=shard_pack,
+            cols=slab_columns(stream[2]) if wb is None else None, **common)
     if sparse_c is None:
         sparse_c = predict_c_window_density(
             pairs, nblocks=nblocks, nnb=b.nnb) <= _SPARSE_C_DENSITY
@@ -393,7 +404,8 @@ def pack_spgemm(a: BCC, b: TiledCSR, *, sparse_c: bool | None = None,
             pairs, nblocks=nblocks, nnb=b.nnb)[0]).to(dev)
     windows = windows_from_pairs(*pairs, table=table, **geometry)
     return SpGEMMPack(pairs=pairs, route="sparse_c" if sparse_c else "dense",
-                      launch=windows, table=table, **common)
+                      launch=windows, table=table,
+                      cols=slab_columns(stream[2]), **common)
 
 
 def bcc_spgemm_sparse_c(a: BCC | None, b: TiledCSR, *,
@@ -410,7 +422,7 @@ def bcc_spgemm_sparse_c(a: BCC | None, b: TiledCSR, *,
     with get_tracer().span("kernel_variant", variant="sparse_c",
                            epilogue="kernel"):
         slabs = cluster_spgemm_windows(pack.launch, pack.stream[2],
-                                       b.tiles)
+                                       b.tiles, pack.cols)
     out = CompactedC(slabs=slabs, table=pack.table, nrows=pack.nrows,
                      ncols=b.ncols, block_r=pack.block_r, bn=b.bn)
     _note_kernel_launch("sparse_c", cc=out)
@@ -458,7 +470,8 @@ def bcc_spgemm_tiled(a: BCC | None, b: TiledCSR, *,
             if pack.route == "sharded_revisit" and nshards == 1:
                 out = cluster_spgemm_revisit(pack.launch, values, b.tiles)
             else:
-                out = cluster_spgemm_sharded(pack.launch, values, b.tiles)
+                out = cluster_spgemm_sharded(pack.launch, values, b.tiles,
+                                             pack.cols)
         variant = pack.route
     else:
         if resident:
@@ -468,7 +481,8 @@ def bcc_spgemm_tiled(a: BCC | None, b: TiledCSR, *,
         else:
             variant = "streamed"
         with tracer.span("kernel_variant", variant=variant):
-            out = cluster_spgemm_windows(pack.launch, values, b.tiles)
+            out = cluster_spgemm_windows(pack.launch, values, b.tiles,
+                                         pack.cols)
     _note_kernel_launch(variant, pairs=pack.pairs, block_r=pack.block_r,
                         block_k=pack.block_k, bn=b.bn)
     return out[: pack.nrows, : b.ncols]

@@ -8,8 +8,10 @@ reorders the weight's output rows (hierarchical clustering on the
 row→tile incidence by default; the permutation is undone on the way out,
 so the layer is a drop-in replacement), packs BCC tiles on the requested
 device and reports the tile statistics; ``apply`` runs the cluster-wise
-SpMM kernel — on BCC's compact stream (``compact=True``, the default) or
-its padded lattice — or the exact dense product.
+SpMM kernel — on BCC's compact stream (``compact=True``, the default),
+walked over its slabs' live columns, or on its padded lattice — or the
+exact dense product. The compact stream and its live columns are built
+once, with the layer.
 """
 from __future__ import annotations
 
@@ -23,6 +25,7 @@ from repro_torch.core.formats import BCC, HostCSR, bcc_from_host
 from repro_torch.core.reorder import reorder as apply_reorder
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops as kernel_ops
+from repro_torch.kernels.columns import SlabColumns
 
 __all__ = ["SparseLinear", "magnitude_prune"]
 
@@ -41,6 +44,8 @@ class SparseLinear:
 
     ``perm`` maps packed output rows → original output features; apply
     inverse-permutes the result so the layer is a drop-in replacement.
+    ``stream`` and ``cols`` are BCC's compact stream and its slabs' live
+    columns, which the compact path launches from.
     """
 
     bcc: BCC
@@ -48,6 +53,8 @@ class SparseLinear:
     out_features: int
     in_features: int
     stats: dict
+    stream: tuple = dataclasses.field(repr=False)
+    cols: SlabColumns = dataclasses.field(repr=False)
 
     @classmethod
     def from_dense(cls, w: np.ndarray, *, density: float = 0.1,
@@ -94,18 +101,21 @@ class SparseLinear:
             "bcc_bytes": int(bcc.values.numel() * 2
                              + bcc.tile_ids.numel() * 4),
         }
+        stream = kernel_ops.bcc_compact_stream(bcc, cover_all_blocks=True)
         return cls(bcc=bcc, perm=np.asarray(perm), out_features=out_f,
-                   in_features=in_f, stats=stats)
+                   in_features=in_f, stats=stats, stream=stream,
+                   cols=kernel_ops.slab_columns(stream[2]))
 
     def apply(self, x: torch.Tensor, *, use_kernel: bool = True,
               compact: bool = True) -> torch.Tensor:
         """x (..., in) → (..., out), on the device of the packed weight."""
         lead = x.shape[:-1]
         xt = x.reshape(-1, self.in_features).T.contiguous()   # (in, tokens)
-        if use_kernel:
-            fn = kernel_ops.bcc_spmm_compact if compact \
-                else kernel_ops.bcc_spmm
-            y_packed = fn(self.bcc, xt)
+        if use_kernel and compact:
+            y_packed = kernel_ops.spmm_compact_stream(
+                self.stream, xt, nrows=self.bcc.nrows, cols=self.cols)
+        elif use_kernel:
+            y_packed = kernel_ops.bcc_spmm(self.bcc, xt)
         else:
             y_packed = self.bcc.to_dense() @ xt
         # un-permute packed rows back to feature order

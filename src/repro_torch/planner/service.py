@@ -799,12 +799,14 @@ class Planner:
                     if plan.scheme == "rowwise":
                         cached = ("spmm_row", csr_from_host(ap, device=dev))
                     elif plan.scheme == "pallas":
-                        # keep the compact stream only: the launch reads
-                        # nothing else of the padded BCC
+                        # keep the compact stream and its slabs' live
+                        # columns only: the launch reads nothing else of
+                        # the padded BCC
                         stream = kernel_ops.bcc_compact_stream(
                             bcc_from_host(ap, device=dev),
                             cover_all_blocks=True)
-                        cached = ("spmm_pallas", ap.nrows, stream)
+                        cached = ("spmm_pallas", ap.nrows, stream,
+                                  kernel_ops.slab_columns(stream[2]))
                     else:
                         cc = csr_cluster_from_host(
                             ap, self._bounds(plan, ap),
@@ -817,9 +819,9 @@ class Planner:
                 op = cached[1]
                 out = lambda: spmm_rowwise(op, bd)         # noqa: E731
             elif kind == "spmm_pallas":
-                _, nrows, stream = cached
+                _, nrows, stream, cols = cached
                 out = lambda: kernel_ops.spmm_compact_stream(  # noqa: E731
-                    stream, bd, nrows=nrows)
+                    stream, bd, nrows=nrows, cols=cols)
             else:
                 op = cached[1]
                 out = lambda: spmm_clusterwise(op, bd)     # noqa: E731

@@ -314,3 +314,184 @@ def test_run_serving_launches_both_lm_kernels(card):
     assert (flash_attention.launches, ssd_chunk_scan.launches) == (2, 4)
     assert out["tokens"].shape == (2, 4)
     assert (out["tokens"] < 128).all()
+
+
+# -- the live-column kernels (K4's compact SpMM, K1's window walk) ---------
+
+
+def _spmm_operands(card, a, n_cols, *, block_k=128, integer=True, seed=0):
+    bcc = bcc_from_host(a, block_k=block_k, device=card)
+    stream = ops.bcc_compact_stream(bcc, cover_all_blocks=True)
+    rng = np.random.default_rng(seed)
+    bd = (rng.integers(-2, 3, (a.ncols, n_cols)) if integer
+          else rng.standard_normal((a.ncols, n_cols)))
+    return bcc, stream, torch.from_numpy(bd.astype(np.float32)).to(card)
+
+
+@pytest.mark.parametrize("n_cols,block_k", [
+    (64, 128), (40, 128),      # bn < 128: threads follow the strip width
+    (13, 128),                 # N not a multiple of 4: scalar loads
+    (130, 128),                # two strips, the last 2 wide
+    (64, 512),                 # block_k 512
+])
+def test_column_spmm_kernel_exact_on_integers(card, n_cols, block_k):
+    a = _host(300, 1100, 0.02, 21)
+    bcc, (bids, tids, vals), bd = _spmm_operands(card, a, n_cols,
+                                                 block_k=block_k)
+    cols = ops.slab_columns(vals)
+    kw = dict(block_r=8, block_k=block_k, nblocks=bcc.nblocks,
+              bn=min(128, n_cols))
+    before = cluster_spmm_compact.launches
+    got = cluster_spmm_compact(bids, tids, vals, bd, cols=cols, **kw)
+    torch.cuda.synchronize()
+    assert cluster_spmm_compact.launches == before + 1
+    kw.pop("bn")
+    assert torch.equal(got, cluster_spmm_compact_plain(
+        bids, tids, vals, bd, cols=cols, **kw))
+    assert np.array_equal(got[:300].cpu().numpy(),
+                          a.to_dense() @ bd.cpu().numpy())
+
+
+@pytest.mark.parametrize("n_cols", [64, 40])
+def test_column_spmm_equals_the_tile_padded_sums_on_floats(card, n_cols):
+    """Skipping zero columns is exact (fmaf(0, b, x) == x), and each step
+    is summed k ascending and added to the block in step order, as the
+    tile-padded body (still K9's, on the padded lattice) sums it: the two
+    agree bit for bit on float data too."""
+    a = _host(300, 700, 0.03, 22, integer=False)
+    bcc, (bids, tids, vals), bd = _spmm_operands(card, a, n_cols,
+                                                 integer=False)
+    got = cluster_spmm_compact(bids, tids, vals, bd, block_r=8,
+                               block_k=128, nblocks=bcc.nblocks, bn=n_cols)
+    tiled = cluster_spmm(bcc.tile_ids, bcc.values, bd, block_r=8,
+                         block_k=128, tiles_per_block=bcc.tiles_per_block,
+                         bn=n_cols)
+    assert torch.equal(got, tiled)
+    want = cluster_spmm_compact_plain(bids, tids, vals, bd, block_r=8,
+                                      block_k=128, nblocks=bcc.nblocks)
+    assert float((got - want).abs().max()) <= 1e-5 * float(
+        want.abs().max())
+
+
+def test_column_spmm_all_zero_stream(card):
+    a = HostCSR.from_dense(np.zeros((40, 300), np.float32))
+    bcc, (bids, tids, vals), bd = _spmm_operands(card, a, 64)
+    cols = ops.slab_columns(vals)
+    assert cols.ncols == 0
+    got = cluster_spmm_compact(bids, tids, vals, bd, block_r=8,
+                               block_k=128, nblocks=bcc.nblocks, bn=64,
+                               cols=cols)
+    torch.cuda.synchronize()
+    assert got.shape == (40, 64) and not got.any()
+
+
+def test_column_spmm_on_a_dense_sparse_linear_slab(card):
+    """The column form's worst case: every column of every slab live."""
+    rng = np.random.default_rng(23)
+    w = rng.integers(1, 4, (64, 384)).astype(np.float32) * rng.choice(
+        [-1, 1], (64, 384))
+    layer = SparseLinear.from_dense(w, density=1.0, device=card)
+    assert layer.cols.ncols == layer.stream[2].shape[0] * 128
+    x = torch.from_numpy(rng.integers(-2, 3, (96, 384)).astype(
+        np.float32)).to(card)
+    before = cluster_spmm_compact.launches
+    y = layer.apply(x)
+    torch.cuda.synchronize()
+    assert cluster_spmm_compact.launches == before + 1
+    assert torch.equal(y, layer.apply(x, use_kernel=False))
+
+
+@pytest.mark.parametrize("bn,block_k,dtype", [
+    (128, 128, torch.float32),
+    (40, 128, torch.float32),     # bn < 128
+    (30, 128, torch.float32),     # bn not a multiple of 4: scalar loads
+    (128, 512, torch.float32),    # block_k 512
+    (128, 128, torch.bfloat16),   # bf16 tiles, 8-byte loads
+    (40, 256, torch.bfloat16),
+])
+def test_column_window_kernel_exact_on_integers(card, bn, block_k, dtype):
+    a, b = _host(400, 900, 0.02, 24), _host(900, 300, 0.02, 25)
+    bcc = bcc_from_host(a, block_k=block_k, device=card)
+    tiled = tiled_csr_from_host(b, block_k=block_k, bn=bn, dtype=dtype,
+                                device=card)
+    for sparse_c in (False, True):
+        pack = ops.pack_spgemm(bcc, tiled, sparse_c=sparse_c)
+        assert pack.cols is not None
+        before = cluster_spgemm_windows.launches
+        got = cluster_spgemm_windows(pack.launch, pack.stream[2],
+                                     tiled.tiles, pack.cols)
+        torch.cuda.synchronize()
+        assert cluster_spgemm_windows.launches == before + 1
+        assert torch.equal(got, cluster_spgemm_windows_plain(
+            pack.launch, pack.stream[2], tiled.tiles, pack.cols))
+        dense = ops.bcc_spgemm_tiled(None, tiled, pack=pack).cpu().numpy()
+        assert np.array_equal(dense, a.to_dense() @ b.to_dense())
+
+
+def test_column_window_kernel_all_zero_slabs(card):
+    """Live pairs whose A slab has no live column (values cancelled to
+    zero after packing) add nothing and leave their windows zero."""
+    a, b = _host(64, 256, 0.05, 26), _host(256, 128, 0.05, 27)
+    bcc = bcc_from_host(a, device=card)
+    tiled = tiled_csr_from_host(b, device=card)
+    pack = ops.pack_spgemm(bcc, tiled, sparse_c=False)
+    zeros = torch.zeros_like(pack.stream[2])
+    got = cluster_spgemm_windows(pack.launch, zeros, tiled.tiles)
+    torch.cuda.synchronize()
+    assert pack.launch.npairs > 0 and not got.any()
+
+
+def test_padded_kernel_rounds_bf16_after_every_step(card):
+    """K6 with bf16 B tiles rounds each step's product to bf16 and the
+    running tile again, as the JAX package's padded kernels do: integer
+    sums past bf16's 8-bit significand tell that apart from rounding the
+    fp32 sum once."""
+    rng = np.random.default_rng(28)
+    a = HostCSR.from_dense(((rng.random((64, 96)) < 0.5)
+                            * rng.integers(1, 16, (64, 96))).astype(
+                                np.float32))
+    b = HostCSR.from_dense(((rng.random((96, 64)) < 0.5)
+                            * rng.integers(1, 16, (96, 64))).astype(
+                                np.float32))
+    bcc = bcc_from_host(a, block_k=16, device=card)
+    got = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        tiled = tiled_csr_from_host(b, block_k=16, bn=16, dtype=dtype,
+                                    device=card)
+        pack = ops.pack_spgemm(bcc, tiled, compact=False)
+        got[dtype] = cluster_spgemm_padded(pack.launch, pack.stream[2],
+                                           tiled.tiles)
+        torch.cuda.synchronize()
+        assert torch.equal(got[dtype], cluster_spgemm_padded_plain(
+            pack.launch, pack.stream[2], tiled.tiles))
+    once = got[torch.float32].to(torch.bfloat16)
+    assert not torch.equal(got[torch.bfloat16], once)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_column_kernels_run_several_units_per_cta(card, dtype):
+    """Seventeen k-tiles per row block: the window kernel gets 17 pairs
+    per window and the SpMM kernel 17 steps per block, so both CTAs run
+    several unit groups (a ragged last round included) and add their
+    parts in unit order."""
+    a, b = _host(64, 2100, 0.3, 29), _host(2100, 256, 0.3, 30)
+    bcc = bcc_from_host(a, device=card)
+    tiled = tiled_csr_from_host(b, dtype=dtype, device=card)
+    pack = ops.pack_spgemm(bcc, tiled, sparse_c=False)
+    assert pack.launch.npairs >= 8 * pack.launch.nwin
+    got = cluster_spgemm_windows(pack.launch, pack.stream[2], tiled.tiles,
+                                 pack.cols)
+    torch.cuda.synchronize()
+    assert torch.equal(got, cluster_spgemm_windows_plain(
+        pack.launch, pack.stream[2], tiled.tiles, pack.cols))
+    if dtype == torch.float32:
+        assert np.array_equal(got[:64, :256].cpu().numpy(),
+                              a.to_dense() @ b.to_dense())
+    bids, tids, vals = ops.bcc_compact_stream(bcc, cover_all_blocks=True)
+    bd = torch.from_numpy(np.random.default_rng(31).integers(
+        -2, 3, (2100, 64)).astype(np.float32)).to(card)
+    kw = dict(block_r=8, block_k=128, nblocks=bcc.nblocks)
+    out = cluster_spmm_compact(bids, tids, vals, bd, bn=64, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(out, cluster_spmm_compact_plain(bids, tids, vals, bd,
+                                                       **kw))

@@ -4,10 +4,12 @@
 packed operands (its compact A stream, B's table and tile store) and must
 reproduce both Pallas padded kernels in interpret mode,
 ``cluster_spgemm_tiled`` (streamed B) and ``cluster_spgemm_resident``
-(pinned B): exactly on integer-valued fp32 operands, and within the
-documented 2e-2 relative bound with bf16 B tiles, whose output is bf16 in
-both packages (the JAX kernels round after every step, the port once at
-the end). The wide route end to end — B past the live-pair grid's strip
+(pinned B): exactly on integer-valued fp32 operands. With bf16 B tiles
+the output is bf16 in both packages and both round after every step
+(``o = bf16(o + bf16(dot))``): bit for bit on integer operands whose
+partial sums pass bf16's 8-bit significand, within one bf16 ulp per
+element on float operands, and within the documented 2e-2 relative bound
+of the exact product. The wide route end to end — B past the live-pair grid's strip
 budget — is held by lowering both packages' ``_COMPACT_C_STRIP_BUDGET``
 inside the test (monkeypatch; no file changes): the served product, its
 scheme and its ``padded`` launch label must match. The kernel itself runs
@@ -120,6 +122,51 @@ def test_padded_bf16_output_within_the_documented_bound(name):
     scale = max(np.abs(exact).max(), 1e-9)
     assert np.abs(got.float().numpy()[: a.shape[0], : b.shape[1]]
                   - exact).max() / scale < 2e-2
+
+
+# integer values up to 15: per-step products and their running sums pass
+# 256, so rounding each step to bf16 and rounding the fp32 sum once differ
+WIDE_INTEGERS = {
+    "ragged": (integer_dense(40, 48, 0.10, 0) * 5,
+               np.random.default_rng(31).integers(1, 16, (48, 40)).astype(
+                   np.float32), 16),
+    "block_k_32": (np.random.default_rng(32).integers(1, 16, (24, 96)).astype(
+        np.float32), np.random.default_rng(33).integers(1, 16, (96, 40))
+        .astype(np.float32), 32),
+}
+
+
+@pytest.mark.parametrize("name", list(WIDE_INTEGERS))
+def test_padded_bf16_rounds_after_every_step_like_the_reference(name):
+    a, b, bk = WIDE_INTEGERS[name]
+    ref, kw, grid, a_values, tiles = _packed(a, b, bk, b_dtype=jnp.bfloat16)
+    got = cluster_spgemm_padded(grid, a_values, tiles)
+    assert got.dtype == torch.bfloat16
+    for kernel in (RK.cluster_spgemm_tiled, RK.cluster_spgemm_resident):
+        want = np.asarray(kernel(*ref.values(), interpret=True, **kw))
+        assert np.array_equal(got.float().numpy(), want.astype(np.float32))
+    # the data tells the two roundings apart
+    once = torch.from_numpy(a @ b).to(torch.bfloat16).float().numpy()
+    assert not np.array_equal(got.float().numpy()[: a.shape[0],
+                                                  : b.shape[1]], once)
+
+
+def _bf16_ulp(x: np.ndarray) -> np.ndarray:
+    """The spacing of bf16 values at |x| (8-bit significand)."""
+    mag = np.maximum(np.abs(x), np.finfo(np.float32).tiny)
+    return 2.0 ** (np.floor(np.log2(mag)) - 7)
+
+
+@pytest.mark.parametrize("name", ["ragged", "empty_blocks"])
+def test_padded_bf16_float_within_one_ulp_of_the_reference(name):
+    a, _, bk = CASES[name]
+    b = float_dense(a.shape[1], 40, 0.2, 11)
+    ref, kw, grid, a_values, tiles = _packed(a, b, bk, b_dtype=jnp.bfloat16)
+    got = cluster_spgemm_padded(grid, a_values, tiles).float().numpy()
+    for kernel in (RK.cluster_spgemm_tiled, RK.cluster_spgemm_resident):
+        want = np.asarray(kernel(*ref.values(), interpret=True, **kw)
+                          ).astype(np.float32)
+        assert (np.abs(got - want) <= _bf16_ulp(want)).all()
 
 
 def test_padded_grid_block_offsets_cover_every_block():

@@ -58,10 +58,17 @@ def test_rehearsal_runs_every_phase(capsys):
             assert not r["degraded"]
     calls = [json.loads(line.split("call ", 1)[1]) for line in lines
              if line.startswith("  call ")]
-    assert len(calls) == 4
+    assert len(calls) == 5
     assert all(c["exact"] for c in calls[:3])
-    assert calls[3]["SparseLinear.apply"] == {"compact": False}
-    assert calls[3]["exact_vs_dense_pruned"]
+    assert [c["SparseLinear.apply"] for c in calls[3:]] == [
+        {"compact": False}, {"compact": True}]
+    assert all(c["exact_vs_dense_pruned"] for c in calls[3:])
+    # the live-column kernels report their own work bound beside the
+    # product's bound and the tile bound
+    for k in summary["kernels"][:2]:
+        assert k["work_bound_ms"] is not None
+        assert all(c["live_column_visits"] > 0 for c in k["cases"])
+    assert len(summary["kernels"][1]["cases"]) == 5
     serving = json.loads(next(line for line in lines
                               if line.startswith("  serving "))
                          .split("serving ", 1)[1])
