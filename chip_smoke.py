@@ -9,7 +9,8 @@ Phases (any failure exits non-zero before the last line is printed):
 
 1. environment — the card's name and power limit, the CUDA version, the
    SM count, and the build of every kernel source with nvcc (one process
-   per source, all started together, into ``build/repro_torch/``);
+   per source, all started together, into ``build/repro_torch/``), with
+   each kernel's registers and spills from ``ptxas -v``;
 2. every kernel against its plain PyTorch version on the card, at the
    shapes the serving path gives it: integer-valued operands compare
    exactly (``torch.equal``); each case prints its time (CUDA events,
@@ -20,7 +21,9 @@ Phases (any failure exits non-zero before the last line is printed):
    timed as a yardstick the port never calls; the two kernels that walk
    A's live slab columns also print their own device time (profiler),
    the work bound of that walk and the time to build the live-column
-   form. The kernels: the window
+   form; the padded-grid and flash-attention kernels print their
+   device time too, the padded grid its live tiles and its zero-fill's
+   rate. The kernels: the window
    kernel (kron-14 dense strips, caveman-16384 slabs, a block_k = 512
    case, bf16 tiles), the compact SpMM kernel (kron-14 with N = 64 and a
    ragged 40, caveman-16384, the block_k = 512 powerlaw, and
@@ -56,7 +59,9 @@ Phases (any failure exits non-zero before the last line is printed):
 3c. SparseLinear — ``SparseLinear.apply(x, compact=False)`` (the padded
    lattice) and ``apply(x)`` (the compact stream's live columns, kept
    with the layer) on the phase-2 layer, once each, equal to the dense
-   pruned product;
+   pruned product; then ``apply`` on the activations with an inf at a
+   dead slab column's feature, a -inf and a NaN, equal to the plain
+   version position for position, the dead column's block NaN;
 3d. LM serving, after the SpGEMM phases' memory is released —
    ``run_serving("zamba2-2.7b", smoke=False, batch=4, prompt_len=1024,
    gen=32)``: 54 Mamba2 layers, d_model 2560, 2.42 B random fp32
@@ -109,6 +114,32 @@ def nvidia_smi_line() -> str:
         timeout=60, check=True).stdout.strip().splitlines()[0]
 
 
+def ptxas_report(text: str) -> list[str]:
+    """One line per kernel of nvcc's ``-Xptxas -v`` output: the entry
+    function (demangled where ``c++filt`` is on the path), its registers
+    and its spill stores and loads."""
+    import re
+    import shutil
+    entries, name, spill = [], None, ""
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            name = m.group(1)
+        elif "spill stores" in line:
+            spill = line.strip()
+        elif "Used" in line and "registers" in line and name:
+            used = line.split("info", 1)[-1].lstrip(" :")
+            entries.append((name, f"{used.strip()}; {spill}"))
+            name, spill = None, ""
+    if entries and shutil.which("c++filt"):
+        out = subprocess.run(["c++filt"], input="\n".join(
+            n for n, _ in entries), capture_output=True, text=True,
+            timeout=60).stdout.splitlines()
+        if len(out) == len(entries):
+            entries = [(d, r) for d, (_, r) in zip(out, entries)]
+    return [f"{n}: {r}" for n, r in entries]
+
+
 def integer_valued(h, rng):
     """Same pattern, fresh values in {1, 2, 3}: fp32 sums stay exact."""
     from repro_torch.core.formats import HostCSR
@@ -138,27 +169,36 @@ def timed_ms(fn, device, reps: int = 5) -> float:
     return statistics.median(times)
 
 
-def kernel_device_ms(fn, device, kernel: str, reps: int = 5):
-    """Median device time of the kernel named ``kernel`` in one call of
-    ``fn``, from the profiler's device events: the kernel alone, without
-    the wrapper's host work and its other launches (zero-fill, stream
-    offsets), which the CUDA-event time of a call includes. None on the
-    CPU."""
+def kernel_device_ms(fn, device, kernel, reps: int = 5):
+    """Median device time of the kernels whose names contain ``kernel`` (a
+    name, or a tuple of names summed) in one call of ``fn``, from the
+    profiler's device events: the kernels alone, without the wrapper's
+    host work and its other launches (zero-fill, stream offsets), which
+    the CUDA-event time of a call includes. A profiling session that
+    misses one of the kernels is not counted (on the card, sessions late in
+    this script have lost K10's events); after ``3 * reps`` sessions
+    without ``reps`` counted, the median of those counted, None if there
+    are none. None on the CPU."""
     import torch
     from torch.autograd import DeviceType
     if device.type != "cuda":
         return None
+    names = (kernel,) if isinstance(kernel, str) else tuple(kernel)
     fn()
     times = []
-    for _ in range(reps):
+    for _ in range(3 * reps):
         with torch.profiler.profile(
                 activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
             fn()
             torch.cuda.synchronize()
-        times.append(sum(ev.time_range.elapsed_us() for ev in prof.events()
-                         if ev.device_type == DeviceType.CUDA
-                         and kernel in ev.name) / 1e3)
-    return statistics.median(times)
+        found = [(ev.name, ev.time_range.elapsed_us())
+                 for ev in prof.events() if ev.device_type == DeviceType.CUDA
+                 and any(k in ev.name for k in names)]
+        if all(any(k in n for n, _ in found) for k in names):
+            times.append(sum(us for _, us in found) / 1e3)
+        if len(times) == reps:
+            break
+    return statistics.median(times) if times else None
 
 
 def bound(nbytes: int, flops: int) -> tuple[float, str]:
@@ -448,15 +488,21 @@ def padded_case(name, a, b, device, *, b_dtype=None, timing=True):
     if pack.route != "padded":
         raise SystemExit(f"{name}: expected the padded route, got "
                          f"{pack.route}")
-    grid, a_vals = pack.launch, pack.stream[2]
+    grid, a_vals, cols = pack.launch, pack.stream[2], pack.cols
     run = lambda: cluster_spgemm_padded(grid, a_vals,  # noqa: E731
-                                        tiled.tiles)
+                                        tiled.tiles, cols)
     plain = lambda: cluster_spgemm_padded_plain(  # noqa: E731
         grid, a_vals, tiled.tiles)
     got, want = run(), plain()
     ok = bool(torch.equal(got, want))
     err = float((got.float() - want.float()).abs().max())
     ms = timed_ms(run, device) if timing else None
+    # the wrapper's two launches together, and the zero-fill alone
+    device_ms = (kernel_device_ms(run, device, ("zero_fill_kernel",
+                                                "padded_kernel"))
+                 if timing else None)
+    fill_ms = (kernel_device_ms(run, device, "zero_fill_kernel")
+               if timing else None)
     plain_ms = timed_ms(plain, device, reps=3) if timing else None
     # the bound: A·B's true flops, both CSR operands read once, the dense
     # result (in B's dtype, as the kernel writes it) written once
@@ -468,8 +514,11 @@ def padded_case(name, a, b, device, *, b_dtype=None, timing=True):
     # the kernel's own work: every live (step, j) lookup is a padded tile
     # product, and every tile of C is written
     js = torch.arange(grid.nnb, device=device)
-    live = int((grid.table[grid.tile_ids.long()[:, None] * grid.nnb + js]
-                > 0).sum())
+    live_js = (grid.table[grid.tile_ids.long()[:, None] * grid.nnb + js]
+               > 0).sum(dim=1)
+    live = int(live_js.sum())
+    # the tile launch multiplies each live (step, j)'s live slab columns
+    visits = int((live_js * (cols.col_ptr[1:] - cols.col_ptr[:-1])).sum())
     tile_flops = 2 * live * grid.block_r * bk * grid.bn
     tile_bytes = (a_vals.numel() * 4
                   + tiled.tiles.numel() * tiled.tiles.element_size()
@@ -483,11 +532,20 @@ def padded_case(name, a, b, device, *, b_dtype=None, timing=True):
             "b_shape": list(b.shape), "b_nnz": b.nnz, "block_k": bk,
             "nnb": grid.nnb, "b_dtype": str(tiled.tiles.dtype).replace(
                 "torch.", ""),
-            "out_shape": list(grid.out_shape), "ctas": grid.nblocks * grid.nnb,
-            "live_tile_products": live, "true_flops": true_flops,
+            "out_shape": list(grid.out_shape),
+            "out_tiles": grid.nblocks * grid.nnb,
+            "live_tiles": int(grid.live_tiles.numel()),
+            "live_tile_share": int(grid.live_tiles.numel())
+            / (grid.nblocks * grid.nnb),
+            "live_tile_products": live, "live_column_visits": visits,
+            "true_flops": true_flops,
             "tile_flops": tile_flops, "out_bytes": out_bytes,
             "max_abs_err": err, "tolerance": "exact (torch.equal)",
-            "matched": ok, "ms": ms, "plain_ms": plain_ms,
+            "matched": ok, "ms": ms, "kernel_device_ms": device_ms,
+            "fill_device_ms": fill_ms,
+            "fill_rate_tb_s": (out_bytes / fill_ms / 1e9
+                               if fill_ms else None),
+            "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by,
             "bound_rule": ("max(bytes: CSR A + CSR B once + dense C once "
                            "in B's dtype / 3.35 TB/s, true flops "
@@ -728,6 +786,11 @@ def linear_compact_case(name, layer, x, device, *, timing=True):
     ms = timed_ms(run, device) if timing else None
     device_ms = (kernel_device_ms(run, device, "spmm_columns_kernel")
                  if timing else None)
+    # what finding a dead column's non-finite value costs on finite data:
+    # the tile marks and the count of B's non-finite values
+    repair_ms = (kernel_device_ms(run, device, ("mark_tiles_kernel",
+                                                "nonfinite_count_kernel"))
+                 if timing else None)
     plain_ms = timed_ms(plain, device, reps=3) if timing else None
     # K9 on the same (pad-free) slabs: the tile-padded body this kernel
     # replaced on the compact stream
@@ -752,7 +815,8 @@ def linear_compact_case(name, layer, x, device, *, timing=True):
             "dense_slab_columns": int(a_vals.shape[0]) * bcc.block_k,
             "true_flops": 2 * nnz * tokens, "max_abs_err": err,
             "tolerance": "exact (torch.equal)", "matched": ok, "ms": ms,
-            "kernel_device_ms": device_ms, "plain_ms": plain_ms,
+            "kernel_device_ms": device_ms,
+            "non_finite_check_device_ms": repair_ms, "plain_ms": plain_ms,
             "padded_lattice_kernel_ms": padded_ms,
             "bound_ms": bound_ms, "bound_by": bound_by,
             "bound_rule": ("max(bytes: CSR weight + activations + result "
@@ -788,6 +852,8 @@ def flash_case(name, bh, s, d, device, *, timing=True):
     err = float((got - want).abs().max())
     ok = bool(torch.allclose(got, want, rtol=FLASH_RTOL, atol=FLASH_ATOL))
     ms = timed_ms(run, device) if timing else None
+    device_ms = (kernel_device_ms(run, device, "flash_kernel")
+                 if timing else None)
     plain_ms = timed_ms(plain, device) if timing else None
     # the bound: QKᵀ and PV on the causal pairs (q_pos >= k_pos) of each
     # head, 2 flops per multiply-add; Q, K, V read and O written once
@@ -802,7 +868,8 @@ def flash_case(name, bh, s, d, device, *, timing=True):
             "max_abs_err": err,
             "tolerance": (f"|kernel-plain| <= {FLASH_ATOL:g} + "
                           f"{FLASH_RTOL:g} |plain| (fp32 summation order)"),
-            "matched": ok, "ms": ms, "plain_ms": plain_ms,
+            "matched": ok, "ms": ms, "kernel_device_ms": device_ms,
+            "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by,
             "bound_rule": ("max(bytes: Q, K, V, O once / 3.35 TB/s, "
                            "4*D per causal pair / 67 TFLOP/s fp32)"),
@@ -1200,7 +1267,67 @@ def sparse_linear_phase(layer, x, device):
                              f"{count}")
         if not compact:
             launches.update(count)
+    non_finite_check(layer, x, device)
     return launches
+
+
+def non_finite_check(layer, x, device):
+    """``SparseLinear.apply(x)`` (the compact path, K4) on activations
+    holding an inf at a feature that is a dead column of some slab (all 8
+    of its weights zero), a -inf and a NaN: equal to the plain version
+    position for position (NaN where it is NaN, inf of the same sign,
+    equal finite values), and the dead column's inf must make its block's
+    outputs NaN, as the JAX package's whole-slab product does."""
+    import torch
+    from repro_torch.device import synchronize
+    from repro_torch.kernels.cluster_spmm import cluster_spmm_compact_plain
+    block_ids, tile_ids, vals = layer.stream
+    cols, bk = layer.cols, layer.bcc.block_k
+    ptr = cols.col_ptr.cpu().numpy()
+    short = np.flatnonzero(np.diff(ptr) < bk)
+    feature = step = None
+    for s_ in short:
+        live = set(cols.col_k[ptr[s_]:ptr[s_ + 1]].cpu().tolist())
+        dead = [k for k in range(bk) if k not in live
+                and int(tile_ids[s_]) * bk + k < layer.in_features]
+        if dead:
+            step, feature = int(s_), int(tile_ids[s_]) * bk + dead[0]
+            break
+    if feature is None:
+        raise SystemExit("SparseLinear layer has no dead slab column")
+    xb = x.clone()
+    tokens = xb.shape[0]
+    xb[0, feature] = float("inf")
+    xb[tokens // 2, (feature + 1) % layer.in_features] = float("-inf")
+    xb[tokens - 1, (feature + 7) % layer.in_features] = float("nan")
+    t0 = time.perf_counter()
+    y = layer.apply(xb)
+    synchronize(device)
+    wall = time.perf_counter() - t0
+    # the plain version on the same stream and columns, un-permuted as
+    # apply un-permutes
+    dev = xb.device
+    xt = xb.T.contiguous()
+    packed = cluster_spmm_compact_plain(
+        torch.from_numpy(np.asarray(block_ids)).to(dev),
+        torch.from_numpy(np.asarray(tile_ids)).to(dev), vals, xt,
+        block_r=layer.bcc.block_r, block_k=bk, nblocks=layer.bcc.nblocks,
+        cols=cols)[:layer.bcc.nrows]
+    inv = torch.from_numpy(np.argsort(layer.perm)).to(dev)
+    want = packed[inv].T
+    same = bool(((y == want) | (y.isnan() & want.isnan())).all())
+    blk = int(block_ids[step])
+    rows = [int(layer.perm[r]) for r in range(blk * 8, min(blk * 8 + 8,
+                                                           layer.bcc.nrows))]
+    reached = bool(y[0, rows].isnan().all())
+    log("  non-finite", json.dumps({
+        "SparseLinear.apply": {"compact": True},
+        "dead_column_feature": feature, "block": blk, "wall_s": wall,
+        "nan": int(y.isnan().sum()), "inf": int(y.isinf().sum()),
+        "equal_to_plain": same, "dead_column_reaches_its_block": reached}))
+    if not (same and reached):
+        raise SystemExit("SparseLinear.apply on non-finite activations "
+                         "differs from the plain version")
 
 
 LOGIT_TOL = 2e-3
@@ -1394,9 +1521,8 @@ def main(argv=None) -> int:
         log(f"  kernel build: {build_s:.2f} s ({len(build_logs)} sources, "
             "one nvcc each, in parallel)")
         for name, text in build_logs.items():
-            for line in text.splitlines():
-                if "registers" in line or "spill" in line:
-                    log(f"    {name}: {line.strip()}")
+            for line in ptxas_report(text):
+                log(f"    {name}: {line}")
     sm_count = (torch.cuda.get_device_properties(0).multi_processor_count
                 if device.type == "cuda" else 132)
     log(f"  streaming multiprocessors: {sm_count}"
@@ -1523,7 +1649,8 @@ def main(argv=None) -> int:
     launches, _ = serve_phase(mats, device, rng, spmm_cols)
     log("phase 3b: bcc_spgemm_tiled(shards=..., revisit=...) on kron")
     launches.update(sharded_phase(kron_i, device, sm_count))
-    log("phase 3c: SparseLinear.apply(compact=False)")
+    log("phase 3c: SparseLinear.apply(compact=False), apply(x), and apply "
+        "on non-finite activations")
     launches.update(sparse_linear_phase(lin_layer, lin_x, device))
     del lin_layer, lin_x
     # the SpGEMM phases' device memory is released before the LM phase

@@ -28,9 +28,10 @@ with the same wrapper contract and a plain version beside it:
 
 * :func:`cluster_spgemm_padded` (``csrc/cluster_spgemm_padded.cu``) — the
   padded per-tile grid (``cluster_spgemm_tiled`` / ``_resident``) for B
-  too wide for the live-pair grid: one CTA per C tile, the B table lookup
-  in the kernel, output in B's dtype, rounded after every step as the JAX
-  package's kernel rounds it;
+  too wide for the live-pair grid: a zero-fill of C at the memory's rate,
+  then one CTA per live C tile (listed once per packed operand) over A's
+  live slab columns, the B table lookup in the kernel, output in B's
+  dtype, rounded after every step as the JAX package's kernel rounds it;
 * :func:`cluster_spgemm_revisit` (``csrc/cluster_spgemm_revisit.cu``) —
   ``cluster_spgemm_pairs_window`` over a revisit-ordered stream: one CTA
   per (window, j) segment, each B tile staged once per run of blocks;
@@ -426,13 +427,17 @@ def _launch(w: Windows, a_values, b_tiles, out, cols, *,
 class PaddedGrid:
     """The padded per-tile grid's launch: A's compact stream split by
     block (``block_ptr[b] .. block_ptr[b+1]`` are block ``b``'s steps, the
-    stream covering every block), each step's k-tile and B's tile table.
-    Output tile ``(blk, j)`` sits at rows ``blk * block_r``, columns
+    stream covering every block), each step's k-tile, B's tile table and
+    the live output tiles — ``blk * nnb + j`` ascending for every
+    ``(blk, j)`` with a step of block ``blk`` whose slot
+    ``table[tile_ids[s] * nnb + j]`` is live; every other tile of C is
+    zero. Output tile ``(blk, j)`` sits at rows ``blk * block_r``, columns
     ``j * bn`` of the ``(nblocks * block_r, nnb * bn)`` C."""
 
     block_ptr: torch.Tensor    # (nblocks+1,) int32
     tile_ids: torch.Tensor     # (S,) int32 A k-tile per stream step
     table: torch.Tensor        # (nkb * nnb,) int32 B tile slots, 0 = dead
+    live_tiles: torch.Tensor   # (T,) int32 blk * nnb + j, ascending
     nnb: int
     block_r: int
     bn: int
@@ -451,37 +456,55 @@ def padded_grid(block_ids, tile_ids, table, *, nblocks: int, nnb: int,
     """Pack the padded grid from A's compact stream (``block_ids``
     non-decreasing and covering every block, as
     ``bcc_compact_stream(cover_all_blocks=True)`` emits it) and B's tile
-    table."""
+    table, with the live output tiles found by torch ops on ``device``
+    (one host sync: call it at pack time, not per launch)."""
     block_ids = np.asarray(block_ids, dtype=np.int64)
     block_ptr = np.searchsorted(block_ids, np.arange(nblocks + 1),
                                 side="left").astype(np.int32)
+    if nblocks * nnb > 0x7FFFFFFF:
+        raise ValueError(f"{nblocks} x {nnb} output tiles overflow int32")
     if not isinstance(table, torch.Tensor):
         table = torch.from_numpy(np.array(table, dtype=np.int32))
+    table = table.to(device).int().contiguous()
+    tile_ids = torch.from_numpy(np.array(tile_ids, dtype=np.int32)).to(
+        device)
+    blocks = torch.from_numpy(block_ids).to(device)
+    # live[blk, j]: the block has a step whose B tile (its k-tile, j) is live
+    live = torch.zeros((nblocks, nnb), dtype=torch.int32, device=device)
+    rows = table.view(-1, nnb)
+    chunk = max(1, (1 << 24) // max(nnb, 1))
+    for lo in range(0, int(tile_ids.shape[0]), chunk):
+        hi = lo + chunk
+        live.index_add_(0, blocks[lo:hi],
+                        (rows[tile_ids[lo:hi].long()] > 0).int())
     return PaddedGrid(
-        block_ptr=torch.from_numpy(block_ptr).to(device),
-        tile_ids=torch.from_numpy(np.array(tile_ids, dtype=np.int32)).to(
-            device),
-        table=table.to(device).int().contiguous(),
+        block_ptr=torch.from_numpy(block_ptr).to(device), tile_ids=tile_ids,
+        table=table,
+        live_tiles=torch.nonzero(live.view(-1) > 0).view(-1).int(),
         nnb=nnb, block_r=block_r, bn=bn)
 
 
 def _check_grid(g: PaddedGrid, a_values, b_tiles) -> None:
     _check_operands(g.block_r, g.bn, a_values, b_tiles, g.block_ptr,
-                    g.tile_ids, g.table)
+                    g.tile_ids, g.table, g.live_tiles)
     if g.tile_ids.shape[0] != a_values.shape[0]:
         raise ValueError(f"tile_ids has {g.tile_ids.shape[0]} steps, "
                          f"a_values {a_values.shape[0]}")
 
 
 def cluster_spgemm_padded(g: PaddedGrid, a_values: torch.Tensor,
-                          b_tiles: torch.Tensor) -> torch.Tensor:
+                          b_tiles: torch.Tensor,
+                          cols: SlabColumns | None = None) -> torch.Tensor:
     """C = A_bcc @ B_tiled on the padded per-tile grid: every tile
     ``(blk, j)`` is the s-ascending sum over block ``blk``'s steps ``s``
     with a live ``slot = table[tile_ids[s] * nnb + j]`` of
     ``a_values[s] @ b_tiles[slot]``, returned in B's dtype and rounded as
     the JAX package's padded kernels round it: each step's fp32 product is
     rounded to B's dtype and added to the running tile, which is rounded
-    again (with fp32 tiles, the plain fp32 sum).
+    again (with fp32 tiles, the plain fp32 sum). ``cols`` is the slabs'
+    live-column form (:func:`slab_columns`, built here when absent —
+    callers that launch again keep it); the kernel multiplies only those
+    columns.
 
     CUDA tensors launch the hand-written kernel (and add one to
     ``cluster_spgemm_padded.launches``); CPU tensors run the plain
@@ -489,20 +512,23 @@ def cluster_spgemm_padded(g: PaddedGrid, a_values: torch.Tensor,
     if a_values.device.type == "cpu":
         return cluster_spgemm_padded_plain(g, a_values, b_tiles)
     _check_grid(g, a_values, b_tiles)
+    cols = columns_for(a_values, cols)
     out = torch.empty(g.out_shape, dtype=b_tiles.dtype,
                       device=a_values.device)
     _on_card("cluster_spgemm_padded", out, g.block_r, g.bn)
-    a_values = a_values.contiguous()
     b_tiles = b_tiles.contiguous()
     lib, fn = _kernel_fn(
         "cluster_spgemm_padded", "cluster_spgemm_padded", b_tiles,
-        [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4
-        + [ctypes.c_longlong, ctypes.c_void_p])
+        [ctypes.c_void_p] * 4 + [ctypes.c_int] + [ctypes.c_void_p] * 5
+        + [ctypes.c_int] * 4 + [ctypes.c_longlong, ctypes.c_void_p])
     stream = torch.cuda.current_stream(out.device).cuda_stream
+    # two launches: the zero-fill of C, then one CTA per live tile
     rc = fn(g.block_ptr.data_ptr(), g.tile_ids.data_ptr(),
-            g.table.data_ptr(), a_values.data_ptr(), b_tiles.data_ptr(),
-            out.data_ptr(), g.nblocks, g.nnb, a_values.shape[2], g.bn,
-            g.nnb * g.bn, stream)
+            g.table.data_ptr(), g.live_tiles.data_ptr(),
+            int(g.live_tiles.shape[0]), cols.col_ptr.data_ptr(),
+            cols.col_k.data_ptr(), cols.col_vals.data_ptr(),
+            b_tiles.data_ptr(), out.data_ptr(), g.nblocks, g.nnb,
+            a_values.shape[2], g.bn, g.nnb * g.bn, stream)
     _raise_on(rc, lib, "cluster_spgemm_padded", "cluster_spgemm_padded")
     cluster_spgemm_padded.launches += 1
     return out

@@ -9,7 +9,11 @@ Two forms of A, two kernels in ``csrc/cluster_spmm.cu``, each giving a
   multiplies, empty blocks carrying one zero slab and the tail padded with
   zero slabs — and walks each slab's live columns
   (:class:`~repro_torch.kernels.columns.SlabColumns`): one read of B's row
-  per live column, applied to the 8 rows of the block;
+  per live column, applied to the 8 rows of the block. The JAX kernel
+  multiplies whole slabs, so a non-finite B value in a slab's dead column
+  (all 8 values zero) makes the block's output NaN there (0 * inf); the
+  walk finds those by counting the non-finite values of each k-tile of B
+  and those its live columns meet, and gives the same NaN;
 * :func:`cluster_spmm` (the counterpart of ``cluster_spmm``) takes BCC's
   padded lattice as it is: ``tiles_per_block`` slabs per block, the pad
   slabs zero and pointing at tile 0, all of them summed as dense slabs.
@@ -89,7 +93,10 @@ def cluster_spmm_compact_plain(block_ids, tile_ids, a_values: torch.Tensor,
     """The plain PyTorch version of :func:`cluster_spmm_compact`, on any
     device, over the same live columns: each live column's ``block_r``
     values times the B row it selects (rows past K read as zero), in
-    chunks, ``index_add_``ed into the owning block in fp32."""
+    chunks, ``index_add_``ed into the owning block in fp32. Where B is not
+    finite, a slab whose dead columns meet a non-finite value (its tile
+    holds more of them than its live columns meet) makes its block's
+    output NaN in that column, as the whole-slab product does."""
     block_ids, tile_ids = _operands(block_ids, tile_ids, a_values, b,
                                     block_r=block_r, block_k=block_k)
     cols = columns_for(a_values, cols)
@@ -104,11 +111,28 @@ def cluster_spmm_compact_plain(block_ids, tile_ids, a_values: torch.Tensor,
     # a zero row stands in for B's rows past K
     bz = torch.cat([b, b.new_zeros((1, n))])
     rows = torch.where(rows < k, rows, k)
+    bad = ~torch.isfinite(bz)
+    check = bool(bad.any())
+    met = torch.zeros((cols.nslabs, n), dtype=torch.int32, device=dev)
     chunk = max(1, (1 << 26) // (block_r * max(n, 1)))
     for lo in range(0, cols.ncols, chunk):
         hi = min(lo + chunk, cols.ncols)
         prod = cols.col_vals[lo:hi, :, None] * bz[rows[lo:hi]][:, None, :]
         c.index_add_(0, blocks[lo:hi], prod)
+        if check:
+            met.index_add_(0, step[lo:hi], bad[rows[lo:hi]].int())
+    if check:
+        ntiles = -(-k // block_k)
+        per_tile = F.pad(bad[:k], (0, 0, 0, ntiles * block_k - k)).view(
+            ntiles, block_k, n).sum(1, dtype=torch.int32)
+        per_tile = torch.cat([per_tile, per_tile.new_zeros((1, n))])
+        # tiles past K hold no row of B: none of their values is counted
+        tiles = torch.clamp(tile_ids.long(), max=ntiles)
+        dead_hit = (per_tile[tiles] > met).int()            # (S, n)
+        hit = torch.zeros((nblocks, n), dtype=torch.int32, device=dev)
+        hit.index_add_(0, block_ids.long(), dead_hit)
+        c = torch.where(hit[:, None, :] > 0,
+                        torch.full_like(c, float("nan")), c)
     return c.view(nblocks * block_r, n)
 
 
@@ -134,16 +158,22 @@ def _launch(block_ids, tile_ids, a_values, b, *, block_r, block_k, nblocks,
         block_ids, torch.arange(nblocks + 1, dtype=torch.int32, device=dev),
         out_int32=True)
     b = b.contiguous()
+    # the non-finite counts of B's k-tiles, and a flag and a mark per tile
+    # (the kernel's library sets them: see csrc/cluster_spmm.cu)
+    ntiles = -(-k // block_k)
+    scratch = torch.empty(1 + ntiles + ntiles * n, dtype=torch.int32,
+                          device=dev)
+    counts = scratch[1 + ntiles:]
     lib = _build.load("cluster_spmm")
     fn = lib.cluster_spmm_columns_f32
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [
+    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + [
         ctypes.c_void_p]
     fn.restype = ctypes.c_int
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = fn(blk_ptr.data_ptr(), tile_ids.data_ptr(), cols.col_ptr.data_ptr(),
             cols.col_k.data_ptr(), cols.col_vals.data_ptr(), b.data_ptr(),
-            out.data_ptr(), nblocks, a_values.shape[0], block_k, k, n, bn,
-            stream)
+            out.data_ptr(), counts.data_ptr(), scratch.data_ptr(), nblocks,
+            a_values.shape[0], block_k, k, n, bn, stream)
     if rc != 0:
         lib.cluster_spmm_error_string.restype = ctypes.c_char_p
         lib.cluster_spmm_error_string.argtypes = [ctypes.c_int]

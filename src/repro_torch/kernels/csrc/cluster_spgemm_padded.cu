@@ -13,16 +13,30 @@
 // with no live-pair stream: the table lookup happens in the kernel.
 //
 // Design:
-//  * One CTA per output tile (blk, j): a 1-D grid of nblocks * nnb CTAs,
-//    j fastest, so neighbouring CTAs read the same A slabs. The TPU grid
-//    (nnb, S) zeroed a tile at its block's first step and ran in order; here
-//    each CTA owns its tile, walks its block's steps (block_ptr offsets into
-//    the compact stream, which covers every block) and stores the tile once,
-//    zeros when no step of the block has a live slot. No atomics.
-//  * Dead slots skip the step (uniform across the CTA).
-//  * The 8 x bn accumulator is fp32 in registers (4 values a thread, as in
-//    the window kernel); A slabs and B tiles are staged in K sub-tiles of 64
-//    rows, because block_k reaches 512.
+//  * C is written by two launches on the stream, one wrapper call. First
+//    zero_fill_kernel zeroes all of C with 16-byte stores: a persistent
+//    grid (kFillCtasPerSm CTAs per SM) strides over C's bytes, and the
+//    bytes before the first and after the last 16-byte boundary are
+//    stored one by one, so any span works. Then padded_kernel runs one
+//    CTA per live output tile (blk, j) -- those with at least one step of
+//    block blk whose B tile is live, listed once per packed operand by the
+//    host (PaddedGrid.live_tiles, blk-major) -- and overwrites it: a live
+//    tile is written twice, zero then its value, in stream order. The
+//    TPU grid (nnb, S) zeroed every tile at its block's first step and
+//    ran in order; here a tile no step reaches is the fill's zero.
+//  * A live tile's CTA walks its block's steps (block_ptr offsets into
+//    the compact stream, which covers every block) s ascending, looks the
+//    step's slot up in B's table and skips dead slots (uniform across the
+//    CTA). No atomics.
+//  * A step multiplies only its slab's live columns (the columns with a
+//    nonzero in any of the 8 rows; kernels/columns.py): their 8 values and
+//    the B tile rows they select are staged in shared memory up to 64 at
+//    a time, and the 8 x bn accumulator is fp32 in registers (4 values a
+//    thread). Skipping an all-zero column is exact (fmaf(0, b, x) == x for
+//    finite b), and the columns ascend, so a step's sum is the whole
+//    slab's, k ascending; on the wide operands below a slab has about 10
+//    live columns of 128, so a step reads that many 512-byte B rows, not
+//    the 64 KiB tile.
 //  * The output has B's dtype, as the TPU kernel's does, and is rounded
 //    where the TPU kernel rounded it: the TPU kernel's tile was a bf16
 //    block updated as o = bf16(o + bf16(dot)) at every live step, s
@@ -34,8 +48,14 @@
 // What bounds it: writing the dense C once (nblocks * 8 * nnb * bn values)
 // and the tile-padded multiply-adds of the live (step, j) pairs, 2 * 8 *
 // block_k * bn each, at 67 TFLOP/s fp32 (H100 SXM data sheet). On the wide
-// operands this route serves, almost every CTA only zero-fills, so the C
-// write dominates; PERF.md has the measured times.
+// operands this route serves (the first 8,192 rows of a 288 x 288 mesh
+// times the mesh: 663,552 tiles of C, about 2 % of them live) the C write
+// dominates, so the fill runs at the memory's rate and the tile products
+// cost a few thousand CTAs. The design before this one gave every tile of
+// C its own CTA, which walked its block's steps and table lookups to store
+// zeros: the CTA count, not the bytes, set its time; and a live step
+// staged its whole 8 x 128 slab and 128 x 128 B tile. PERF.md has the
+// measured times.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -47,6 +67,8 @@ constexpr int kBR = 8;          // rows of a BCC block (block_r)
 constexpr int kBNMax = 128;     // widest tile (bn)
 constexpr int kKT = 64;         // K sub-tile staged per step
 constexpr int kThreads = 256;
+constexpr int kFillThreads = 256;
+constexpr int kFillCtasPerSm = 4;
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
@@ -61,20 +83,69 @@ __device__ __forceinline__ void store(__nv_bfloat16* o, float v) {
   *o = __float2bfloat16_rn(v);
 }
 
+// Zeroes nbytes from p: 16-byte stores over the aligned body, grid-stride;
+// the unaligned head and the tail byte by byte.
+__global__ void __launch_bounds__(kFillThreads)
+zero_fill_kernel(unsigned char* __restrict__ p, int64_t nbytes) {
+  const int64_t lead =
+      (16 - static_cast<int64_t>(reinterpret_cast<uintptr_t>(p) & 15)) & 15;
+  const int64_t head = lead < nbytes ? lead : nbytes;
+  const int64_t nvec = (nbytes - head) >> 4;
+  const int64_t tail = head + (nvec << 4);
+  const int64_t tid = static_cast<int64_t>(blockIdx.x) * blockDim.x +
+                      threadIdx.x;
+  if (tid < head) p[tid] = 0;
+  if (tid < nbytes - tail) p[tail + tid] = 0;
+  uint4* body = reinterpret_cast<uint4*>(p + head);
+  const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
+  int64_t i = tid;
+  for (; i + 3 * stride < nvec; i += 4 * stride) {
+    body[i] = zero;
+    body[i + stride] = zero;
+    body[i + 2 * stride] = zero;
+    body[i + 3 * stride] = zero;
+  }
+  for (; i < nvec; i += stride) body[i] = zero;
+}
+
+int fill_zero(void* p, long long nbytes, cudaStream_t stream) {
+  if (nbytes <= 0) return 0;
+  static int sms = 0;
+  if (sms == 0) {
+    int dev = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err == cudaSuccess) {
+      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    }
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  const long long want = (nbytes / 16 + kFillThreads - 1) / kFillThreads + 1;
+  const long long most = 1LL * sms * kFillCtasPerSm;
+  const long long ctas = want < most ? want : most;
+  zero_fill_kernel<<<static_cast<unsigned>(ctas), kFillThreads, 0, stream>>>(
+      static_cast<unsigned char*>(p), static_cast<int64_t>(nbytes));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// One CTA per live tile live_tiles[blockIdx.x] = blk * nnb + j.
 template <typename TB>
 __global__ void __launch_bounds__(kThreads)
 padded_kernel(const int32_t* __restrict__ block_ptr,
               const int32_t* __restrict__ tile_ids,
               const int32_t* __restrict__ table,
-              const float* __restrict__ a_values,
+              const int32_t* __restrict__ live_tiles,
+              const int32_t* __restrict__ col_ptr,
+              const int32_t* __restrict__ col_k,
+              const float* __restrict__ col_vals,
               const TB* __restrict__ b_tiles, TB* __restrict__ out, int nnb,
               int block_k, int bn, int64_t ldc) {
-  __shared__ __align__(16) float a_s[kKT][kBR];  // A sub-tile, k-major
-  __shared__ float b_s[kKT][kBNMax];             // B sub-tile
+  __shared__ __align__(16) float a_s[kKT][kBR];  // live columns' values
+  __shared__ float b_s[kKT][kBNMax];             // the B rows they select
   const int t = threadIdx.x;
   const int col = t & (kBNMax - 1);
   const int row0 = (t >> 7) * 4;
-  const int64_t tile = blockIdx.x;
+  const int64_t tile = live_tiles[blockIdx.x];
   const int64_t blk = tile / nnb;
   const int j = static_cast<int>(tile - blk * nnb);
   const int s0 = block_ptr[blk];
@@ -83,28 +154,27 @@ padded_kernel(const int32_t* __restrict__ block_ptr,
   for (int s = s0; s < s1; ++s) {
     const int slot = table[static_cast<int64_t>(tile_ids[s]) * nnb + j];
     if (slot <= 0) continue;  // dead B tile: nothing to add
-    const float* a = a_values + static_cast<int64_t>(s) * kBR * block_k;
     const TB* b = b_tiles + static_cast<int64_t>(slot) * block_k * bn;
+    const int c0 = col_ptr[s];
+    const int c1 = col_ptr[s + 1];
     float part[4] = {0.f, 0.f, 0.f, 0.f};
-    for (int k0 = 0; k0 < block_k; k0 += kKT) {
-      const int kt = min(kKT, block_k - k0);
-      __syncthreads();  // every thread is done with the previous sub-tile
-      for (int i = t; i < kBR * kt; i += kThreads) {
-        const int r = i / kt;
-        const int k = i - r * kt;
-        a_s[k][r] = a[r * block_k + k0 + k];
+    for (int l0 = c0; l0 < c1; l0 += kKT) {
+      const int n = min(kKT, c1 - l0);
+      __syncthreads();  // every thread is done with the previous batch
+      for (int i = t; i < kBR * n; i += kThreads) {
+        a_s[i / kBR][i % kBR] = col_vals[static_cast<int64_t>(l0) * kBR + i];
       }
-      for (int i = t; i < kt * kBNMax; i += kThreads) {
-        const int k = i >> 7;
+      for (int i = t; i < n * kBNMax; i += kThreads) {
+        const int l = i >> 7;
         const int c = i & (kBNMax - 1);
-        b_s[k][c] = c < bn ? to_f32(b[static_cast<int64_t>(k0 + k) * bn + c])
-                           : 0.f;
+        const int64_t k = __ldg(col_k + l0 + l);
+        b_s[l][c] = c < bn ? to_f32(b[k * bn + c]) : 0.f;
       }
       __syncthreads();
 #pragma unroll 8
-      for (int k = 0; k < kt; ++k) {
-        const float4 av = *reinterpret_cast<const float4*>(&a_s[k][row0]);
-        const float bv = b_s[k][col];
+      for (int l = 0; l < n; ++l) {
+        const float4 av = *reinterpret_cast<const float4*>(&a_s[l][row0]);
+        const float bv = b_s[l][col];
         part[0] = fmaf(av.x, bv, part[0]);
         part[1] = fmaf(av.y, bv, part[1]);
         part[2] = fmaf(av.z, bv, part[2]);
@@ -126,20 +196,27 @@ padded_kernel(const int32_t* __restrict__ block_ptr,
 
 template <typename TB>
 int launch(const void* block_ptr, const void* tile_ids, const void* table,
-           const void* a_values, const void* b_tiles, void* out, int nblocks,
-           int nnb, int block_k, int bn, long long ldc, void* stream) {
+           const void* live_tiles, int nlive, const void* col_ptr,
+           const void* col_k, const void* col_vals, const void* b_tiles,
+           void* out, int nblocks, int nnb, int block_k, int bn,
+           long long ldc, void* stream) {
   const long long ntiles = static_cast<long long>(nblocks) * nnb;
-  if (nblocks <= 0 || nnb <= 0 || ntiles > 0x7fffffffLL || block_k <= 0 ||
-      bn <= 0 || bn > kBNMax) {
+  if (nblocks <= 0 || nnb <= 0 || ntiles > 0x7fffffffLL || nlive < 0 ||
+      nlive > ntiles || block_k <= 0 || bn <= 0 || bn > kBNMax ||
+      ldc < static_cast<long long>(nnb) * bn) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  padded_kernel<TB><<<static_cast<unsigned>(ntiles), kThreads, 0,
-                      static_cast<cudaStream_t>(stream)>>>(
+  const auto s = static_cast<cudaStream_t>(stream);
+  const int rc = fill_zero(out, nblocks * kBR * ldc * sizeof(TB), s);
+  if (rc != 0 || nlive == 0) return rc;
+  padded_kernel<TB><<<static_cast<unsigned>(nlive), kThreads, 0, s>>>(
       static_cast<const int32_t*>(block_ptr),
       static_cast<const int32_t*>(tile_ids),
-      static_cast<const int32_t*>(table), static_cast<const float*>(a_values),
-      static_cast<const TB*>(b_tiles), static_cast<TB*>(out), nnb, block_k,
-      bn, static_cast<int64_t>(ldc));
+      static_cast<const int32_t*>(table),
+      static_cast<const int32_t*>(live_tiles),
+      static_cast<const int32_t*>(col_ptr), static_cast<const int32_t*>(col_k),
+      static_cast<const float*>(col_vals), static_cast<const TB*>(b_tiles),
+      static_cast<TB*>(out), nnb, block_k, bn, static_cast<int64_t>(ldc));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -147,18 +224,30 @@ int launch(const void* block_ptr, const void* tile_ids, const void* table,
 
 extern "C" int cluster_spgemm_padded_f32(
     const void* block_ptr, const void* tile_ids, const void* table,
-    const void* a_values, const void* b_tiles, void* out, int nblocks,
+    const void* live_tiles, int nlive, const void* col_ptr, const void* col_k,
+    const void* col_vals, const void* b_tiles, void* out, int nblocks,
     int nnb, int block_k, int bn, long long ldc, void* stream) {
-  return launch<float>(block_ptr, tile_ids, table, a_values, b_tiles, out,
-                       nblocks, nnb, block_k, bn, ldc, stream);
+  return launch<float>(block_ptr, tile_ids, table, live_tiles, nlive,
+                       col_ptr, col_k, col_vals, b_tiles, out, nblocks, nnb,
+                       block_k, bn, ldc, stream);
 }
 
 extern "C" int cluster_spgemm_padded_bf16(
     const void* block_ptr, const void* tile_ids, const void* table,
-    const void* a_values, const void* b_tiles, void* out, int nblocks,
+    const void* live_tiles, int nlive, const void* col_ptr, const void* col_k,
+    const void* col_vals, const void* b_tiles, void* out, int nblocks,
     int nnb, int block_k, int bn, long long ldc, void* stream) {
-  return launch<__nv_bfloat16>(block_ptr, tile_ids, table, a_values, b_tiles,
-                               out, nblocks, nnb, block_k, bn, ldc, stream);
+  return launch<__nv_bfloat16>(block_ptr, tile_ids, table, live_tiles, nlive,
+                               col_ptr, col_k, col_vals, b_tiles, out,
+                               nblocks, nnb, block_k, bn, ldc, stream);
+}
+
+// The zero-fill alone, over any byte span (the padded wrappers' first
+// launch).
+extern "C" int cluster_spgemm_padded_zero(void* p, long long nbytes,
+                                          void* stream) {
+  if (nbytes < 0) return static_cast<int>(cudaErrorInvalidValue);
+  return fill_zero(p, nbytes, static_cast<cudaStream_t>(stream));
 }
 
 extern "C" const char* cluster_spgemm_padded_error_string(int code) {

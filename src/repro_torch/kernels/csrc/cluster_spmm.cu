@@ -43,6 +43,28 @@
 // spmm_kernel on SparseLinear's padded path (a 2560 x 10240 weight at
 // density 0.1, 4096 tokens, dense slabs) is bounded by the product's own
 // 21.5 GFLOP, ~0.32 ms at 67 TFLOP/s. PERF.md has the measured times.
+//
+// Non-finite B values. The TPU kernel multiplies whole (8, block_k) slabs,
+// so a dead column k of a slab (all 8 values zero) still meets B's row k:
+// 0 * inf and 0 * NaN are NaN, and the slab's part, hence the block's
+// output, is NaN in every column of the strip where B's row k is not
+// finite. The walk skips dead columns, so cluster_spmm_columns_f32 finds
+// them by counting, in four launches on the stream:
+//  1. a memset of the flag and of the per-tile marks;
+//  2. mark_tiles_kernel marks every k-tile that some slab covers with
+//     fewer than block_k live columns (the only tiles a dead column sits
+//     in; SparseLinear's layer has one such tile of 80);
+//  3. nonfinite_count_kernel counts, for each marked tile and each column
+//     n, the non-finite values among B's rows of the tile (rows < K), and
+//     raises the flag where a count is not zero;
+//  4. spmm_columns_kernel reads the flag once per CTA after its walk (the
+//     finite path is otherwise the walk above) and, when it is raised,
+//     walks its block's slabs again, counting the non-finite values its
+//     live columns meet: where a slab's count falls short of its tile's,
+//     a dead column met one, and NaN is added to that column of the
+//     block's output. Live columns multiply all 8 values, zeros included,
+//     as the TPU kernel does; so the kernel gives the TPU kernel's NaN
+//     positions and inf signs, and its finite values.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -113,6 +135,58 @@ spmm_kernel(const int32_t* __restrict__ tile_ids,
   }
 }
 
+__device__ __forceinline__ bool nonfinite(float x) {
+  return (__float_as_uint(x) & 0x7f800000u) == 0x7f800000u;
+}
+
+// Marks every k-tile below ntiles that a slab with a dead column covers.
+__global__ void mark_tiles_kernel(const int32_t* __restrict__ tile_ids,
+                                  const int32_t* __restrict__ col_ptr,
+                                  int nsteps, int block_k, int ntiles,
+                                  int32_t* __restrict__ marked) {
+  const int s = blockIdx.x * blockDim.x + threadIdx.x;
+  if (s >= nsteps) return;
+  const int tile = tile_ids[s];
+  if (tile < ntiles && col_ptr[s + 1] - col_ptr[s] < block_k) {
+    marked[tile] = 1;
+  }
+}
+
+constexpr int kCountCols = 32;
+constexpr int kCountRows = 8;
+
+// counts[tile * N + n] = the non-finite values among B's rows of a marked
+// tile in column n; raises *flag where one is not zero. Unmarked tiles are
+// left unwritten (no slab with a dead column reads them).
+__global__ void __launch_bounds__(kCountCols * kCountRows)
+nonfinite_count_kernel(const float* __restrict__ b, int K, int N,
+                       int block_k, const int32_t* __restrict__ marked,
+                       int32_t* __restrict__ counts,
+                       int32_t* __restrict__ flag) {
+  __shared__ int part[kCountRows][kCountCols];
+  const int tile = blockIdx.x;
+  if (marked[tile] == 0) return;
+  const int n = blockIdx.y * kCountCols + threadIdx.x;
+  const int64_t row0 = static_cast<int64_t>(tile) * block_k;
+  const int64_t left = K - row0;
+  const int rows = left < block_k ? static_cast<int>(left) : block_k;
+  int c = 0;
+  if (n < N) {
+    for (int r = threadIdx.y; r < rows; r += kCountRows) {
+      c += nonfinite(__ldg(b + (row0 + r) * N + n));
+    }
+  }
+  part[threadIdx.y][threadIdx.x] = c;
+  __syncthreads();
+  if (threadIdx.y == 0 && n < N) {
+    int total = 0;
+#pragma unroll
+    for (int y = 0; y < kCountRows; ++y) total += part[y][threadIdx.x];
+    counts[static_cast<int64_t>(tile) * N + n] = total;
+    if (total != 0) *flag = 1;
+  }
+}
+
 // The compact stream's live columns: one CTA per (block, column strip),
 // the block's steps blk_ptr[blk] .. blk_ptr[blk + 1] walked in order.
 struct StepUnits {
@@ -132,6 +206,8 @@ spmm_columns_kernel(const int32_t* __restrict__ blk_ptr,
                     const int32_t* __restrict__ col_k,
                     const float* __restrict__ col_vals,
                     const float* __restrict__ b, float* __restrict__ out,
+                    const int32_t* __restrict__ counts,
+                    const int32_t* __restrict__ flag, int ntiles,
                     int block_k, int K, int N, int bn, int groups_q) {
   using namespace live_columns;
   extern __shared__ float4 smem4[];
@@ -153,6 +229,42 @@ spmm_columns_kernel(const int32_t* __restrict__ blk_ptr,
   };
   walk<float, V>(blk_ptr[blk], blk_ptr[blk + 1], StepUnits{tile_ids, col_ptr},
                  band_of, col_k, col_vals, N, active, g, groups_q, acc);
+  if (g.grp == 0 && active && *flag != 0) {
+    // B holds a non-finite value in a tile with a dead slab column: find
+    // this block's slabs whose dead columns meet one (see the note above)
+    bool hit[V];
+#pragma unroll
+    for (int v = 0; v < V; ++v) hit[v] = false;
+    for (int s = blk_ptr[blk]; s < blk_ptr[blk + 1]; ++s) {
+      const int c0 = col_ptr[s], c1 = col_ptr[s + 1];
+      const int tile = tile_ids[s];
+      if (c1 - c0 >= block_k || tile >= ntiles) continue;
+      const int32_t* cnt = counts + static_cast<int64_t>(tile) * N + col0 + c;
+      int missing[V];
+      bool any = false;
+#pragma unroll
+      for (int v = 0; v < V; ++v) {
+        missing[v] = cnt[v];
+        any |= missing[v] > 0;
+      }
+      if (!any) continue;
+      const int64_t row0 = static_cast<int64_t>(tile) * block_k;
+      for (int l = c0; l < c1; ++l) {
+        const int64_t row = row0 + col_k[l];
+        if (row >= K) break;  // columns ascend; rows past K read as zero
+#pragma unroll
+        for (int v = 0; v < V; ++v) missing[v] -= nonfinite(strip[row * N + v]);
+      }
+#pragma unroll
+      for (int v = 0; v < V; ++v) hit[v] |= missing[v] > 0;
+    }
+    const float nan = __int_as_float(0x7fffffff);
+#pragma unroll
+    for (int r = 0; r < kRows; ++r)
+#pragma unroll
+      for (int v = 0; v < V; ++v)
+        if (hit[v]) acc[r][v] += nan;
+  }
   if (g.grp == 0 && active) {
     store_rows<V>(out + static_cast<int64_t>(blk) * kRows * N + col0 + c, N,
                   acc);
@@ -166,11 +278,30 @@ extern "C" int cluster_spmm_columns_f32(const void* blk_ptr,
                                         const void* col_ptr,
                                         const void* col_k,
                                         const void* col_vals, const void* b,
-                                        void* out, int nblocks, int nsteps,
-                                        int block_k, int K, int N, int bn,
-                                        void* stream) {
-  if (nblocks <= 0 || block_k <= 0 || N <= 0 || bn <= 0 || bn > kBNMax) {
+                                        void* out, void* counts,
+                                        void* scratch, int nblocks,
+                                        int nsteps, int block_k, int K, int N,
+                                        int bn, void* stream) {
+  if (nblocks <= 0 || nsteps < 0 || block_k <= 0 || K < 0 || N <= 0 ||
+      bn <= 0 || bn > kBNMax) {
     return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const auto s = static_cast<cudaStream_t>(stream);
+  // scratch: the flag, then one mark per k-tile of B
+  const int ntiles = (K + block_k - 1) / block_k;
+  auto* flag = static_cast<int32_t*>(scratch);
+  cudaError_t err = cudaMemsetAsync(flag, 0, sizeof(int32_t) * (1 + ntiles), s);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (ntiles > 0 && nsteps > 0) {
+    mark_tiles_kernel<<<(nsteps + 255) / 256, 256, 0, s>>>(
+        static_cast<const int32_t*>(tile_ids),
+        static_cast<const int32_t*>(col_ptr), nsteps, block_k, ntiles,
+        flag + 1);
+    const dim3 count_grid(ntiles, (N + kCountCols - 1) / kCountCols);
+    nonfinite_count_kernel<<<count_grid, dim3(kCountCols, kCountRows), 0,
+                             s>>>(static_cast<const float*>(b), K, N,
+                                  block_k, flag + 1,
+                                  static_cast<int32_t*>(counts), flag);
   }
   // V-wide loads and stores need every strip to start V-aligned
   const auto aligned = [&](int v) {
@@ -182,7 +313,6 @@ extern "C" int cluster_spmm_columns_f32(const void* blk_ptr,
                                             : aligned(2) ? 2 : 1);
   const auto shape = live_columns::shape_for(bn, vec, nsteps, nblocks);
   const dim3 grid(nblocks, (N + bn - 1) / bn);
-  const auto s = static_cast<cudaStream_t>(stream);
   const auto args = [&](auto kernel) {
     kernel<<<grid, shape.threads, shape.smem_bytes, s>>>(
         static_cast<const int32_t*>(blk_ptr),
@@ -190,7 +320,8 @@ extern "C" int cluster_spmm_columns_f32(const void* blk_ptr,
         static_cast<const int32_t*>(col_ptr),
         static_cast<const int32_t*>(col_k),
         static_cast<const float*>(col_vals), static_cast<const float*>(b),
-        static_cast<float*>(out), block_k, K, N, bn, shape.groups_q);
+        static_cast<float*>(out), static_cast<const int32_t*>(counts), flag,
+        ntiles, block_k, K, N, bn, shape.groups_q);
   };
   if (vec == 4) {
     args(spmm_columns_kernel<4>);

@@ -9,162 +9,311 @@
 // ascending order (block 0 holds key 0, unmasked for every row, so m is a
 // real score after it) and the final division by max(l, 1e-30).
 //
-// Design:
-//  * One CTA per (64 query rows, b*h), 256 threads: four threads per query
-//    row. Each thread scores 16 of a KV block's 64 keys (key = sub + 4 j)
-//    and owns every fourth output column (d = sub + 4 j); row max and row
-//    sum are combined across the four threads with warp shuffles.
-//  * Q, K and V blocks are staged in shared memory with padded rows; the
-//    probabilities of a block go through shared memory (row-padded) to the
-//    P V product. The query and key tails are masked, so any Sq and Sk
-//    work (the TPU kernel needed multiples of 128).
-//  * The head width D is a runtime value up to 128; the per-thread column
-//    count is a template parameter (4, 8, 16, 20, 24 or 32), so D = 16, 32,
-//    64, 80, 96 and 128 run fully unrolled and other widths are masked.
-//
 // What bounds it: on the zamba2-2.7b prefill (BH = 128, S = 1024, D = 80,
 // causal) the work is ~21.5 GFLOP against ~0.17 GB of Q, K, V and O, so the
-// card's bound is operations (~0.32 ms at 67 TFLOP/s fp32). This first
-// version does about one shared-memory load per FMA in the score loop and
-// runs one or two CTAs per SM (78.6 KiB of shared memory at D = 80), so it
-// is held by the load/store units; tensor cores (bf16 / TF32 wgmma) are
-// later work. PERF.md has its measured time.
+// card's bound is operations (~0.32 ms at 67 TFLOP/s fp32). The kernel is
+// written so that the FMA pipe, not shared memory, is its limit:
+//
+//  * Register blocking. One CTA per (64 query rows, b*h), 256 threads in
+//    16 row groups x 16 key groups. Thread (rg, kg) owns a 4 x 4 micro-tile
+//    of the 64 x 64 score block -- rows rg*4 .. rg*4+3, keys kg + 16 j --
+//    and reads Q and K from shared memory as float4s along d: 8 loads feed
+//    64 FMAs. Q and K rows are padded to 16 * ceil(D / 16) + 4 floats, so
+//    the 8 keys a quarter-warp reads fall in distinct banks.
+//  * P V. The same thread owns rows rg*4 .. +3 of O and ceil(D / 16)
+//    columns: float4 chunks at c * 64 + kg * 4 and single columns
+//    64 * (DQ / 4) + 16 r + kg, so one float4 of P (its 4 rows, from P^T in
+//    shared memory) and DQ / 4 + DQ % 4 loads of V feed 4 * DQ FMAs. The
+//    column count DQ is a template parameter: the inner loops are fully
+//    unrolled with no test of d against D; Q's columns past D are zero
+//    (and K's finite), so padded columns add exact zeros to the scores,
+//    and O's are never stored.
+//  * Row statistics. A row's 64 keys sit in the 16 lanes of one row group,
+//    within one warp: row max and row sum combine with __shfl_xor_sync.
+//  * Asynchronous loads. K and V blocks are double-buffered with cp.async
+//    (16-byte copies where D % 4 == 0 and the rows are aligned, 4-byte ones
+//    otherwise; rows past Sk are zero-filled by the copy), so block j + 1
+//    loads while block j computes. P^T of block j overwrites block j's K
+//    buffer, which the scores no longer need, which keeps shared memory at
+//    103 KiB at D = 80: two CTAs of 256 threads fit on an SM.
+//  * Load balance. Query tiles are issued heaviest first (blockIdx.y
+//    reversed, b*h on x), so under the causal mask the tiles with the most
+//    KV blocks start in the first wave; only a block that reaches past a
+//    row's last key (the diagonal block, the ragged last block) applies
+//    the mask.
+//
+// The query and key tails are masked, so any Sq and Sk work (the TPU
+// kernel needed multiples of 128), for any D <= 128. PERF.md has the
+// measured times.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kBQ = 64;
-constexpr int kBK = 64;
-constexpr int kThreads = 256;
+constexpr int kBQ = 64;         // query rows per CTA
+constexpr int kBK = 64;         // keys per KV block
+constexpr int kThreads = 256;   // 16 row groups x 16 key groups
+constexpr int kPS = kBQ + 4;    // P^T row stride (floats)
 constexpr float kNegInf = -1e30f;
 
-size_t smem_bytes(int D) {
-  return sizeof(float) * (static_cast<size_t>(kBQ) * (D + 1) +
-                          static_cast<size_t>(kBK) * (D + 1) +
-                          static_cast<size_t>(kBK) * D +
-                          static_cast<size_t>(kBQ) * (kBK + 1));
+__device__ __forceinline__ void cp_async(float* dst, const float* src,
+                                         bool in, bool vec) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  if (vec) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+                 "l"(src), "r"(in ? 16 : 0));
+  } else {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
+                 "l"(src), "r"(in ? 4 : 0));
+  }
 }
 
-template <int kDQ>  // output columns per thread: ceil(D / 4) <= kDQ
-__global__ void __launch_bounds__(kThreads)
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::);
+}
+
+// Rows row0 .. row0 + 63 of a (rows, D) matrix into shared rows `ld`
+// floats apart, columns 0 .. D-1; rows at or past `rows` are zero.
+__device__ __forceinline__ void load_rows(float* dst, int ld,
+                                          const float* src, int row0,
+                                          int rows, int D, bool vec) {
+  const int step = vec ? 4 : 1;
+  const int per_row = D / step;
+  for (int i = threadIdx.x; i < kBK * per_row; i += kThreads) {
+    const int r = i / per_row;
+    const int c = (i - r * per_row) * step;
+    const bool in = row0 + r < rows;
+    const float* g = src + static_cast<int64_t>(in ? row0 + r : 0) * D + c;
+    cp_async(dst + r * ld + c, g, in, vec);
+  }
+}
+
+template <int DQ>
+struct Layout {
+  static constexpr int kDp = 16 * DQ;                 // D padded to 16
+  static constexpr int kRS = kDp + 4;                 // Q / K row stride
+  static constexpr int kKB = kBK * (kRS > kPS ? kRS : kPS);  // K (or P^T)
+  static constexpr int kVB = kBK * kDp;
+  static constexpr size_t kBytes =
+      sizeof(float) * (static_cast<size_t>(kBQ) * kRS + 2 * kKB + 2 * kVB);
+};
+
+template <int DQ>  // output columns per thread: ceil(D / 16)
+__global__ void __launch_bounds__(kThreads, 2)
 flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
              const float* __restrict__ v, float* __restrict__ o, int Sq,
-             int Sk, int D, float scale, int causal) {
-  extern __shared__ float smem[];
-  const int DP = D + 1;
-  const int PP = kBK + 1;
-  float* q_s = smem;              // (kBQ, D+1)
-  float* k_s = q_s + kBQ * DP;    // (kBK, D+1)
-  float* v_s = k_s + kBK * DP;    // (kBK, D)
-  float* p_s = v_s + kBK * D;     // (kBQ, kBK+1)
+             int Sk, int D, float scale, int causal, int vec) {
+  using L = Layout<DQ>;
+  constexpr int kNV = DQ / 4;   // float4 column chunks of O
+  constexpr int kNS = DQ % 4;   // single columns of O
+  extern __shared__ __align__(16) float smem[];
+  float* q_s = smem;                    // (kBQ, kRS)
+  float* k_s = q_s + kBQ * L::kRS;      // 2 x (kBK, kRS), P^T aliased
+  float* v_s = k_s + 2 * L::kKB;        // 2 x (kBK, kDp)
   const int tid = threadIdx.x;
-  const int row = tid >> 2;
-  const int sub = tid & 3;
-  const int64_t bh = blockIdx.y;
-  const int q0 = blockIdx.x * kBQ;
-  const int q_pos = q0 + row;
+  const int kg = tid & 15;
+  const int rg = tid >> 4;
+  const int64_t bh = blockIdx.x;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kBQ;   // heaviest first
   const float* qb = q + bh * Sq * static_cast<int64_t>(D);
   const float* kb = k + bh * Sk * static_cast<int64_t>(D);
   const float* vb = v + bh * Sk * static_cast<int64_t>(D);
 
-  for (int i = tid; i < kBQ * D; i += kThreads) {
-    const int r = i / D;
-    const int d = i - r * D;
-    q_s[r * DP + d] =
-        q0 + r < Sq ? qb[static_cast<int64_t>(q0 + r) * D + d] : 0.f;
+  // Q's padded columns must be zero and K's finite: zero both before the
+  // copies land
+  for (int i = tid; i < kBQ * L::kRS + 2 * L::kKB; i += kThreads) {
+    smem[i] = 0.f;
   }
-
-  float m = kNegInf;
-  float l = 0.f;
-  float acc[kDQ];
-#pragma unroll
-  for (int j = 0; j < kDQ; ++j) acc[j] = 0.f;
+  __syncthreads();
 
   // causal: KV blocks with k0 <= the tile's last query row
   const int kv_end = causal ? min(Sk, q0 + kBQ) : Sk;
-  for (int k0 = 0; k0 < kv_end; k0 += kBK) {
-    __syncthreads();  // previous block's readers of k_s / v_s are done
-    for (int i = tid; i < kBK * D; i += kThreads) {
-      const int r = i / D;
-      const int d = i - r * D;
-      const bool in = k0 + r < Sk;
-      const int64_t off = static_cast<int64_t>(k0 + r) * D + d;
-      k_s[r * DP + d] = in ? kb[off] : 0.f;
-      v_s[r * D + d] = in ? vb[off] : 0.f;
+  const int nkv = (kv_end + kBK - 1) / kBK;
+  load_rows(q_s, L::kRS, qb, q0, Sq, D, vec);
+  load_rows(k_s, L::kRS, kb, 0, Sk, D, vec);
+  load_rows(v_s, L::kDp, vb, 0, Sk, D, vec);
+  cp_async_commit();
+
+  float m[4], l[4], acc[4][DQ];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    m[i] = kNegInf;
+    l[i] = 0.f;
+#pragma unroll
+    for (int c = 0; c < DQ; ++c) acc[i][c] = 0.f;
+  }
+
+  for (int j = 0; j < nkv; ++j) {
+    const int k0 = j * kBK;
+    float* kc = k_s + (j & 1) * L::kKB;
+    const float* vc = v_s + (j & 1) * L::kVB;
+    cp_async_wait_all();
+    __syncthreads();  // block j is visible; block j - 1's readers are done
+    if (j + 1 < nkv) {
+      load_rows(k_s + ((j + 1) & 1) * L::kKB, L::kRS, kb, k0 + kBK, Sk, D,
+                vec);
+      load_rows(v_s + ((j + 1) & 1) * L::kVB, L::kDp, vb, k0 + kBK, Sk, D,
+                vec);
+    }
+    cp_async_commit();
+
+    // S = Q K^T on this thread's 4 x 4 micro-tile
+    float s[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int t = 0; t < 4; ++t) s[i][t] = 0.f;
+#pragma unroll 4
+    for (int d = 0; d < L::kDp; d += 4) {
+      float4 qa[4], ka[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        qa[i] = *reinterpret_cast<const float4*>(
+            q_s + (rg * 4 + i) * L::kRS + d);
+      }
+#pragma unroll
+      for (int t = 0; t < 4; ++t) {
+        ka[t] = *reinterpret_cast<const float4*>(
+            kc + (kg + 16 * t) * L::kRS + d);
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int t = 0; t < 4; ++t) {
+          s[i][t] = fmaf(qa[i].x, ka[t].x, s[i][t]);
+          s[i][t] = fmaf(qa[i].y, ka[t].y, s[i][t]);
+          s[i][t] = fmaf(qa[i].z, ka[t].z, s[i][t]);
+          s[i][t] = fmaf(qa[i].w, ka[t].w, s[i][t]);
+        }
+    }
+
+    // scale and mask; only a block reaching past a row's last key masks
+    const bool whole = k0 + kBK <= Sk && (!causal || k0 + kBK - 1 <= q0);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      float mx = kNegInf;
+#pragma unroll
+      for (int t = 0; t < 4; ++t) {
+        float x = s[i][t] * scale;
+        if (!whole) {
+          const int key = k0 + kg + 16 * t;
+          const bool keep =
+              key < Sk && (!causal || q0 + rg * 4 + i >= key);
+          x = keep ? x : kNegInf;
+        }
+        s[i][t] = x;
+        mx = fmaxf(mx, x);
+      }
+#pragma unroll
+      for (int off = 1; off < 16; off <<= 1) {
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+      }
+      const float m_new = fmaxf(m[i], mx);
+      const float alpha = expf(m[i] - m_new);
+      float sum = 0.f;
+#pragma unroll
+      for (int t = 0; t < 4; ++t) {
+        s[i][t] = expf(s[i][t] - m_new);
+        sum += s[i][t];
+      }
+#pragma unroll
+      for (int off = 1; off < 16; off <<= 1) {
+        sum += __shfl_xor_sync(0xffffffffu, sum, off);
+      }
+      l[i] = l[i] * alpha + sum;
+      m[i] = m_new;
+#pragma unroll
+      for (int c = 0; c < DQ; ++c) acc[i][c] *= alpha;
+    }
+
+    __syncthreads();  // every warp is done reading this block's K
+#pragma unroll
+    for (int t = 0; t < 4; ++t) {
+      *reinterpret_cast<float4*>(kc + (kg + 16 * t) * kPS + rg * 4) =
+          make_float4(s[0][t], s[1][t], s[2][t], s[3][t]);
     }
     __syncthreads();
 
-    float s[kBK / 4];
-#pragma unroll
-    for (int j = 0; j < kBK / 4; ++j) s[j] = 0.f;
-    for (int d = 0; d < D; ++d) {
-      const float qv = q_s[row * DP + d];
-#pragma unroll
-      for (int j = 0; j < kBK / 4; ++j) {
-        s[j] = fmaf(qv, k_s[(sub + 4 * j) * DP + d], s[j]);
-      }
-    }
-    float m_cur = kNegInf;
-#pragma unroll
-    for (int j = 0; j < kBK / 4; ++j) {
-      const int key = k0 + sub + 4 * j;
-      const bool keep = key < Sk && (!causal || q_pos >= key);
-      s[j] = keep ? s[j] * scale : kNegInf;
-      m_cur = fmaxf(m_cur, s[j]);
-    }
-    m_cur = fmaxf(m_cur, __shfl_xor_sync(0xffffffffu, m_cur, 1));
-    m_cur = fmaxf(m_cur, __shfl_xor_sync(0xffffffffu, m_cur, 2));
-    const float m_new = fmaxf(m, m_cur);
-    const float alpha = expf(m - m_new);
-    float lsum = 0.f;
-#pragma unroll
-    for (int j = 0; j < kBK / 4; ++j) {
-      const float p = expf(s[j] - m_new);
-      p_s[row * PP + sub + 4 * j] = p;
-      lsum += p;
-    }
-    lsum += __shfl_xor_sync(0xffffffffu, lsum, 1);
-    lsum += __shfl_xor_sync(0xffffffffu, lsum, 2);
-    l = l * alpha + lsum;
-    m = m_new;
-    __syncwarp();  // a row's probabilities come from the four lanes reading them
-#pragma unroll
-    for (int j = 0; j < kDQ; ++j) acc[j] *= alpha;
+    // O += P V: per key, one float4 of P (4 rows) against this thread's
+    // columns of V's row
+#pragma unroll 4
     for (int kk = 0; kk < kBK; ++kk) {
-      const float p = p_s[row * PP + kk];
+      const float4 p4 = *reinterpret_cast<const float4*>(kc + kk * kPS +
+                                                         rg * 4);
+      const float p[4] = {p4.x, p4.y, p4.z, p4.w};
+      const float* vr = vc + kk * L::kDp;
 #pragma unroll
-      for (int j = 0; j < kDQ; ++j) {
-        const int d = sub + 4 * j;
-        if (d < D) acc[j] = fmaf(p, v_s[kk * D + d], acc[j]);
+      for (int c = 0; c < kNV; ++c) {
+        const float4 v4 =
+            *reinterpret_cast<const float4*>(vr + c * 64 + kg * 4);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          acc[i][c * 4 + 0] = fmaf(p[i], v4.x, acc[i][c * 4 + 0]);
+          acc[i][c * 4 + 1] = fmaf(p[i], v4.y, acc[i][c * 4 + 1]);
+          acc[i][c * 4 + 2] = fmaf(p[i], v4.z, acc[i][c * 4 + 2]);
+          acc[i][c * 4 + 3] = fmaf(p[i], v4.w, acc[i][c * 4 + 3]);
+        }
+      }
+#pragma unroll
+      for (int r = 0; r < kNS; ++r) {
+        const float vs = vr[kNV * 64 + r * 16 + kg];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          acc[i][kNV * 4 + r] = fmaf(p[i], vs, acc[i][kNV * 4 + r]);
+        }
       }
     }
   }
 
-  if (q_pos < Sq) {
-    float* orow = o + (bh * Sq + q_pos) * static_cast<int64_t>(D);
-    const float den = fmaxf(l, 1e-30f);
 #pragma unroll
-    for (int j = 0; j < kDQ; ++j) {
-      const int d = sub + 4 * j;
-      if (d < D) orow[d] = acc[j] / den;
+  for (int i = 0; i < 4; ++i) {
+    const int row = q0 + rg * 4 + i;
+    if (row >= Sq) continue;
+    float* orow = o + (bh * Sq + row) * static_cast<int64_t>(D);
+    const float den = fmaxf(l[i], 1e-30f);
+#pragma unroll
+    for (int c = 0; c < kNV; ++c)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int col = c * 64 + kg * 4 + e;
+        if (col < D) orow[col] = acc[i][c * 4 + e] / den;
+      }
+#pragma unroll
+    for (int r = 0; r < kNS; ++r) {
+      const int col = kNV * 64 + r * 16 + kg;
+      if (col < D) orow[col] = acc[i][kNV * 4 + r] / den;
     }
   }
 }
 
-template <int kDQ>
+template <int DQ>
 int launch(const float* q, const float* k, const float* v, float* o, int bh,
            int Sq, int Sk, int D, float scale, int causal,
            cudaStream_t stream) {
-  const size_t bytes = smem_bytes(D);
+  const size_t bytes = Layout<DQ>::kBytes;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_kernel<kDQ>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_kernel<DQ>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(bytes));
+  if (err == cudaSuccess) {
+    err = cudaFuncSetAttribute(flash_kernel<DQ>,
+                               cudaFuncAttributePreferredSharedMemoryCarveout,
+                               cudaSharedmemCarveoutMaxShared);
+  }
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((Sq + kBQ - 1) / kBQ, bh);
-  flash_kernel<kDQ><<<grid, kThreads, bytes, stream>>>(q, k, v, o, Sq, Sk, D,
-                                                       scale, causal);
+  // 16-byte copies need D % 4 == 0 and 16-byte aligned bases (then every
+  // row of every head starts aligned)
+  const auto aligned = [](const void* p) {
+    return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+  };
+  const int vec = D % 4 == 0 && aligned(q) && aligned(k) && aligned(v);
+  const dim3 grid(bh, (Sq + kBQ - 1) / kBQ);
+  flash_kernel<DQ><<<grid, kThreads, bytes, stream>>>(q, k, v, o, Sq, Sk, D,
+                                                      scale, causal, vec);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -173,7 +322,8 @@ int launch(const float* q, const float* k, const float* v, float* o, int bh,
 extern "C" int flash_attention_f32(const void* q, const void* k, const void* v,
                                    void* o, int bh, int Sq, int Sk, int D,
                                    float scale, int causal, void* stream) {
-  if (bh <= 0 || Sq <= 0 || Sk <= 0 || D <= 0 || D > 128) {
+  if (bh <= 0 || Sq <= 0 || Sk <= 0 || D <= 0 || D > 128 ||
+      (Sq + kBQ - 1) / kBQ > 65535) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const auto* qf = static_cast<const float*>(q);
@@ -181,13 +331,17 @@ extern "C" int flash_attention_f32(const void* q, const void* k, const void* v,
   const auto* vf = static_cast<const float*>(v);
   auto* of = static_cast<float*>(o);
   auto st = static_cast<cudaStream_t>(stream);
-  const int dq = (D + 3) / 4;
-  if (dq <= 4) return launch<4>(qf, kf, vf, of, bh, Sq, Sk, D, scale, causal, st);
-  if (dq <= 8) return launch<8>(qf, kf, vf, of, bh, Sq, Sk, D, scale, causal, st);
-  if (dq <= 16) return launch<16>(qf, kf, vf, of, bh, Sq, Sk, D, scale, causal, st);
-  if (dq <= 20) return launch<20>(qf, kf, vf, of, bh, Sq, Sk, D, scale, causal, st);
-  if (dq <= 24) return launch<24>(qf, kf, vf, of, bh, Sq, Sk, D, scale, causal, st);
-  return launch<32>(qf, kf, vf, of, bh, Sq, Sk, D, scale, causal, st);
+  switch ((D + 15) / 16) {
+    case 1: return launch<1>(qf, kf, vf, of, bh, Sq, Sk, D, scale, causal, st);
+    case 2: return launch<2>(qf, kf, vf, of, bh, Sq, Sk, D, scale, causal, st);
+    case 3: return launch<3>(qf, kf, vf, of, bh, Sq, Sk, D, scale, causal, st);
+    case 4: return launch<4>(qf, kf, vf, of, bh, Sq, Sk, D, scale, causal, st);
+    case 5: return launch<5>(qf, kf, vf, of, bh, Sq, Sk, D, scale, causal, st);
+    case 6: return launch<6>(qf, kf, vf, of, bh, Sq, Sk, D, scale, causal, st);
+    case 7: return launch<7>(qf, kf, vf, of, bh, Sq, Sk, D, scale, causal, st);
+    default:
+      return launch<8>(qf, kf, vf, of, bh, Sq, Sk, D, scale, causal, st);
+  }
 }
 
 extern "C" const char* flash_attention_error_string(int code) {

@@ -6,7 +6,9 @@ kernel's conventions: the causal mask ``q_pos >= k_pos`` aligned at the
 top left (so it agrees with a bottom-right-aligned oracle only when
 Sq = Sk), masked scores at -1e30, KV blocks above the diagonal skipped and
 the row sum floored at 1e-30. It masks ragged tails, so any sequence
-length works.
+length works. It is register-blocked for the CUDA cores in IEEE fp32: a
+thread owns a 4 × 4 tile of each 64 × 64 score block and a 4-row slice of
+the output, with K and V double-buffered by ``cp.async``.
 
 :func:`flash_attention` is the wrapper: on a CUDA tensor it launches the
 kernel (counting the launch in its ``launches`` attribute) or raises; on a
@@ -92,8 +94,9 @@ def _launch(q, k, v, *, causal):
     if not 0 < d <= KERNEL_MAX_D:
         raise ValueError(f"flash_attention kernel takes 0 < D <= "
                          f"{KERNEL_MAX_D}, got {d}")
-    if bh > 65535:
-        raise ValueError(f"flash_attention kernel takes BH <= 65535, got {bh}")
+    if -(-sq // 64) > 65535:
+        raise ValueError(f"flash_attention kernel takes Sq <= {64 * 65535}, "
+                         f"got {sq}")
     out = torch.empty_like(q)
     if bh == 0 or sq == 0:
         return out

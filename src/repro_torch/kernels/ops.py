@@ -324,8 +324,8 @@ class SpGEMMPack:
     CompactedC table on the device. A caller that keeps the pack (the
     planner's exec cache) launches from it and B alone, without A's
     padded slab array. ``cols`` is the live-column form of the stream's
-    slabs on the routes whose launch is a window stream (``dense``,
-    ``sparse_c``, ``sharded``)."""
+    slabs on the routes whose kernel walks it (``dense``, ``sparse_c``,
+    ``sharded``, ``padded``)."""
 
     stream: tuple              # (block_ids, tile_ids, values)
     pairs: tuple | None        # (blocks, js, slots, a_idx) host int32
@@ -377,7 +377,8 @@ def pack_spgemm(a: BCC, b: TiledCSR, *, sparse_c: bool | None = None,
         grid = padded_grid(stream[0], stream[1], b.table, nblocks=nblocks,
                            nnb=b.nnb, block_r=a.block_r, bn=b.bn, device=dev)
         return SpGEMMPack(pairs=None, route="padded", launch=grid,
-                          table=None, **common)
+                          table=None, cols=slab_columns(stream[2]),
+                          **common)
     pairs = build_live_pairs(a, b, stream)
     if shard_pack is None:
         shard_pack = build_shard_pack(a, b, pairs, shards=shards,
@@ -460,7 +461,8 @@ def bcc_spgemm_tiled(a: BCC | None, b: TiledCSR, *,
     if pack.route == "padded":
         with tracer.span("kernel_variant", variant="padded",
                          resident=resident):
-            out = cluster_spgemm_padded(pack.launch, values, b.tiles)
+            out = cluster_spgemm_padded(pack.launch, values, b.tiles,
+                                        pack.cols)
         _note_kernel_launch("padded")
         return out[: pack.nrows, : b.ncols]
     if pack.route in ("sharded", "sharded_revisit"):

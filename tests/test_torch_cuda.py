@@ -495,3 +495,169 @@ def test_column_kernels_run_several_units_per_cta(card, dtype):
     torch.cuda.synchronize()
     assert torch.equal(out, cluster_spmm_compact_plain(bids, tids, vals, bd,
                                                        **kw))
+
+
+def _same_values(got, want):
+    """Equal position for position: NaN where the other is NaN, inf of
+    the same sign, equal finite values."""
+    return bool(((got == want) | (got.isnan() & want.isnan())).all())
+
+
+@pytest.mark.parametrize("n_cols,block_k", [(64, 128), (40, 128), (13, 128),
+                                            (130, 128), (64, 512)])
+def test_column_spmm_non_finite_b_equals_plain(card, n_cols, block_k):
+    """Inf and NaN values of B in live columns, in slabs' dead columns,
+    in a tile no slab covers and in the ragged last tile: the kernel and
+    its plain version give NaN at the same positions, inf of the same
+    sign and equal finite values, and a dead column's non-finite value
+    reaches its block."""
+    a = _host(120, 3 * block_k - 37, 0.03, 41)
+    bcc, (bids, tids, vals), bd = _spmm_operands(card, a, n_cols,
+                                                 block_k=block_k, seed=42)
+    rng = np.random.default_rng(43)
+    k = a.ncols
+    for row, col, val in zip(rng.integers(0, k, 24),
+                             rng.integers(0, n_cols, 24),
+                             [np.inf, -np.inf, np.nan] * 8):
+        bd[int(row), int(col)] = float(val)
+    bd[k - 1, 0] = np.inf
+    kw = dict(block_r=8, block_k=block_k, nblocks=bcc.nblocks)
+    before = cluster_spmm_compact.launches
+    got = cluster_spmm_compact(bids, tids, vals, bd, **kw)
+    torch.cuda.synchronize()
+    assert cluster_spmm_compact.launches == before + 1
+    want = cluster_spmm_compact_plain(bids, tids, vals, bd, **kw)
+    assert _same_values(got, want)
+    assert got.isnan().any() and got.isinf().any()
+    # some block is reached only through a dead column of its slabs
+    dense = torch.from_numpy(a.to_dense()).to(card)
+    nb = bcc.nblocks
+    live = (dense.view(nb, 8, k) != 0).any(dim=1).float()
+    via_live = (live @ (~bd.isfinite()).float()) > 0
+    bad = (~got.isfinite()).view(nb, 8, n_cols).any(dim=1)
+    assert (bad & ~via_live).any()
+    # finite outputs are the exact product's
+    fin = got.isfinite()
+    exact = dense @ torch.nan_to_num(bd, nan=0.0, posinf=0.0, neginf=0.0)
+    assert torch.equal(got[fin], exact[fin])
+
+
+FLASH_D = [16, 64, 72, 80, 96, 128]
+FLASH_SQ = [1, 63, 64, 65, 1000, 1024]
+
+
+def _flash_check(card, bh, sq, sk, d, causal, *, offset=0):
+    g = torch.Generator(device=card).manual_seed(bh * sq + 7 * sk + d)
+    q, k, v = (torch.randn((bh * s * d + offset,), generator=g,
+                           device=card)[offset:].view(bh, s, d)
+               for s in (sq, sk, sk))
+    before = flash_attention.launches
+    got = flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    want = flash_attention_plain(q, k, v, causal=causal)
+    assert got.isfinite().all()
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("sq", FLASH_SQ)
+@pytest.mark.parametrize("d", FLASH_D)
+def test_flash_attention_kernel_over_widths_and_lengths(card, d, sq, causal):
+    """Every head-width template (D padded to 16: 72 runs the 80-wide
+    instantiation with four zero columns) at query lengths around the
+    64-row tile and the zamba2-2.7b prefill's 1024."""
+    _flash_check(card, 2, sq, sq, d, causal)
+
+
+@pytest.mark.parametrize("sq,sk", [(300, 130), (1000, 64), (65, 1),
+                                   (130, 300), (1, 200), (64, 1024)])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("d", [72, 80])
+def test_flash_attention_kernel_unequal_lengths(card, d, sq, sk, causal):
+    """Sq > Sk and Sq < Sk: the top-left causal mask and the ragged last
+    KV block."""
+    _flash_check(card, 3, sq, sk, d, causal)
+
+
+@pytest.mark.parametrize("d", [18, 80])
+def test_flash_attention_kernel_unaligned_rows(card, d):
+    """Rows that are not 16-byte aligned (a storage offset of one float,
+    or D % 4 != 0) take the 4-byte copies."""
+    _flash_check(card, 2, 200, 150, d, True, offset=1)
+
+
+def _padded_operands(case, block_k):
+    """A·B for the padded grid: ``dead_block`` gives row block 1 steps
+    only in k-tile 1, whose B rows are all zero (no live tile), and
+    leaves row block 3 empty (its stream step is a zero slab); ``all_live``
+    makes every tile of C live."""
+    rng = np.random.default_rng(block_k)
+    if case == "dead_block":
+        k = 3 * block_k
+        a = ((rng.random((40, k)) < 0.05)
+             * rng.integers(1, 4, (40, k))).astype(np.float32)
+        a[8:16] = 0.0
+        a[8:16, block_k + 1] = 2.0
+        a[24:32] = 0.0
+        b = ((rng.random((k, 300)) < 0.1)
+             * rng.integers(1, 4, (k, 300))).astype(np.float32)
+        b[block_k: 2 * block_k] = 0.0
+    else:
+        a = rng.integers(1, 4, (24, 2 * block_k)).astype(np.float32)
+        b = rng.integers(1, 4, (2 * block_k, 200)).astype(np.float32)
+    return HostCSR.from_dense(a), HostCSR.from_dense(b)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("block_k", [16, 128, 512])
+@pytest.mark.parametrize("case", ["dead_block", "all_live"])
+def test_padded_kernel_fill_and_live_tiles(card, case, block_k, dtype):
+    """K6's zero-fill and its live-tile launch: exact against the plain
+    version (bf16 bit for bit), a block with no live tile stays zero, and
+    every tile live leaves nothing to the fill."""
+    a, b = _padded_operands(case, block_k)
+    bcc = bcc_from_host(a, block_k=block_k, device=card)
+    tiled = tiled_csr_from_host(b, block_k=block_k, dtype=dtype,
+                                device=card)
+    pack = ops.pack_spgemm(bcc, tiled, compact=False)
+    g = pack.launch
+    assert pack.route == "padded"
+    before = cluster_spgemm_padded.launches
+    got = cluster_spgemm_padded(g, pack.stream[2], tiled.tiles)
+    torch.cuda.synchronize()
+    assert cluster_spgemm_padded.launches == before + 1
+    assert got.dtype == dtype
+    assert torch.equal(got, cluster_spgemm_padded_plain(g, pack.stream[2],
+                                                        tiled.tiles))
+    live = g.live_tiles.cpu().numpy()
+    if case == "dead_block":
+        # block 3's one (zero) slab reads k-tile 0 and lists its tiles
+        assert not (live // g.nnb == 1).any()
+        assert not got[8:16].any() and not got[24:32].any()
+        assert 0 < live.size < g.nblocks * g.nnb
+    else:
+        assert live.tolist() == list(range(g.nblocks * g.nnb))
+    if dtype == torch.float32:
+        assert np.array_equal(got[:a.nrows, :b.ncols].cpu().numpy(),
+                              a.to_dense() @ b.to_dense())
+
+
+def test_padded_zero_fill_on_spans_off_the_16_byte_grid(card):
+    """The fill behind K6 zeroes exactly the span it is given, whose start
+    and size need not sit on its 16-byte stores (a padded grid's C always
+    does: 8 rows of 2- or 4-byte values), and nothing around it."""
+    import ctypes
+
+    from repro_torch.kernels import _build
+    fn = _build.load("cluster_spgemm_padded").cluster_spgemm_padded_zero
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    buf = torch.empty(70001, dtype=torch.bfloat16, device=card)
+    stream = torch.cuda.current_stream(card).cuda_stream
+    for start, n in [(3, 37), (0, 8), (1, 70000), (5, 0), (8, 7), (2, 1)]:
+        buf.fill_(7.0)
+        assert fn(buf[start:].data_ptr(), 2 * n, stream) == 0
+        torch.cuda.synchronize()
+        assert not buf[start:start + n].any()
+        assert (buf[:start] == 7).all() and (buf[start + n:] == 7).all()

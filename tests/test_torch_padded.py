@@ -179,6 +179,31 @@ def test_padded_grid_block_offsets_cover_every_block():
     assert grid.out_shape == (kw["nblocks"] * 8, kw["nnb"] * 16)
 
 
+@pytest.mark.parametrize("name", list(CASES))
+def test_padded_grid_lists_the_live_tiles_of_the_reference_table(name):
+    """The live output tiles the kernel computes (every other tile is the
+    zero-fill's) are the (blk, j) with a step s of block blk whose slot
+    ``table[tile_ids[s] * nnb + j]`` is live, in the JAX package's stream
+    and table; the reference's output is zero on every other tile."""
+    a, b, bk = CASES[name]
+    ref, kw, grid, _, _ = _packed(a, b, bk)
+    nblocks, nnb = kw["nblocks"], kw["nnb"]
+    table = np.asarray(ref["table"]).reshape(-1, nnb)
+    want = set()
+    for blk, tile in zip(np.asarray(ref["block_ids"]),
+                         np.asarray(ref["tile_ids"])):
+        want.update(int(blk) * nnb + int(j)
+                    for j in np.flatnonzero(table[tile] > 0))
+    got = grid.live_tiles.numpy()
+    assert grid.live_tiles.dtype == torch.int32
+    assert got.tolist() == sorted(want)
+    out = np.asarray(RK.cluster_spgemm_tiled(*ref.values(), interpret=True,
+                                             **kw))
+    tiles = out.reshape(nblocks, 8, nnb, 16).transpose(0, 2, 1, 3).reshape(
+        nblocks * nnb, -1)
+    assert not tiles[np.setdiff1d(np.arange(nblocks * nnb), got)].any()
+
+
 @pytest.mark.parametrize("resident", [None, True, False])
 def test_ops_padded_route_matches_the_reference(resident):
     (ra, pa), (rb, pb) = (host_pair(m) for m in CASES["ragged"][:2])

@@ -9,14 +9,14 @@ form must scatter back to the padded slabs exactly, keep each slab's
 columns ascending, and hold exactly the nonzero slab columns. The compact
 SpMM (K4), the dense-strip A² (K1) and the CompactedC A² (K5) given the
 form must equal the JAX package's kernels in interpret mode exactly (fp32
-sums of small integers are exact in any order). ``SparseLinear`` pins the
-one place the form changes a result: a non-finite activation reaches only
-the blocks with a live column at its feature.
+sums of small integers are exact in any order). ``SparseLinear`` with
+inf and NaN activations equals the JAX package's result elementwise on
+its compact, padded and dense paths: a non-finite value in a slab's dead
+column still reaches the block, as in the whole-slab product.
 """
 import jax.numpy as jnp
 import numpy as np
 import pytest
-import scipy.sparse as sp
 import torch
 
 from repro.core import formats as RF
@@ -176,42 +176,60 @@ def test_a2_over_live_columns_matches_pallas(name, sparse_c):
         assert np.array_equal(got, rh.to_dense() @ rh.to_dense())
 
 
-def test_sparse_linear_non_finite_activation_reaches_live_columns_only():
-    """A deliberate divergence from the JAX package. Its padded kernel
-    multiplies whole (8, 128) slabs, so an inf or NaN activation at
-    feature k reaches every output of every 8-row block whose slab covers
-    k's 128-wide tile. The port walks live columns: the activation reaches
-    the 8 outputs of a block only where the block has a nonzero in column
-    k (0 * inf of the block's other rows included), which contains what a
-    CSR product (scipy) reaches and is contained in what the JAX package
-    reaches. Finite outputs agree exactly."""
+def _non_finite_layer(block_k):
+    """A weight with live columns, dead slab columns and an empty block,
+    and seeded integer activations holding an inf and a NaN: at feature 3
+    (live in blocks 0 and 2; dead in block 1's slab, which covers the same
+    k-tile) and at feature 40 (live in block 0 only)."""
     rng = np.random.default_rng(11)
-    w = np.zeros((32, 256), np.float32)
+    feats = 256 if block_k == 128 else 1100
+    w = np.zeros((32, feats), np.float32)
     w[:8, [3, 40, 200]] = rng.integers(1, 4, (8, 3))       # block 0
     w[8:16, [5, 41, 130]] = rng.integers(1, 4, (8, 3))     # block 1
     w[16:20, [3, 77]] = rng.integers(1, 4, (4, 2))         # block 2
     w[24, 250] = 2.0                                       # block 3
-    x = rng.integers(-2, 3, (6, 256)).astype(np.float32)
-    x[1, 3] = np.inf        # block 0 and 2 have column 3 live; block 1
-    x[4, 40] = np.nan       # has tile 0 live but not column 3 or 40
-    kw = dict(density=1.0, reorder="original")
+    if block_k == 512:
+        w[8:12, [600, 1090]] = rng.integers(1, 4, (4, 2))  # 3rd, ragged tile
+    x = rng.integers(-2, 3, (6, feats)).astype(np.float32)
+    x[1, 3] = np.inf
+    x[4, 40] = np.nan
+    x[2, 3] = -np.inf
+    if block_k == 512:
+        x[3, 1095] = np.inf                                # dead, ragged tile
+    return w, x
+
+
+@pytest.mark.parametrize("block_k,path", [
+    (128, "compact"), (128, "padded"), (128, "dense"), (512, "compact")])
+def test_sparse_linear_non_finite_activation_equals_the_reference(block_k,
+                                                                  path):
+    """The JAX package's kernels multiply whole (8, block_k) slabs, so an
+    inf or NaN activation in a slab's dead column (all 8 weights zero)
+    gives 0 * inf = NaN in the 8 outputs of the block. The port's compact
+    path walks live columns only and must still find it: every path
+    equals the reference elementwise — the same NaN positions, inf with
+    the same sign, equal finite values."""
+    w, x = _non_finite_layer(block_k)
+    kw = dict(density=1.0, reorder="original", block_k=block_k)
     ref = ref_sl.SparseLinear.from_dense(w, **kw)
     port = port_sl.SparseLinear.from_dense(w, device="cpu", **kw)
-    want = np.asarray(ref.apply(jnp.asarray(x), interpret=True))
-    got = port.apply(torch.from_numpy(x)).numpy()
-    csr = (sp.csr_matrix(w) @ x.T).T
-    bad_ref, bad_port, bad_csr = (~np.isfinite(v) for v in (want, got, csr))
-    # the rule: output (t, i) is non-finite iff some feature k with a
-    # non-finite x[t, k] is a live column of i's block
-    live = np.zeros((4, 256), bool)
-    for blk in range(4):
-        live[blk] = (w[blk * 8: blk * 8 + 8] != 0).any(axis=0)
-    rule = np.zeros_like(bad_port)
-    for t in range(x.shape[0]):
-        hit = ~np.isfinite(x[t])
-        rule[t] = (live[:, hit].any(axis=1))[np.arange(32) // 8]
-    assert np.array_equal(bad_port, rule)
-    assert (bad_csr <= bad_port).all() and (bad_port <= bad_ref).all()
-    assert bad_ref.sum() > bad_port.sum() > bad_csr.sum()
-    ok = ~bad_ref
+    use_kernel, compact = path != "dense", path == "compact"
+    want = np.asarray(ref.apply(jnp.asarray(x), use_kernel=use_kernel,
+                                compact=compact, interpret=True))
+    got = port.apply(torch.from_numpy(x), use_kernel=use_kernel,
+                     compact=compact).numpy()
+    assert got.shape == want.shape
+    assert np.array_equal(np.isnan(got), np.isnan(want))
+    assert np.array_equal(np.isposinf(got), np.isposinf(want))
+    assert np.array_equal(np.isneginf(got), np.isneginf(want))
+    ok = np.isfinite(want)
     assert np.array_equal(got[ok], want[ok])
+    assert np.isinf(want).any() and np.isnan(want).any()
+    # the data reaches outputs through dead columns: more of them are not
+    # finite than the blocks with a live column at a non-finite feature
+    nblk = w.shape[0] // 8
+    live = np.stack([(w[b * 8: b * 8 + 8] != 0).any(axis=0)
+                     for b in range(nblk)])
+    live_rule = np.stack([live[:, ~np.isfinite(x[t])].any(axis=1)[
+        np.arange(w.shape[0]) // 8] for t in range(x.shape[0])])
+    assert (~np.isfinite(want)).sum() > live_rule.sum()

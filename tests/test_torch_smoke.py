@@ -63,6 +63,11 @@ def test_rehearsal_runs_every_phase(capsys):
     assert [c["SparseLinear.apply"] for c in calls[3:]] == [
         {"compact": False}, {"compact": True}]
     assert all(c["exact_vs_dense_pruned"] for c in calls[3:])
+    non_finite = json.loads(next(line for line in lines if line.startswith(
+        "  non-finite ")).split("non-finite ", 1)[1])
+    assert non_finite["equal_to_plain"]
+    assert non_finite["dead_column_reaches_its_block"]
+    assert non_finite["nan"] > 0 and non_finite["inf"] > 0
     # the live-column kernels report their own work bound beside the
     # product's bound and the tile bound
     for k in summary["kernels"][:2]:
