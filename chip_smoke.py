@@ -5,7 +5,9 @@ Run from the repository root with one CUDA card visible::
 
     python3 chip_smoke.py
 
-Phases (any failure exits non-zero before the last line is printed):
+Phases (any failure exits non-zero before the last line is printed,
+after one stdout line ``chip_smoke: failed in <phase>: <error>``; so does
+a run without a card, or from a directory that does not hold the port):
 
 1. environment — the card's name and power limit, the CUDA version, the
    SM count, and the build of every kernel source with nvcc (one process
@@ -100,11 +102,23 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 
 # H100 SXM data sheet peaks (dense): fp32 on the CUDA cores, HBM3 rate
 PEAK_FP32_FLOPS = 67e12
+PEAK_16_FLOPS = 989e12     # bf16 and fp16 on the tensor cores, dense
 PEAK_BYTES_PER_S = 3.35e12
 
 
 def log(*parts) -> None:
     print(*parts, flush=True)
+
+
+# the phase running now, named in the line a failed run prints last
+PHASE = "start"
+
+
+def phase(title: str) -> None:
+    """Log a phase's header and remember it for a failure's last line."""
+    global PHASE
+    PHASE = title.split(":")[0]
+    log(title)
 
 
 def nvidia_smi_line() -> str:
@@ -169,7 +183,8 @@ def timed_ms(fn, device, reps: int = 5) -> float:
     return statistics.median(times)
 
 
-def kernel_device_ms(fn, device, kernel, reps: int = 5):
+def kernel_device_ms(fn, device, kernel, reps: int = 5, *,
+                     split: bool = False):
     """Median device time of the kernels whose names contain ``kernel`` (a
     name, or a tuple of names summed) in one call of ``fn``, from the
     profiler's device events: the kernels alone, without the wrapper's
@@ -178,7 +193,8 @@ def kernel_device_ms(fn, device, kernel, reps: int = 5):
     misses one of the kernels is not counted (on the card, sessions late in
     this script have lost K10's events); after ``3 * reps`` sessions
     without ``reps`` counted, the median of those counted, None if there
-    are none. None on the CPU."""
+    are none. ``split``: a dict of each name's median instead, the total
+    under "total" (the median of the sessions' sums). None on the CPU."""
     import torch
     from torch.autograd import DeviceType
     if device.type != "cuda":
@@ -195,15 +211,23 @@ def kernel_device_ms(fn, device, kernel, reps: int = 5):
                  for ev in prof.events() if ev.device_type == DeviceType.CUDA
                  and any(k in ev.name for k in names)]
         if all(any(k in n for n, _ in found) for k in names):
-            times.append(sum(us for _, us in found) / 1e3)
+            times.append({k: sum(us for n, us in found if k in n) / 1e3
+                          for k in names})
+            times[-1]["total"] = sum(us for _, us in found) / 1e3
         if len(times) == reps:
             break
-    return statistics.median(times) if times else None
+    if not times:
+        return None
+    med = {k: statistics.median(t[k] for t in times) for k in times[0]}
+    return med if split else med["total"]
 
 
-def bound(nbytes: int, flops: int) -> tuple[float, str]:
+def bound(nbytes: int, flops: int,
+          peak: float = PEAK_FP32_FLOPS) -> tuple[float, str]:
+    """The least time for the work, in ms, and what sets it: ``peak`` is
+    the card's rate for the type the products are formed in."""
     t_bytes = nbytes / PEAK_BYTES_PER_S
-    t_ops = flops / PEAK_FP32_FLOPS
+    t_ops = flops / peak
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
 
@@ -242,17 +266,18 @@ def column_work(cols, unit_slabs, row_keys, row_bytes: int, out_bytes: int,
 
 
 def spmm_work(cols, tile_ids, block_k: int, n_cols: int,
-              out_bytes: int) -> dict:
+              out_bytes: int, *, row_bytes: int | None = None) -> dict:
     """:func:`column_work` of the compact SpMM: each step visits its own
     slab's live columns once, and a visit selects B's row
-    ``tile_ids[step] * block_k + k`` (``n_cols`` fp32 values)."""
+    ``tile_ids[step] * block_k + k`` (``n_cols`` values, fp32 unless
+    ``row_bytes`` says otherwise)."""
     import torch
     steps = torch.arange(cols.nslabs, device=cols.col_ptr.device)
     return column_work(
         cols, steps,
         lambda slab, col, unit: (tile_ids.long()[slab] * block_k
                                  + cols.col_k.long()[col]),
-        4 * n_cols, out_bytes, n_cols)
+        row_bytes or 4 * n_cols, out_bytes, n_cols)
 
 
 def csr_bytes(nrows: int, nnz: int) -> int:
@@ -691,16 +716,19 @@ def sparse_linear_layer(rows, cols, tokens, device, rng, *,
     return layer, x
 
 
-def padded_spmm_case(name, layer, x, device, *, timing=True):
+def padded_spmm_case(name, layer, x, device, *, dtype=None, timing=True):
     """The padded-lattice SpMM kernel (K9) at SparseLinear's padded path:
-    the packed weight against the activations' transpose."""
+    the packed weight against the activations' transpose (fp32, or cast
+    to a 16-bit ``dtype``: the integer activations stay exact, the output
+    is rounded after every slot in both versions)."""
     import torch
     from repro_torch.kernels.cluster_spmm import (KERNEL_MAX_BN,
                                                   cluster_spmm,
                                                   cluster_spmm_plain)
     launches0 = cluster_spmm.launches
     bcc = layer.bcc
-    xt = x.T.contiguous()                       # (in, tokens)
+    xt = x.T.contiguous().to(dtype or torch.float32)   # (in, tokens)
+    esize = xt.element_size()
     kw = dict(block_r=bcc.block_r, block_k=bcc.block_k,
               tiles_per_block=bcc.tiles_per_block)
     bn = min(KERNEL_MAX_BN, max(8, xt.shape[1]))
@@ -709,36 +737,42 @@ def padded_spmm_case(name, layer, x, device, *, timing=True):
     plain = lambda: cluster_spmm_plain(  # noqa: E731
         bcc.tile_ids, bcc.values, xt, **kw)
     got, want = run(), plain()
-    ok = bool(torch.equal(got, want))
-    err = float((got - want).abs().max())
+    ok = bool(torch.equal(got, want)) and got.dtype == xt.dtype
+    err = float((got.float() - want.float()).abs().max())
     ms = timed_ms(run, device) if timing else None
+    device_ms = (kernel_device_ms(run, device, "spmm_kernel")
+                 if timing else None)
     plain_ms = timed_ms(plain, device, reps=3) if timing else None
     # the yardstick: cuSPARSE's CSR × dense on the packed weight
-    dense_w = bcc.to_dense()
+    dense_w = bcc.to_dense().to(xt.dtype)
     wc = dense_w.to_sparse_csr()
     del dense_w
     lib_ms = (library_ms(lambda: torch.sparse.mm(wc, xt), device)
               if timing else None)
     # the bound: the product's true flops (2 per weight nonzero per
-    # token), the CSR weight, the activations and the result once each
+    # token), the CSR weight, the activations and the result once each.
+    # The products are fp32 whatever B's dtype: the weight is fp32, and
+    # the reference promotes fp32 × 16-bit to fp32
     nnz = int(wc.values().numel())
     tokens = xt.shape[1]
     true_flops = 2 * nnz * tokens
     bound_ms, bound_by = bound(
-        csr_bytes(layer.out_features, nnz) + 4 * xt.numel()
-        + 4 * layer.out_features * tokens, true_flops)
+        csr_bytes(layer.out_features, nnz) + esize * xt.numel()
+        + esize * layer.out_features * tokens, true_flops)
     slabs = bcc.values.shape[0]
     tile_flops = 2 * slabs * bcc.block_r * bcc.block_k * tokens
     tile_bound_ms, tile_bound_by = bound(
-        4 * bcc.values.numel() + 4 * xt.numel() + 4 * got.numel()
+        4 * bcc.values.numel() + esize * xt.numel() + esize * got.numel()
         + 4 * slabs, tile_flops)
-    case = {"case": name, "weight": [layer.out_features, layer.in_features],
+    case = {"case": name, "dtype": str(xt.dtype),
+            "weight": [layer.out_features, layer.in_features],
             "weight_nnz": nnz, "tokens": tokens, "block_k": bcc.block_k,
             "nblocks": bcc.nblocks, "tiles_per_block": bcc.tiles_per_block,
             "live_tiles": layer.stats["live_tiles"], "slabs": slabs,
             "true_flops": true_flops, "tile_flops": tile_flops,
             "max_abs_err": err, "tolerance": "exact (torch.equal)",
-            "matched": ok, "ms": ms, "plain_ms": plain_ms,
+            "matched": ok, "ms": ms, "kernel_device_ms": device_ms,
+            "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by,
             "bound_rule": ("max(bytes: CSR weight + activations + result "
                            "once / 3.35 TB/s, 2*nnz*tokens flops / "
@@ -757,12 +791,15 @@ def padded_spmm_case(name, layer, x, device, *, timing=True):
     return case
 
 
-def linear_compact_case(name, layer, x, device, *, timing=True):
+def linear_compact_case(name, layer, x, device, *, dtype=None,
+                        timing=True):
     """The compact SpMM kernel (K4) at SparseLinear's default path: the
     layer's kept compact stream and live columns (built once with the
     layer) against the activations' transpose. Its slabs are dense — every
     column live — the live-column form's worst case; K9's padded-lattice
-    kernel on the same slabs is timed beside it."""
+    kernel on the same slabs is timed beside it. ``dtype``: the
+    activations cast to bf16 or fp16 (exact on these integers; the output
+    rounded after every step in both versions)."""
     import torch
     from repro_torch.kernels.cluster_spmm import (
         KERNEL_MAX_BN, cluster_spmm, cluster_spmm_compact,
@@ -772,7 +809,8 @@ def linear_compact_case(name, layer, x, device, *, timing=True):
     (block_ids, tile_ids, a_vals), cols = layer.stream, layer.cols
     bids = torch.from_numpy(block_ids).to(device)
     tids = torch.from_numpy(tile_ids).to(device)
-    xt = x.T.contiguous()                       # (in, tokens)
+    xt = x.T.contiguous().to(dtype or torch.float32)   # (in, tokens)
+    esize = xt.element_size()
     tokens = xt.shape[1]
     kw = dict(block_r=bcc.block_r, block_k=bcc.block_k, nblocks=bcc.nblocks)
     bn = min(KERNEL_MAX_BN, tokens)
@@ -781,8 +819,8 @@ def linear_compact_case(name, layer, x, device, *, timing=True):
     plain = lambda: cluster_spmm_compact_plain(  # noqa: E731
         bids, tids, a_vals, xt, cols=cols, **kw)
     got, want = run(), plain()
-    ok = bool(torch.equal(got, want))
-    err = float((got - want).abs().max())
+    ok = bool(torch.equal(got, want)) and got.dtype == xt.dtype
+    err = float((got.float() - want.float()).abs().max())
     ms = timed_ms(run, device) if timing else None
     device_ms = (kernel_device_ms(run, device, "spmm_columns_kernel")
                  if timing else None)
@@ -799,17 +837,20 @@ def linear_compact_case(name, layer, x, device, *, timing=True):
         block_k=bcc.block_k, tiles_per_block=bcc.tiles_per_block,
         bn=min(KERNEL_MAX_BN, max(8, tokens))), device)
         if timing else None)
-    dense_w = bcc.to_dense()
+    dense_w = bcc.to_dense().to(xt.dtype)
     wc = dense_w.to_sparse_csr()
     del dense_w
     nnz = int(wc.values().numel())
     lib_ms = (library_ms(lambda: torch.sparse.mm(wc, xt), device)
               if timing else None)
+    # fp32 products whatever B's dtype (the weight is fp32), as in K9's
     bound_ms, bound_by = bound(
-        csr_bytes(layer.out_features, nnz) + 4 * xt.numel()
-        + 4 * layer.out_features * tokens, 2 * nnz * tokens)
-    work = spmm_work(cols, tids, bcc.block_k, tokens, got.numel() * 4)
-    case = {"case": name, "weight": [layer.out_features, layer.in_features],
+        csr_bytes(layer.out_features, nnz) + esize * xt.numel()
+        + esize * layer.out_features * tokens, 2 * nnz * tokens)
+    work = spmm_work(cols, tids, bcc.block_k, tokens, got.numel() * esize,
+                     row_bytes=esize * tokens)
+    case = {"case": name, "dtype": str(xt.dtype),
+            "weight": [layer.out_features, layer.in_features],
             "weight_nnz": nnz, "tokens": tokens, "block_k": bcc.block_k,
             "steps": int(a_vals.shape[0]),
             "dense_slab_columns": int(a_vals.shape[0]) * bcc.block_k,
@@ -835,22 +876,36 @@ def linear_compact_case(name, layer, x, device, *, timing=True):
 FLASH_RTOL, FLASH_ATOL = 1e-4, 1e-5
 
 
-def flash_case(name, bh, s, d, device, *, timing=True):
-    """The flash-attention kernel (K10) on (bh, s, d) fp32 causal inputs
-    from a seeded generator, against its plain version."""
+def flash_case(name, bh, s, d, device, *, dtype=None, timing=True):
+    """The flash-attention kernel (K10) on (bh, s, d) causal inputs from a
+    seeded generator (fp32, or cast to ``dtype``), against its plain
+    version."""
     import torch
     import torch.nn.functional as F
-    from repro_torch.kernels.flash_attention import (flash_attention,
-                                                     flash_attention_plain)
+    from repro_torch.kernels.flash_attention import (
+        flash_attention, flash_attention_plain, flash_attention_tolerance)
+    dtype = dtype or torch.float32
     launches0 = flash_attention.launches
     g = torch.Generator(device=device).manual_seed(bh * s + d)
-    q, k, v = (torch.randn((bh, s, d), generator=g, device=device)
+    q, k, v = (torch.randn((bh, s, d), generator=g, device=device).to(dtype)
                for _ in range(3))
     run = lambda: flash_attention(q, k, v, causal=True)  # noqa: E731
     plain = lambda: flash_attention_plain(q, k, v, causal=True)  # noqa
     got, want = run(), plain()
-    err = float((got - want).abs().max())
-    ok = bool(torch.allclose(got, want, rtol=FLASH_RTOL, atol=FLASH_ATOL))
+    err = float((got.float() - want.float()).abs().max())
+    if dtype == torch.float32:
+        ok = bool(torch.allclose(got, want, rtol=FLASH_RTOL,
+                                 atol=FLASH_ATOL))
+        tolerance = (f"|kernel-plain| <= {FLASH_ATOL:g} + {FLASH_RTOL:g} "
+                     "|plain| (fp32 summation order)")
+    else:
+        tol = flash_attention_tolerance(q, k, v, want, causal=True)
+        excess = float(((got.float() - want.float()).abs() / tol).max())
+        ok = got.dtype == dtype and excess <= 1.0
+        tolerance = (f"per element |kernel-plain| <= 3u((P|V|)/l + |plain|),"
+                     f" u the unit roundoff of {dtype}, P and l in fp32 "
+                     f"(largest share of it used: {excess:.3f})")
+        del tol
     ms = timed_ms(run, device) if timing else None
     device_ms = (kernel_device_ms(run, device, "flash_kernel")
                  if timing else None)
@@ -859,20 +914,24 @@ def flash_case(name, bh, s, d, device, *, timing=True):
     # head, 2 flops per multiply-add; Q, K, V read and O written once
     pairs = s * (s + 1) // 2
     flops = 4 * bh * pairs * d
-    bound_ms, bound_by = bound(4 * 4 * bh * s * d, flops)
+    # the rate of q, k, v's type: 16-bit operands could run on the tensor
+    # cores (the kernel keeps to the fp32 CUDA cores)
+    peak, rate = ((PEAK_FP32_FLOPS, "fp32") if dtype == torch.float32
+                  else (PEAK_16_FLOPS, "16-bit tensor cores"))
+    bound_ms, bound_by = bound(4 * q.element_size() * bh * s * d, flops,
+                               peak)
     lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
         q[None], k[None], v[None], is_causal=True)
     lib_ms = library_ms(lib, device) if timing else None
-    case = {"case": name, "shape": [bh, s, d], "causal": True,
-            "causal_pairs_per_head": pairs, "flops": flops,
-            "max_abs_err": err,
-            "tolerance": (f"|kernel-plain| <= {FLASH_ATOL:g} + "
-                          f"{FLASH_RTOL:g} |plain| (fp32 summation order)"),
+    case = {"case": name, "shape": [bh, s, d], "dtype": str(dtype),
+            "causal": True, "causal_pairs_per_head": pairs, "flops": flops,
+            "max_abs_err": err, "tolerance": tolerance,
             "matched": ok, "ms": ms, "kernel_device_ms": device_ms,
             "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by,
             "bound_rule": ("max(bytes: Q, K, V, O once / 3.35 TB/s, "
-                           "4*D per causal pair / 67 TFLOP/s fp32)"),
+                           f"4*D per causal pair / {peak / 1e12:g} TFLOP/s "
+                           f"{rate})"),
             "library": ("torch.nn.functional.scaled_dot_product_attention("
                         "is_causal=True)"),
             "library_ms": lib_ms,
@@ -885,12 +944,18 @@ def flash_case(name, bh, s, d, device, *, timing=True):
 
 
 SSD_TOL = 1e-4
+# the SSD kernel's launches, one name per pass (the scores pass only when
+# heads share a group)
+SSD_PASSES = ("ssd_chunk_scores_kernel", "ssd_chunk_states_kernel",
+              "ssd_chunk_recur_kernel", "ssd_chunk_out_kernel")
 
 
-def ssd_case(name, bh, nc, q, p, n, device, *, timing=True):
+def ssd_case(name, bh, nc, q, p, n, device, *, rep=1, timing=True):
     """The SSD chunk-scan kernel (K11) on (bh, nc, q, p/n) fp32 inputs
     from a seeded generator (log-decays in (-0.3, 0], as dt-scaled
-    -exp(A_log) gives them), against its plain version."""
+    -exp(A_log) gives them), B and C per head (``rep`` = 1, the JAX
+    kernel's interface) or per group of ``rep`` heads (as ``fused_ssd``
+    passes them), against its plain version."""
     import torch
     from repro_torch.kernels.ssd_chunk import (ssd_chunk_scan,
                                                ssd_chunk_scan_plain)
@@ -898,33 +963,52 @@ def ssd_case(name, bh, nc, q, p, n, device, *, timing=True):
     g = torch.Generator(device=device).manual_seed(bh * q + n)
     x = torch.randn((bh, nc, q, p), generator=g, device=device) * 0.3
     a = -torch.rand((bh, nc, q), generator=g, device=device) * 0.3
-    b, c = (torch.randn((bh, nc, q, n), generator=g, device=device)
+    b, c = (torch.randn((bh // rep, nc, q, n), generator=g, device=device)
             for _ in range(2))
-    run = lambda: ssd_chunk_scan(x, a, b, c)  # noqa: E731
-    plain = lambda: ssd_chunk_scan_plain(x, a, b, c)  # noqa: E731
+    run = lambda: ssd_chunk_scan(x, a, b, c,  # noqa: E731
+                                 heads_per_group=rep)
+    plain = lambda: ssd_chunk_scan_plain(x, a, b, c,  # noqa: E731
+                                         heads_per_group=rep)
     (y, h), (y0, h0) = run(), plain()
     err = max(float((y - y0).abs().max()), float((h - h0).abs().max()))
     scale = max(1.0, float(y0.abs().max()), float(h0.abs().max()))
     ok = err <= SSD_TOL * scale
+    passes = SSD_PASSES if rep > 1 else SSD_PASSES[1:]
     ms = timed_ms(run, device) if timing else None
+    split = (kernel_device_ms(run, device, passes, split=True)
+             if timing else None)
+    device_ms = split.pop("total") if split else None
     plain_ms = timed_ms(plain, device) if timing else None
     # the bound: per (bh, chunk) C·Bᵀ and the decayed product with X on
     # the lower triangle, the readout C·h and the state update, 2 flops
-    # per multiply-add; x, a, b, c read and y, h written once
+    # per multiply-add; x, a, b, c read and y, h written once. Heads that
+    # share a group share its C·Bᵀ: computed once per (group, chunk)
     pairs = q * (q + 1) // 2
     flops = 2 * bh * nc * (pairs * (n + p) + 2 * q * n * p)
+    shared_flops = (2 * (bh // rep) * nc * pairs * n
+                    + 2 * bh * nc * (pairs * p + 2 * q * n * p))
     nbytes = 4 * (2 * x.numel() + a.numel() + 2 * b.numel() + h.numel())
     bound_ms, bound_by = bound(nbytes, flops)
+    shared_ms, shared_by = bound(nbytes, shared_flops)
     case = {"case": name, "shape": {"bh": bh, "nc": nc, "q": q, "p": p,
-                                    "n": n},
+                                    "n": n, "heads_per_group": rep},
             "flops": flops, "bytes": nbytes, "max_abs_err": err,
             "tolerance": (f"max|kernel-plain| <= {SSD_TOL:g} x max(1, "
                           "max|plain|) (fp32 summation order)"),
-            "matched": ok, "ms": ms, "plain_ms": plain_ms,
+            "matched": ok, "ms": ms, "kernel_device_ms": device_ms,
+            "pass_device_ms": split,
+            "pass_share": ({k: v / device_ms for k, v in split.items()}
+                           if split else None),
+            "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by,
             "bound_rule": ("max(bytes: x, a, b, c, y, h once / 3.35 TB/s, "
                            "2*(pairs*(N+P) + 2*Q*N*P) per (bh, chunk) / "
                            "67 TFLOP/s fp32)"),
+            "shared_scores_flops": shared_flops,
+            "shared_scores_bound_ms": shared_ms,
+            "shared_scores_bound_by": shared_by,
+            "shared_scores_bound_rule": ("the same with C·Bᵀ (2*pairs*N) "
+                                         "once per (group, chunk)"),
             "library": None, "library_ms": None,
             "compare_launches": ssd_chunk_scan.launches - launches0}
     log("  case", json.dumps(case))
@@ -1431,7 +1515,7 @@ def lm_phase(device, *, rehearse):
         for ev in prof.events():
             if ev.device_type == torch.autograd.DeviceType.CUDA:
                 for key, tag in (("flash_attention", "flash_kernel"),
-                                 ("ssd_chunk_scan", "ssd_chunk_kernel")):
+                                 ("ssd_chunk_scan", "ssd_chunk_")):
                     if tag in ev.name:
                         ms, cnt = per_kernel.get(key, (0.0, 0))
                         per_kernel[key] = (
@@ -1487,16 +1571,14 @@ def main(argv=None) -> int:
 
     import torch
     if not args.rehearse and not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device available", file=sys.stderr)
-        return 1
+        raise SystemExit("no CUDA device available")
     try:
         from repro_torch.core import suite
         from repro_torch.core.formats import HostCSR
         from repro_torch.kernels import _build
     except ImportError as e:
-        print(f"chip_smoke: the port is not importable ({e}); run from "
-              "the repository root", file=sys.stderr)
-        return 1
+        raise SystemExit(f"the port is not importable ({e}); run from the "
+                         "repository root") from e
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
@@ -1509,11 +1591,11 @@ def main(argv=None) -> int:
     if args.rehearse:
         device = torch.device("cpu")
         smi = "rehearsal on the CPU"
-        log("phase 1: rehearsal on the CPU (no card, no kernel build)")
+        phase("phase 1: rehearsal on the CPU (no card, no kernel build)")
     else:
         device = torch.device("cuda")
         smi = nvidia_smi_line()
-        log("phase 1: environment")
+        phase("phase 1: environment")
         log(f"  gpu: {smi}")
         log(f"  torch {torch.__version__}, cuda {torch.version.cuda}, "
             f"python {sys.version.split()[0]}")
@@ -1542,8 +1624,11 @@ def main(argv=None) -> int:
         # SparseLinear weight (rows, cols), tokens; attention (BH, S, D);
         # SSD (BH, nc, Q, P, N)
         linear = (96, 1280, 64)
-        flash_shapes = [(4, 128, 80), (2, 100, 80), (2, 64, 128)]
-        ssd_shapes = [(8, 4, 64, 16, 16), (8, 1, 75, 16, 16)]
+        flash_shapes = [(4, 128, 80, "float32"), (2, 100, 80, "float32"),
+                        (2, 64, 128, "float32"), (2, 64, 160, "float32"),
+                        (4, 128, 80, "bfloat16"), (4, 128, 80, "float16")]
+        ssd_shapes = [(8, 4, 64, 16, 16, 1), (8, 4, 64, 16, 16, 4),
+                      (8, 1, 75, 16, 16, 1)]
     else:
         kron = suite.gen_kron(14, 16, seed=0)
         cave = suite.gen_caveman(16384, 24, seed=0)
@@ -1555,8 +1640,18 @@ def main(argv=None) -> int:
         # B·Hq = 4 × 32 heads of 80 at S = 1024; B·H = 4 × 80 SSM heads,
         # 4 chunks of 256, P = N = 64
         linear = (2560, 10240, 4096)
-        flash_shapes = [(128, 1024, 80), (128, 1000, 80), (64, 1024, 128)]
-        ssd_shapes = [(320, 4, 256, 64, 64), (320, 1, 300, 64, 64)]
+        # (BH, S, D, dtype): the prefill's shape, a ragged S, D = 128 and
+        # D = 160 (the 32-key-block instantiation), and the prefill's shape
+        # in bf16 and fp16
+        flash_shapes = [(128, 1024, 80, "float32"), (128, 1000, 80, "float32"),
+                        (64, 1024, 128, "float32"), (32, 1024, 160, "float32"),
+                        (128, 1024, 80, "bfloat16"),
+                        (128, 1024, 80, "float16")]
+        # (…, heads per group): per head as the JAX kernel takes B and C,
+        # then zamba2-2.7b's one group for its 80 heads, as fused_ssd
+        # passes them
+        ssd_shapes = [(320, 4, 256, 64, 64, 1), (320, 4, 256, 64, 64, 80),
+                      (320, 1, 300, 64, 64, 1)]
     # the wide A·B: a 2-hop frontier expansion of a batch of source
     # vertices (A = the first rows of the mesh, all its columns)
     wide_b = integer_valued(mesh, rng)
@@ -1572,7 +1667,7 @@ def main(argv=None) -> int:
         f"({time.perf_counter() - t0:.1f} s)")
 
     # -- phase 2: kernels vs plain versions ------------------------------------
-    log("phase 2: kernels against their plain versions")
+    phase("phase 2: kernels against their plain versions")
     kron_i = integer_valued(kron, rng)
     cave_i = integer_valued(cave, rng)
     timing = not args.rehearse          # CPU times say nothing of a card
@@ -1636,20 +1731,31 @@ def main(argv=None) -> int:
     linear_compact = linear_compact_case(
         "compact SpMM, SparseLinear d_model x d_ff weight (dense slabs)",
         lin_layer, lin_x, device, timing=timing)
+    # the 16-bit variants: bf16 and fp16 activations, rounded per step
+    linear_16 = []
+    for dt in (torch.bfloat16, torch.float16):
+        linear_16.append(padded_spmm_case(
+            f"padded-lattice SpMM, SparseLinear weight, {dt} activations",
+            lin_layer, lin_x, device, dtype=dt, timing=timing))
+        linear_16.append(linear_compact_case(
+            f"compact SpMM, SparseLinear weight, {dt} activations",
+            lin_layer, lin_x, device, dtype=dt, timing=timing))
     flash_cases = [flash_case(
-        f"flash attention causal (BH={bh}, S={sq}, D={d})", bh, sq, d,
-        device, timing=timing) for bh, sq, d in flash_shapes]
+        f"flash attention causal (BH={bh}, S={sq}, D={d}, {dt})", bh, sq, d,
+        device, dtype=getattr(torch, dt), timing=timing)
+        for bh, sq, d, dt in flash_shapes]
     ssd_cases = [ssd_case(
-        f"SSD chunk scan (BH={bh}, nc={nc}, Q={q}, P={p}, N={n})",
-        bh, nc, q, p, n, device, timing=timing)
-        for bh, nc, q, p, n in ssd_shapes]
+        f"SSD chunk scan (BH={bh}, nc={nc}, Q={q}, P={p}, N={n}, "
+        f"{rep} heads per group)", bh, nc, q, p, n, device, rep=rep,
+        timing=timing)
+        for bh, nc, q, p, n, rep in ssd_shapes]
 
     # -- phase 3: the serving path ---------------------------------------------
-    log("phase 3: SpGEMMServer.submit with seeded pallas plans")
+    phase("phase 3: SpGEMMServer.submit with seeded pallas plans")
     launches, _ = serve_phase(mats, device, rng, spmm_cols)
-    log("phase 3b: bcc_spgemm_tiled(shards=..., revisit=...) on kron")
+    phase("phase 3b: bcc_spgemm_tiled(shards=..., revisit=...) on kron")
     launches.update(sharded_phase(kron_i, device, sm_count))
-    log("phase 3c: SparseLinear.apply(compact=False), apply(x), and apply "
+    phase("phase 3c: SparseLinear.apply(compact=False), apply(x), and apply "
         "on non-finite activations")
     launches.update(sparse_linear_phase(lin_layer, lin_x, device))
     del lin_layer, lin_x
@@ -1659,13 +1765,14 @@ def main(argv=None) -> int:
         torch.cuda.empty_cache()
         log(f"  device memory held before the LM phase: "
             f"{torch.cuda.memory_allocated(device) / 1e9:.3f} GB")
-    log("phase 3d: LM serving, run_serving('zamba2-2.7b')")
+    phase("phase 3d: LM serving, run_serving('zamba2-2.7b')")
     lm_launches, _, _ = lm_phase(device, rehearse=args.rehearse)
     launches.update(lm_launches)
 
     # -- phase 4: summary ------------------------------------------------------
     win_cases = [dense, slab, tall, bf16]
-    spmm_cases = [spmm, ragged, spmm_cave, spmm_plaw, linear_compact]
+    spmm_cases = [spmm, ragged, spmm_cave, spmm_plaw, linear_compact,
+                  linear_16[1], linear_16[3]]
     revisit_cases = [c for c in stream_all
                      if c["kernel"] == "cluster_spgemm_revisit"]
     sharded_cases = [c for c in stream_all
@@ -1719,9 +1826,10 @@ def main(argv=None) -> int:
         entry("cluster_spmm",
               "src/repro_torch/kernels/csrc/cluster_spmm.cu",
               "src/repro/kernels/cluster_spmm.py:103 (K9 cluster_spmm, "
-              "the padded grid)", [padded_spmm], padded_spmm),
+              "the padded grid)", [padded_spmm, linear_16[0], linear_16[2]],
+              padded_spmm),
         entry("flash_attention",
-              "src/repro_torch/kernels/csrc/flash_attention.cu",
+              "src/repro_torch/kernels/csrc/flash_attention.cuh",
               "src/repro/kernels/flash_attention.py:87 (K10 "
               "flash_attention)", flash_cases, flash_cases[0]),
         entry("ssd_chunk_scan",
@@ -1741,5 +1849,26 @@ def main(argv=None) -> int:
     return 0
 
 
+def run(argv=None) -> int:
+    """:func:`main`, with every failure before the last line reported on
+    stdout as one line naming the phase and the error (a traceback goes
+    to stderr), and a non-zero exit code."""
+    try:
+        return main(argv)
+    except SystemExit as e:
+        if e.code in (None, 0):
+            return 0
+        if isinstance(e.code, int):     # argparse's usage errors
+            log(f"chip_smoke: failed in {PHASE}: exit code {e.code}")
+            return e.code
+        log(f"chip_smoke: failed in {PHASE}: {e.code}")
+        return 1
+    except Exception as e:  # noqa: BLE001 - reported, then exit 1
+        import traceback
+        traceback.print_exc()
+        log(f"chip_smoke: failed in {PHASE}: {type(e).__name__}: {e}")
+        return 1
+
+
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(run())

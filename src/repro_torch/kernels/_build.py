@@ -33,6 +33,10 @@ SOURCES = {
                                            "cluster_spgemm_revisit.cu"),
     "cluster_spmm": os.path.join(_HERE, "csrc", "cluster_spmm.cu"),
     "flash_attention": os.path.join(_HERE, "csrc", "flash_attention.cu"),
+    "flash_attention_bf16": os.path.join(_HERE, "csrc",
+                                         "flash_attention_bf16.cu"),
+    "flash_attention_fp16": os.path.join(_HERE, "csrc",
+                                         "flash_attention_fp16.cu"),
     "ssd_chunk": os.path.join(_HERE, "csrc", "ssd_chunk.cu"),
 }
 

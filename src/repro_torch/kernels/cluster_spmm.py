@@ -18,6 +18,11 @@ Two forms of A, two kernels in ``csrc/cluster_spmm.cu``, each giving a
   padded lattice as it is: ``tiles_per_block`` slabs per block, the pad
   slabs zero and pointing at tile 0, all of them summed as dense slabs.
 
+A's values are fp32; B is fp32, bf16 or fp16, and C comes back in B's
+dtype. With a 16-bit B each stream or lattice step's product is formed in
+fp32, rounded to B's dtype and added to the running C in B's dtype, in step
+order, as the JAX kernels' ``o += dot(...).astype(o.dtype)`` does.
+
 Each wrapper, on a CUDA tensor, launches the kernel (counting the launch in
 its ``launches`` attribute) or raises; on a CPU tensor it runs its plain
 version (:func:`cluster_spmm_compact_plain`, over the same live columns;
@@ -38,6 +43,14 @@ __all__ = ["cluster_spmm", "cluster_spmm_plain", "cluster_spmm_compact",
 
 KERNEL_BLOCK_R = 8
 KERNEL_MAX_BN = 128
+# B's dtypes and their codes at the kernels' C interface
+B_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+
+
+def _check_dtypes(a_values, b):
+    if a_values.dtype != torch.float32 or b.dtype not in B_DTYPES:
+        raise ValueError(f"a_values must be float32 and b float32, bfloat16 "
+                         f"or float16, got {a_values.dtype} and {b.dtype}")
 
 
 def _operands(block_ids, tile_ids, a_values, b, *, block_r, block_k):
@@ -52,8 +65,7 @@ def _operands(block_ids, tile_ids, a_values, b, *, block_r, block_k):
         raise ValueError("block_ids/tile_ids/a_values disagree on S")
     if b.dim() != 2 or b.device != dev:
         raise ValueError(f"b must be a 2-D tensor on {dev}")
-    if a_values.dtype != torch.float32 or b.dtype != torch.float32:
-        raise ValueError("a_values and b must be float32")
+    _check_dtypes(a_values, b)
     return block_ids, tile_ids
 
 
@@ -61,13 +73,14 @@ def cluster_spmm_compact(block_ids, tile_ids, a_values: torch.Tensor,
                          b: torch.Tensor, *, block_r: int, block_k: int,
                          nblocks: int, bn: int = 128,
                          cols: SlabColumns | None = None) -> torch.Tensor:
-    """C = A_bcc @ B over the compact stream. ``b`` is ``(K, N)`` fp32
-    (rows past K and the ragged last column strip are masked, no padding
-    needed); ``bn`` is the kernel's column-strip width (≤ 128); ``cols``
-    is the slabs' live-column form (:func:`slab_columns`, built here when
-    absent — callers that launch again keep it). Returns
-    ``(nblocks * block_r, N)`` fp32; blocks with no step in the stream
-    are zero.
+    """C = A_bcc @ B over the compact stream. ``b`` is ``(K, N)`` fp32,
+    bf16 or fp16 (rows past K and the ragged last column strip are
+    masked, no padding needed); ``bn`` is the kernel's column-strip width
+    (≤ 128); ``cols`` is the slabs' live-column form
+    (:func:`slab_columns`, built here when absent — callers that launch
+    again keep it). Returns ``(nblocks * block_r, N)`` in B's dtype,
+    16-bit sums rounded after every step; blocks with no step in the
+    stream are zero.
 
     CUDA tensors launch the hand-written kernel (and add one to
     ``cluster_spmm_compact.launches``); CPU tensors run the plain version;
@@ -93,47 +106,99 @@ def cluster_spmm_compact_plain(block_ids, tile_ids, a_values: torch.Tensor,
     """The plain PyTorch version of :func:`cluster_spmm_compact`, on any
     device, over the same live columns: each live column's ``block_r``
     values times the B row it selects (rows past K read as zero), in
-    chunks, ``index_add_``ed into the owning block in fp32. Where B is not
-    finite, a slab whose dead columns meet a non-finite value (its tile
-    holds more of them than its live columns meet) makes its block's
-    output NaN in that column, as the whole-slab product does."""
+    chunks, ``index_add_``ed in fp32 into the owning block (fp32 B) or
+    into the step's own part, whose parts are then rounded to B's dtype
+    and added to the block's running output in step order (16-bit B).
+    Where B is not finite, a slab whose dead columns meet a non-finite
+    value (its tile holds more of them than its live columns meet) makes
+    its block's output NaN in that column, as the whole-slab product
+    does."""
     block_ids, tile_ids = _operands(block_ids, tile_ids, a_values, b,
                                     block_r=block_r, block_k=block_k)
     cols = columns_for(a_values, cols)
     k, n = b.shape
     dev = b.device
-    c = torch.zeros((nblocks, block_r, n), dtype=torch.float32, device=dev)
+    rounded = b.dtype != torch.float32
     step = torch.repeat_interleave(
         torch.arange(cols.nslabs, device=dev),
         (cols.col_ptr[1:] - cols.col_ptr[:-1]).long())
     rows = tile_ids[step].long() * block_k + cols.col_k.long()
     blocks = block_ids[step].long()
     # a zero row stands in for B's rows past K
-    bz = torch.cat([b, b.new_zeros((1, n))])
+    bz = torch.cat([b, b.new_zeros((1, n))]).float()
     rows = torch.where(rows < k, rows, k)
     bad = ~torch.isfinite(bz)
     check = bool(bad.any())
     met = torch.zeros((cols.nslabs, n), dtype=torch.int32, device=dev)
-    chunk = max(1, (1 << 26) // (block_r * max(n, 1)))
-    for lo in range(0, cols.ncols, chunk):
-        hi = min(lo + chunk, cols.ncols)
-        prod = cols.col_vals[lo:hi, :, None] * bz[rows[lo:hi]][:, None, :]
-        c.index_add_(0, blocks[lo:hi], prod)
-        if check:
-            met.index_add_(0, step[lo:hi], bad[rows[lo:hi]].int())
+    dead_hit = None
     if check:
+        for lo, hi in _column_chunks(cols, block_r, n):
+            met.index_add_(0, step[lo:hi], bad[rows[lo:hi]].int())
         ntiles = -(-k // block_k)
         per_tile = F.pad(bad[:k], (0, 0, 0, ntiles * block_k - k)).view(
             ntiles, block_k, n).sum(1, dtype=torch.int32)
         per_tile = torch.cat([per_tile, per_tile.new_zeros((1, n))])
         # tiles past K hold no row of B: none of their values is counted
         tiles = torch.clamp(tile_ids.long(), max=ntiles)
-        dead_hit = (per_tile[tiles] > met).int()            # (S, n)
+        dead_hit = per_tile[tiles] > met                    # (S, n)
+    if rounded:
+        c = _rounded_steps(block_ids, cols, step, rows, bz, dead_hit,
+                           nblocks=nblocks, block_r=block_r, dtype=b.dtype)
+        return c.view(nblocks * block_r, n)
+    c = torch.zeros((nblocks, block_r, n), dtype=torch.float32, device=dev)
+    for lo, hi in _column_chunks(cols, block_r, n):
+        prod = cols.col_vals[lo:hi, :, None] * bz[rows[lo:hi]][:, None, :]
+        c.index_add_(0, blocks[lo:hi], prod)
+    if dead_hit is not None:
         hit = torch.zeros((nblocks, n), dtype=torch.int32, device=dev)
-        hit.index_add_(0, block_ids.long(), dead_hit)
+        hit.index_add_(0, block_ids.long(), dead_hit.int())
         c = torch.where(hit[:, None, :] > 0,
                         torch.full_like(c, float("nan")), c)
     return c.view(nblocks * block_r, n)
+
+
+def _column_chunks(cols, block_r, n):
+    """Ranges of live columns whose products fit 2**26 floats."""
+    chunk = max(1, (1 << 26) // (block_r * max(n, 1)))
+    return [(lo, min(lo + chunk, cols.ncols))
+            for lo in range(0, cols.ncols, chunk)]
+
+
+def _rounded_steps(block_ids, cols, step, rows, bz, dead_hit, *, nblocks,
+                   block_r, dtype):
+    """The 16-bit compact product: steps in chunks, each step's fp32
+    part over its live columns (NaN where its dead columns meet a
+    non-finite value), rounded to ``dtype`` and added to its block's
+    running output in ``dtype``, in step order."""
+    n = bz.shape[1]
+    dev = bz.device
+    c = torch.zeros((nblocks, block_r, n), dtype=dtype, device=dev)
+    bids = block_ids.long()
+    # a step's rank among its block's steps (the stream is block-sorted)
+    rank = (torch.arange(bids.numel(), device=dev)
+            - torch.searchsorted(bids, bids))
+    nsteps = cols.nslabs
+    per = max(1, (1 << 26) // (block_r * max(n, 1)))
+    ptr = cols.col_ptr.long()
+    for s0 in range(0, nsteps, per):
+        s1 = min(s0 + per, nsteps)
+        c0, c1 = int(ptr[s0]), int(ptr[s1])
+        part = torch.zeros((s1 - s0, block_r, n), dtype=torch.float32,
+                           device=dev)
+        for lo in range(c0, c1, per):
+            hi = min(lo + per, c1)
+            prod = cols.col_vals[lo:hi, :, None] * bz[rows[lo:hi]][:, None, :]
+            part.index_add_(0, step[lo:hi] - s0, prod)
+        if dead_hit is not None:
+            part = torch.where(dead_hit[s0:s1, None, :],
+                               torch.full_like(part, float("nan")), part)
+        part = part.to(dtype)
+        r = rank[s0:s1]
+        for k in torch.unique(r).tolist():
+            sel = (r == k).nonzero().flatten()
+            blk = bids[s0:s1][sel]
+            c[blk] = c[blk] + part[sel]
+    return c
 
 
 def _launch(block_ids, tile_ids, a_values, b, *, block_r, block_k, nblocks,
@@ -149,8 +214,7 @@ def _launch(block_ids, tile_ids, a_values, b, *, block_r, block_k, nblocks,
     cols = columns_for(a_values, cols)
     k, n = b.shape
     # zero-filled: a block the stream does not visit reads back zero
-    out = torch.zeros((nblocks * block_r, n), dtype=torch.float32,
-                      device=dev)
+    out = torch.zeros((nblocks * block_r, n), dtype=b.dtype, device=dev)
     if nblocks == 0 or n == 0:
         return out
     # each block's segment of the (block-sorted) stream
@@ -165,15 +229,15 @@ def _launch(block_ids, tile_ids, a_values, b, *, block_r, block_k, nblocks,
                           device=dev)
     counts = scratch[1 + ntiles:]
     lib = _build.load("cluster_spmm")
-    fn = lib.cluster_spmm_columns_f32
-    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + [
+    fn = lib.cluster_spmm_columns
+    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7 + [
         ctypes.c_void_p]
     fn.restype = ctypes.c_int
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = fn(blk_ptr.data_ptr(), tile_ids.data_ptr(), cols.col_ptr.data_ptr(),
             cols.col_k.data_ptr(), cols.col_vals.data_ptr(), b.data_ptr(),
             out.data_ptr(), counts.data_ptr(), scratch.data_ptr(), nblocks,
-            a_values.shape[0], block_k, k, n, bn, stream)
+            a_values.shape[0], block_k, k, n, bn, B_DTYPES[b.dtype], stream)
     if rc != 0:
         lib.cluster_spmm_error_string.restype = ctypes.c_char_p
         lib.cluster_spmm_error_string.argtypes = [ctypes.c_int]
@@ -197,8 +261,7 @@ def _padded_operands(tile_ids, a_values, b, *, block_r, block_k,
                          f"tiles_per_block={tiles_per_block}")
     if b.dim() != 2 or b.device != dev:
         raise ValueError(f"b must be a 2-D tensor on {dev}")
-    if a_values.dtype != torch.float32 or b.dtype != torch.float32:
-        raise ValueError("a_values and b must be float32")
+    _check_dtypes(a_values, b)
     return tile_ids
 
 
@@ -207,10 +270,11 @@ def cluster_spmm(tile_ids, a_values: torch.Tensor, b: torch.Tensor, *,
                  bn: int = 128) -> torch.Tensor:
     """C = A_bcc @ B over BCC's padded lattice: ``tile_ids``
     ``(nblocks * tiles_per_block,)`` and the matching value slabs, pad
-    slabs zero. ``b`` is ``(K, N)`` fp32 (rows past K and the ragged last
+    slabs zero. ``b`` is ``(K, N)`` (rows past K and the ragged last
     column strip are masked, no padding needed); ``bn`` is the kernel's
     column-strip width (≤ 128). Returns ``(nblocks * block_r, N)`` in
-    B's dtype (fp32).
+    B's dtype (fp32, bf16 or fp16; 16-bit sums rounded after every
+    slot).
 
     CUDA tensors launch the hand-written kernel (and add one to
     ``cluster_spmm.launches``); CPU tensors run the plain version; any
@@ -239,14 +303,14 @@ def cluster_spmm(tile_ids, a_values: torch.Tensor, b: torch.Tensor, *,
     a_values = a_values.contiguous()
     b = b.contiguous()
     lib = _build.load("cluster_spmm")
-    fn = lib.cluster_spmm_padded_f32
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [
+    fn = lib.cluster_spmm_padded
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [
         ctypes.c_void_p]
     fn.restype = ctypes.c_int
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = fn(tile_ids.data_ptr(), a_values.data_ptr(), b.data_ptr(),
             out.data_ptr(), nblocks, tiles_per_block, block_k, k, n, bn,
-            stream)
+            B_DTYPES[b.dtype], stream)
     if rc != 0:
         lib.cluster_spmm_error_string.restype = ctypes.c_char_p
         lib.cluster_spmm_error_string.argtypes = [ctypes.c_int]
@@ -265,17 +329,18 @@ def cluster_spmm_plain(tile_ids, a_values: torch.Tensor, b: torch.Tensor, *,
     """The plain PyTorch version of :func:`cluster_spmm`, on any device:
     slot by slot over the padded lattice, every block's slab at that slot
     against the B row band it names (``torch.bmm`` in fp32), summed in
-    slot order — pad slots included."""
+    slot order — pad slots included; with a 16-bit B each slot's product
+    is rounded to B's dtype and added in it."""
     tile_ids = _padded_operands(tile_ids, a_values, b, block_r=block_r,
                                 block_k=block_k,
                                 tiles_per_block=tiles_per_block)
     k, n = b.shape
-    bands = F.pad(b, (0, 0, 0, (-k) % block_k)).view(-1, block_k, n)
+    bands = F.pad(b.float(), (0, 0, 0, (-k) % block_k)).view(-1, block_k, n)
     nblocks = a_values.shape[0] // tiles_per_block
     slabs = a_values.view(nblocks, tiles_per_block, block_r, block_k)
     ids = tile_ids.long().view(nblocks, tiles_per_block)
-    c = torch.zeros((nblocks, block_r, n), dtype=torch.float32,
-                    device=b.device)
+    c = torch.zeros((nblocks, block_r, n), dtype=b.dtype, device=b.device)
     for t in range(tiles_per_block):
-        c += torch.bmm(slabs[:, t], bands[ids[:, t]])
-    return c.view(nblocks * block_r, n).to(b.dtype)
+        prod = torch.bmm(slabs[:, t], bands[ids[:, t]])
+        c = c + (prod if b.dtype == torch.float32 else prod.to(b.dtype))
+    return c.view(nblocks * block_r, n)

@@ -1,13 +1,13 @@
 // Cluster-wise SpMM C = A_bcc @ B (B dense, tall-skinny), hand-written for
 // Hopper (sm_90a), IEEE fp32 on the CUDA cores. Two kernels:
 //
-//  * spmm_columns_kernel (entry point cluster_spmm_columns_f32) replaces the
+//  * spmm_columns_kernel (entry point cluster_spmm_columns) replaces the
 //    TPU kernel src/repro/kernels/cluster_spmm.py::cluster_spmm_compact,
 //    whose grid (N / bn, S) added A_slab[s] @ B[tile_ids[s] * block_k :
 //    +block_k, j * bn : +bn] into C[blk] over the compact (block, tile)
 //    stream and zeroed the accumulator when the block id changed along the
 //    serial S axis;
-//  * spmm_kernel (entry point cluster_spmm_padded_f32) replaces
+//  * spmm_kernel (entry point cluster_spmm_padded) replaces
 //    src/repro/kernels/cluster_spmm.py::cluster_spmm, the padded grid
 //    (N / bn, nblocks, tiles_per_block): every block visits all of its
 //    tiles_per_block slabs, and the pad slabs (zero, pointing at tile 0) are
@@ -48,7 +48,7 @@
 // so a dead column k of a slab (all 8 values zero) still meets B's row k:
 // 0 * inf and 0 * NaN are NaN, and the slab's part, hence the block's
 // output, is NaN in every column of the strip where B's row k is not
-// finite. The walk skips dead columns, so cluster_spmm_columns_f32 finds
+// finite. The walk skips dead columns, so cluster_spmm_columns finds
 // them by counting, in four launches on the stream:
 //  1. a memset of the flag and of the per-tile marks;
 //  2. mark_tiles_kernel marks every k-tile that some slab covers with
@@ -65,6 +65,17 @@
 //     block's output. Live columns multiply all 8 values, zeros included,
 //     as the TPU kernel does; so the kernel gives the TPU kernel's NaN
 //     positions and inf signs, and its finite values.
+//
+// 16-bit B. With B in bf16 or fp16 the TPU kernels give C in B's dtype and
+// add each step's fp32 product to it rounded, o += dot(...).astype(o.dtype).
+// Both kernels take such a B (entry points' dtype 1 = bf16, 2 = fp16) and
+// do the same: B is loaded in 16 bits (half the bytes) and widened, each
+// step's part is summed in fp32 as before, rounded to B's dtype and added
+// to the running C, which is rounded again after every add, in step order
+// (live_columns.cuh's acc_add); C is stored in B's dtype. Rounding after
+// every step is not associative, so the order is that of the fp32 path:
+// spmm_kernel walks its slabs in order; the live-column walk keeps each
+// step's fp32 part apart and group 0 adds the parts in step order.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -79,12 +90,17 @@ constexpr int kKT = 64;
 constexpr int kThreads = 256;
 
 // The padded lattice: block blk's slabs are blk * tiles_per_block .. +
-// tiles_per_block, dense slabs staged through shared memory.
+// tiles_per_block, dense slabs staged through shared memory. B and C are
+// TB (fp32, bf16 or fp16).
+template <typename TB>
 __global__ void __launch_bounds__(kThreads)
 spmm_kernel(const int32_t* __restrict__ tile_ids,
-            const float* __restrict__ a_values, const float* __restrict__ b,
-            float* __restrict__ out, int tiles_per_block, int block_k, int K,
+            const float* __restrict__ a_values, const TB* __restrict__ b,
+            TB* __restrict__ out, int tiles_per_block, int block_k, int K,
             int N, int bn) {
+  using dtypes::from_float;
+  using dtypes::to_float;
+  using live_columns::acc_add;
   __shared__ __align__(16) float a_s[kKT][kBR];
   __shared__ float b_s[kKT][kBNMax];
   const int t = threadIdx.x;
@@ -112,7 +128,8 @@ spmm_kernel(const int32_t* __restrict__ tile_ids,
         const int k = i >> 7;
         const int c = i & (kBNMax - 1);
         const int64_t row = krow + k0 + k;
-        b_s[k][c] = (c < width && row < K) ? b[row * N + col0 + c] : 0.f;
+        b_s[k][c] =
+            (c < width && row < K) ? to_float(b[row * N + col0 + c]) : 0.f;
       }
       __syncthreads();
 #pragma unroll 8
@@ -126,17 +143,24 @@ spmm_kernel(const int32_t* __restrict__ tile_ids,
       }
     }
 #pragma unroll
-    for (int q = 0; q < 4; ++q) acc[q] += part[q];
+    for (int q = 0; q < 4; ++q) acc[q] = acc_add<TB>(acc[q], part[q]);
   }
   if (col < width) {
-    float* o = out + static_cast<int64_t>(blk) * kBR * N + col0 + col;
+    TB* o = out + static_cast<int64_t>(blk) * kBR * N + col0 + col;
 #pragma unroll
-    for (int q = 0; q < 4; ++q) o[static_cast<int64_t>(row0 + q) * N] = acc[q];
+    for (int q = 0; q < 4; ++q) {
+      o[static_cast<int64_t>(row0 + q) * N] = from_float<TB>(acc[q]);
+    }
   }
 }
 
 __device__ __forceinline__ bool nonfinite(float x) {
   return (__float_as_uint(x) & 0x7f800000u) == 0x7f800000u;
+}
+
+template <typename TB>
+__device__ __forceinline__ bool nonfinite(TB x) {
+  return nonfinite(dtypes::to_float(x));
 }
 
 // Marks every k-tile below ntiles that a slab with a dead column covers.
@@ -158,8 +182,9 @@ constexpr int kCountRows = 8;
 // counts[tile * N + n] = the non-finite values among B's rows of a marked
 // tile in column n; raises *flag where one is not zero. Unmarked tiles are
 // left unwritten (no slab with a dead column reads them).
+template <typename TB>
 __global__ void __launch_bounds__(kCountCols * kCountRows)
-nonfinite_count_kernel(const float* __restrict__ b, int K, int N,
+nonfinite_count_kernel(const TB* __restrict__ b, int K, int N,
                        int block_k, const int32_t* __restrict__ marked,
                        int32_t* __restrict__ counts,
                        int32_t* __restrict__ flag) {
@@ -197,7 +222,7 @@ struct StepUnits {
   }
 };
 
-template <int V>
+template <typename TB, int V>
 __global__ void __launch_bounds__(live_columns::kMaxThreads,
                                   live_columns::kMinBlocks)
 spmm_columns_kernel(const int32_t* __restrict__ blk_ptr,
@@ -205,7 +230,7 @@ spmm_columns_kernel(const int32_t* __restrict__ blk_ptr,
                     const int32_t* __restrict__ col_ptr,
                     const int32_t* __restrict__ col_k,
                     const float* __restrict__ col_vals,
-                    const float* __restrict__ b, float* __restrict__ out,
+                    const TB* __restrict__ b, TB* __restrict__ out,
                     const int32_t* __restrict__ counts,
                     const int32_t* __restrict__ flag, int ntiles,
                     int block_k, int K, int N, int bn, int groups_q) {
@@ -217,7 +242,7 @@ spmm_columns_kernel(const int32_t* __restrict__ blk_ptr,
   const int width = min(bn, N - col0);
   const int c = g.q * V;
   const bool active = g.lane_used && c < width;
-  const float* strip = b + col0 + (active ? c : 0);
+  const TB* strip = b + col0 + (active ? c : 0);
   float acc[kRows][V];
 #pragma unroll
   for (int r = 0; r < kRows; ++r)
@@ -225,10 +250,11 @@ spmm_columns_kernel(const int32_t* __restrict__ blk_ptr,
     for (int v = 0; v < V; ++v) acc[r][v] = 0.f;
   const auto band_of = [&](const Meta& m) {
     const int64_t row0 = static_cast<int64_t>(m.band) * block_k;
-    return Band<float>{strip + row0 * N, K - row0};
+    return Band<TB>{strip + row0 * N, K - row0};
   };
-  walk<float, V>(blk_ptr[blk], blk_ptr[blk + 1], StepUnits{tile_ids, col_ptr},
-                 band_of, col_k, col_vals, N, active, g, groups_q, acc);
+  walk<TB, V, TB>(blk_ptr[blk], blk_ptr[blk + 1],
+                  StepUnits{tile_ids, col_ptr}, band_of, col_k, col_vals, N,
+                  active, g, groups_q, acc);
   if (g.grp == 0 && active && *flag != 0) {
     // B holds a non-finite value in a tile with a dead slab column: find
     // this block's slabs whose dead columns meet one (see the note above)
@@ -271,43 +297,30 @@ spmm_columns_kernel(const int32_t* __restrict__ blk_ptr,
   }
 }
 
-}  // namespace
-
-extern "C" int cluster_spmm_columns_f32(const void* blk_ptr,
-                                        const void* tile_ids,
-                                        const void* col_ptr,
-                                        const void* col_k,
-                                        const void* col_vals, const void* b,
-                                        void* out, void* counts,
-                                        void* scratch, int nblocks,
-                                        int nsteps, int block_k, int K, int N,
-                                        int bn, void* stream) {
-  if (nblocks <= 0 || nsteps < 0 || block_k <= 0 || K < 0 || N <= 0 ||
-      bn <= 0 || bn > kBNMax) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const auto s = static_cast<cudaStream_t>(stream);
-  // scratch: the flag, then one mark per k-tile of B
+template <typename TB>
+int launch_columns(const void* blk_ptr, const void* tile_ids,
+                   const void* col_ptr, const void* col_k,
+                   const void* col_vals, const void* b, void* out,
+                   void* counts, int32_t* flag, int nblocks, int nsteps,
+                   int block_k, int K, int N, int bn, cudaStream_t s) {
   const int ntiles = (K + block_k - 1) / block_k;
-  auto* flag = static_cast<int32_t*>(scratch);
-  cudaError_t err = cudaMemsetAsync(flag, 0, sizeof(int32_t) * (1 + ntiles), s);
-  if (err != cudaSuccess) return static_cast<int>(err);
+  const TB* bt = static_cast<const TB*>(b);
   if (ntiles > 0 && nsteps > 0) {
     mark_tiles_kernel<<<(nsteps + 255) / 256, 256, 0, s>>>(
         static_cast<const int32_t*>(tile_ids),
         static_cast<const int32_t*>(col_ptr), nsteps, block_k, ntiles,
         flag + 1);
     const dim3 count_grid(ntiles, (N + kCountCols - 1) / kCountCols);
-    nonfinite_count_kernel<<<count_grid, dim3(kCountCols, kCountRows), 0,
-                             s>>>(static_cast<const float*>(b), K, N,
-                                  block_k, flag + 1,
-                                  static_cast<int32_t*>(counts), flag);
+    nonfinite_count_kernel<TB><<<count_grid, dim3(kCountCols, kCountRows), 0,
+                                 s>>>(bt, K, N, block_k, flag + 1,
+                                      static_cast<int32_t*>(counts), flag);
   }
   // V-wide loads and stores need every strip to start V-aligned
   const auto aligned = [&](int v) {
+    const uintptr_t bytes = sizeof(TB) * v;
     return N % v == 0 && bn % v == 0 &&
-           reinterpret_cast<uintptr_t>(b) % (4 * v) == 0 &&
-           reinterpret_cast<uintptr_t>(out) % (4 * v) == 0;
+           reinterpret_cast<uintptr_t>(b) % bytes == 0 &&
+           reinterpret_cast<uintptr_t>(out) % bytes == 0;
   };
   const int vec = live_columns::vec_for(bn, aligned(4) ? 4
                                             : aligned(2) ? 2 : 1);
@@ -319,34 +332,82 @@ extern "C" int cluster_spmm_columns_f32(const void* blk_ptr,
         static_cast<const int32_t*>(tile_ids),
         static_cast<const int32_t*>(col_ptr),
         static_cast<const int32_t*>(col_k),
-        static_cast<const float*>(col_vals), static_cast<const float*>(b),
-        static_cast<float*>(out), static_cast<const int32_t*>(counts), flag,
-        ntiles, block_k, K, N, bn, shape.groups_q);
+        static_cast<const float*>(col_vals), bt, static_cast<TB*>(out),
+        static_cast<const int32_t*>(counts), flag, ntiles, block_k, K, N, bn,
+        shape.groups_q);
   };
   if (vec == 4) {
-    args(spmm_columns_kernel<4>);
+    args(spmm_columns_kernel<TB, 4>);
   } else if (vec == 2) {
-    args(spmm_columns_kernel<2>);
+    args(spmm_columns_kernel<TB, 2>);
   } else {
-    args(spmm_columns_kernel<1>);
+    args(spmm_columns_kernel<TB, 1>);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" int cluster_spmm_padded_f32(const void* tile_ids,
-                                       const void* a_values, const void* b,
-                                       void* out, int nblocks,
-                                       int tiles_per_block, int block_k, int K,
-                                       int N, int bn, void* stream) {
+}  // namespace
+
+// B's dtype: 0 fp32, 1 bf16, 2 fp16 (C in the same dtype).
+extern "C" int cluster_spmm_columns(const void* blk_ptr, const void* tile_ids,
+                                    const void* col_ptr, const void* col_k,
+                                    const void* col_vals, const void* b,
+                                    void* out, void* counts, void* scratch,
+                                    int nblocks, int nsteps, int block_k,
+                                    int K, int N, int bn, int dtype,
+                                    void* stream) {
+  if (nblocks <= 0 || nsteps < 0 || block_k <= 0 || K < 0 || N <= 0 ||
+      bn <= 0 || bn > kBNMax || dtype < 0 || dtype > 2) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const auto s = static_cast<cudaStream_t>(stream);
+  // scratch: the flag, then one mark per k-tile of B
+  const int ntiles = (K + block_k - 1) / block_k;
+  auto* flag = static_cast<int32_t*>(scratch);
+  cudaError_t err = cudaMemsetAsync(flag, 0, sizeof(int32_t) * (1 + ntiles), s);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (dtype == 1) {
+    return launch_columns<__nv_bfloat16>(blk_ptr, tile_ids, col_ptr, col_k,
+                                         col_vals, b, out, counts, flag,
+                                         nblocks, nsteps, block_k, K, N, bn,
+                                         s);
+  }
+  if (dtype == 2) {
+    return launch_columns<__half>(blk_ptr, tile_ids, col_ptr, col_k,
+                                  col_vals, b, out, counts, flag, nblocks,
+                                  nsteps, block_k, K, N, bn, s);
+  }
+  return launch_columns<float>(blk_ptr, tile_ids, col_ptr, col_k, col_vals,
+                               b, out, counts, flag, nblocks, nsteps,
+                               block_k, K, N, bn, s);
+}
+
+extern "C" int cluster_spmm_padded(const void* tile_ids,
+                                   const void* a_values, const void* b,
+                                   void* out, int nblocks,
+                                   int tiles_per_block, int block_k, int K,
+                                   int N, int bn, int dtype, void* stream) {
   if (nblocks <= 0 || tiles_per_block <= 0 || block_k <= 0 || N <= 0 ||
-      bn <= 0 || bn > kBNMax) {
+      bn <= 0 || bn > kBNMax || dtype < 0 || dtype > 2) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const dim3 grid(nblocks, (N + bn - 1) / bn);
-  spmm_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int32_t*>(tile_ids),
-      static_cast<const float*>(a_values), static_cast<const float*>(b),
-      static_cast<float*>(out), tiles_per_block, block_k, K, N, bn);
+  const auto s = static_cast<cudaStream_t>(stream);
+  const auto* ids = static_cast<const int32_t*>(tile_ids);
+  const auto* av = static_cast<const float*>(a_values);
+  if (dtype == 1) {
+    spmm_kernel<__nv_bfloat16><<<grid, kThreads, 0, s>>>(
+        ids, av, static_cast<const __nv_bfloat16*>(b),
+        static_cast<__nv_bfloat16*>(out), tiles_per_block, block_k, K, N, bn);
+  } else if (dtype == 2) {
+    spmm_kernel<__half><<<grid, kThreads, 0, s>>>(
+        ids, av, static_cast<const __half*>(b), static_cast<__half*>(out),
+        tiles_per_block, block_k, K, N, bn);
+  } else {
+    spmm_kernel<float><<<grid, kThreads, 0, s>>>(
+        ids, av, static_cast<const float*>(b), static_cast<float*>(out),
+        tiles_per_block, block_k, K, N, bn);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

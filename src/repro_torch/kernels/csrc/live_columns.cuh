@@ -15,7 +15,7 @@
 // 8 x (Q * V) output strip: thread q owns columns q*V .. q*V + V - 1 of
 // all 8 rows and does 8 FMAs per B element, the column's 8 values
 // broadcast from shared memory. The host picks V (4, 2 or 1: 16-, 8- or
-// 4-byte fp32 loads, half that for bf16) so that a strip fills a warp
+// 4-byte fp32 loads, half that for 16-bit B) so that a strip fills a warp
 // where it can (bn = 128: V = 4; bn = 64: V = 2). A CTA holds NG such
 // groups. Group g computes the sum of unit base + g in registers ("part",
 // k ascending -- skipping a zero column is exact, fmaf(0, b, x) == x for
@@ -39,10 +39,17 @@
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "dtypes.cuh"
+
 namespace live_columns {
+
+using dtypes::from_float;
+using dtypes::round_to;
+using dtypes::to_float;
 
 constexpr int kRows = 8;          // block_r
 constexpr int kUnroll = 4;        // B rows in flight per thread
@@ -99,6 +106,36 @@ __device__ __forceinline__ void load_b(const __nv_bfloat16* p,
 }
 
 template <int V>
+__device__ __forceinline__ void load_b(const __half* p, float (&o)[V]) {
+  if constexpr (V == 4) {
+    const uint2 raw = __ldg(reinterpret_cast<const uint2*>(p));
+    const __half2 lo = *reinterpret_cast<const __half2*>(&raw.x);
+    const __half2 hi = *reinterpret_cast<const __half2*>(&raw.y);
+    o[0] = __low2float(lo); o[1] = __high2float(lo);
+    o[2] = __low2float(hi); o[3] = __high2float(hi);
+  } else if constexpr (V == 2) {
+    const unsigned raw = __ldg(reinterpret_cast<const unsigned*>(p));
+    const __half2 x = *reinterpret_cast<const __half2*>(&raw);
+    o[0] = __low2float(x); o[1] = __high2float(x);
+  } else {
+#pragma unroll
+    for (int v = 0; v < V; ++v) o[v] = __half2float(p[v]);
+  }
+}
+
+// The running sum of units in TO: fp32 adds the unit's part as it is; a
+// 16-bit TO rounds the part to TO, then the sum, as the TPU kernels do
+// when their output block is 16-bit (o += dot(...).astype(o.dtype)).
+template <typename TO>
+__device__ __forceinline__ float acc_add(float acc, float part) {
+  if constexpr (sizeof(TO) == sizeof(float)) {
+    return acc + part;
+  } else {
+    return round_to<TO>(acc + round_to<TO>(part));
+  }
+}
+
+template <int V>
 __device__ __forceinline__ void store_vec(float* p, const float (&x)[V]) {
   if constexpr (V == 4) {
     *reinterpret_cast<float4*>(p) = make_float4(x[0], x[1], x[2], x[3]);
@@ -107,6 +144,30 @@ __device__ __forceinline__ void store_vec(float* p, const float (&x)[V]) {
   } else {
 #pragma unroll
     for (int v = 0; v < V; ++v) p[v] = x[v];
+  }
+}
+
+__device__ __forceinline__ unsigned bits16(__nv_bfloat16 x) {
+  return __bfloat16_as_ushort(x);
+}
+__device__ __forceinline__ unsigned bits16(__half x) {
+  return __half_as_ushort(x);
+}
+
+// V values rounded to a 16-bit type, in one 8-, 4- or 2-byte store.
+template <typename T, int V>
+__device__ __forceinline__ void store_vec(T* p, const float (&x)[V]) {
+  unsigned h[V];
+#pragma unroll
+  for (int v = 0; v < V; ++v) h[v] = bits16(from_float<T>(x[v]));
+  if constexpr (V == 4) {
+    *reinterpret_cast<uint2*>(p) =
+        make_uint2(h[0] | (h[1] << 16), h[2] | (h[3] << 16));
+  } else if constexpr (V == 2) {
+    *reinterpret_cast<unsigned*>(p) = h[0] | (h[1] << 16);
+  } else {
+#pragma unroll
+    for (int v = 0; v < V; ++v) p[v] = from_float<T>(x[v]);
   }
 }
 
@@ -201,8 +262,9 @@ __device__ __forceinline__ void unit_part(
 // time, then run them in rounds of ngroups -- group g takes unit b + g of
 // round b, its part summed over the unit's live columns against
 // band_of(meta) -- and after each round group 0 adds the round's parts to
-// acc in unit order.
-template <typename TB, int V, class Units, class BandOf>
+// acc in unit order, each rounded as acc_add<TO> says (TO = float: no
+// rounding).
+template <typename TB, int V, typename TO = float, class Units, class BandOf>
 __device__ __forceinline__ void walk(int u0, int u1, const Units& units,
                                      const BandOf& band_of,
                                      const int32_t* __restrict__ col_k,
@@ -234,7 +296,8 @@ __device__ __forceinline__ void walk(int u0, int u1, const Units& units,
 #pragma unroll
         for (int r = 0; r < kRows; ++r)
 #pragma unroll
-          for (int v = 0; v < V; ++v) acc[r][v] += part[r][v];
+          for (int v = 0; v < V; ++v)
+            acc[r][v] = acc_add<TO>(acc[r][v], part[r][v]);
         continue;
       }
       if (g.grp > 0 && g.lane_used) {
@@ -249,7 +312,8 @@ __device__ __forceinline__ void walk(int u0, int u1, const Units& units,
 #pragma unroll
         for (int r = 0; r < kRows; ++r)
 #pragma unroll
-          for (int v = 0; v < V; ++v) acc[r][v] += part[r][v];
+          for (int v = 0; v < V; ++v)
+            acc[r][v] = acc_add<TO>(acc[r][v], part[r][v]);
         const int last = min(g.ngroups, mn - b);
         for (int j = 1; j < last; ++j) {
           const float* s =
@@ -258,7 +322,7 @@ __device__ __forceinline__ void walk(int u0, int u1, const Units& units,
           for (int r = 0; r < kRows; ++r)
 #pragma unroll
             for (int v = 0; v < V; ++v)
-              acc[r][v] += s[r * width + g.q * V + v];
+              acc[r][v] = acc_add<TO>(acc[r][v], s[r * width + g.q * V + v]);
         }
       }
       __syncthreads();  // the next round overwrites the parts
@@ -272,6 +336,13 @@ __device__ __forceinline__ void store_rows(float* o, int64_t ld,
                                            const float (&acc)[kRows][V]) {
 #pragma unroll
   for (int r = 0; r < kRows; ++r) store_vec<V>(o + r * ld, acc[r]);
+}
+
+template <int V, typename T>
+__device__ __forceinline__ void store_rows(T* o, int64_t ld,
+                                           const float (&acc)[kRows][V]) {
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) store_vec<T, V>(o + r * ld, acc[r]);
 }
 
 // The vector width for a strip of `width` columns whose loads and stores

@@ -124,7 +124,8 @@ def bcc_spmm(a: BCC, b: torch.Tensor, *, bn: int = 128) -> torch.Tensor:
     kernel: every block visits all of its ``tiles_per_block`` slabs, pads
     included. Column strips are ``min(bn, max(8, N))`` wide, as in the JAX
     package; B's ragged rows and columns are masked in the kernel rather
-    than padded. Returns ``(a.nrows, N)`` in B's dtype (fp32)."""
+    than padded. B is fp32, bf16 or fp16; returns ``(a.nrows, N)`` in B's
+    dtype (16-bit sums rounded after every slot, as the JAX kernel's)."""
     n0 = b.shape[1]
     bn_eff = min(bn, max(8, n0), KERNEL_MAX_BN)
     out = cluster_spmm(a.tile_ids, a.values, b, block_r=a.block_r,
@@ -172,7 +173,9 @@ def bcc_spmm_compact(a: BCC, b: torch.Tensor, *,
     """C = A_bcc @ B (B dense ``(a.ncols, N)``) via the compact-stream
     kernel, in column strips of up to 128. ``stream`` and ``cols`` (its
     slabs' live columns) are built here when absent; a caller that
-    launches again keeps them. Returns ``(a.nrows, N)`` fp32."""
+    launches again keeps them. B is fp32, bf16 or fp16; returns
+    ``(a.nrows, N)`` in B's dtype (16-bit sums rounded after every
+    step, as the JAX kernel's)."""
     if stream is None:
         # cover_all_blocks: a block with no live tiles must still appear
         # once so its C strip is written
@@ -493,33 +496,28 @@ def bcc_spgemm_tiled(a: BCC | None, b: TiledCSR, *,
 def fused_ssd(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
               b: torch.Tensor, c: torch.Tensor, chunk: int
               ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Drop-in for ``models.mamba2.ssd_chunked`` backed by the fused SSD
+    """Drop-in for ``models.mamba2.ssd_chunked`` backed by the SSD
     chunk-scan kernel. x (B,S,H,P); dt (B,S,H); a_log (H,); b/c
     (B,S,G,N) with G groups broadcast over heads. dt is folded into x and
-    into the log-decay ``-exp(a_log)·dt`` here, and every tensor is laid
-    out as (B·H, nc, Q, …). Returns (y (B,S,H,P) in x's dtype, state
-    (B,H,P,N) fp32)."""
+    into the log-decay ``-exp(a_log)·dt`` here; x and the decays are laid
+    out as (B·H, nc, Q, …), B and C as (B·G, nc, Q, N) — read by each of
+    a group's heads, not copied per head. Returns (y (B,S,H,P) in x's
+    dtype, state (B,H,P,N) fp32)."""
     bsz, s, h, p = x.shape
     g, n = b.shape[2], b.shape[3]
     if s % chunk:
         raise ValueError(f"sequence {s} is not a multiple of chunk {chunk}")
     nc = s // chunk
-    rep = h // g
     dt32 = dt.float()
     a_step = (-torch.exp(a_log.float()))[None, None, :] * dt32   # (B,S,H)
     xd = x.float() * dt32[..., None]
 
-    def to_bh(t):   # (B,S,H,...) -> (B*H, nc, Q, ...)
-        t = t.movedim(2, 1)                                       # (B,H,S,...)
-        return t.reshape(bsz * h, nc, chunk, *t.shape[3:])
+    def to_bh(t):   # (B,S,K,...) -> (B*K, nc, Q, ...)
+        t = t.movedim(2, 1)                                       # (B,K,S,...)
+        return t.reshape(bsz * t.shape[1], nc, chunk, *t.shape[3:])
 
-    def heads(t):   # (B,S,G,N) -> (B,S,H,N), each group over its heads
-        return t[:, :, :, None, :].expand(bsz, s, g, rep, n).reshape(
-            bsz, s, h, n)
-
-    y, hfin = ssd_chunk_scan(to_bh(xd), to_bh(a_step),
-                             to_bh(heads(b).float()),
-                             to_bh(heads(c).float()))
+    y, hfin = ssd_chunk_scan(to_bh(xd), to_bh(a_step), to_bh(b.float()),
+                             to_bh(c.float()), heads_per_group=h // g)
     y = y.reshape(bsz, h, s, p).movedim(1, 2).to(x.dtype)
     state = hfin.reshape(bsz, h, n, p).movedim(2, 3)              # (B,H,P,N)
     return y, state

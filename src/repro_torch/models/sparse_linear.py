@@ -108,8 +108,16 @@ class SparseLinear:
 
     def apply(self, x: torch.Tensor, *, use_kernel: bool = True,
               compact: bool = True) -> torch.Tensor:
-        """x (..., in) → (..., out), on the device of the packed weight."""
+        """x (..., in) → (..., out), on the device of the packed weight.
+
+        As in the JAX package: the kernel paths give bf16 and fp16
+        activations their own dtype back, each step's fp32 product
+        rounded to it before it is added; the dense path
+        (``use_kernel=False``) returns fp32; fp64 activations are
+        computed as fp32 (the JAX package runs without 64-bit types)."""
         lead = x.shape[:-1]
+        if x.dtype == torch.float64:
+            x = x.float()
         xt = x.reshape(-1, self.in_features).T.contiguous()   # (in, tokens)
         if use_kernel and compact:
             y_packed = kernel_ops.spmm_compact_stream(
@@ -117,7 +125,7 @@ class SparseLinear:
         elif use_kernel:
             y_packed = kernel_ops.bcc_spmm(self.bcc, xt)
         else:
-            y_packed = self.bcc.to_dense() @ xt
+            y_packed = self.bcc.to_dense() @ xt.float()
         # un-permute packed rows back to feature order
         inv = np.empty_like(self.perm)
         inv[self.perm] = np.arange(self.perm.size)

@@ -942,8 +942,10 @@ class Planner:
         def host() -> np.ndarray:
             out = run()
             synchronize(dev)
-            # the padded grid returns B's dtype: bf16 widens on the host
-            # (numpy has no bfloat16)
+            # the padded grid returns B's dtype: bf16 widens to float32 on
+            # the host, values equal to the JAX package's bfloat16 result
+            # (numpy has no bfloat16, and ml_dtypes is not a dependency;
+            # the README's port section records this divergence)
             return out.cpu().float().numpy()
 
         if perm is None:

@@ -30,8 +30,8 @@ from repro_torch.kernels.cluster_spmm import (cluster_spmm,
                                               cluster_spmm_compact,
                                               cluster_spmm_compact_plain,
                                               cluster_spmm_plain)
-from repro_torch.kernels.flash_attention import (flash_attention,
-                                                 flash_attention_plain)
+from repro_torch.kernels.flash_attention import (
+    flash_attention, flash_attention_plain, flash_attention_tolerance)
 from repro_torch.kernels.ssd_chunk import (ssd_chunk_scan,
                                            ssd_chunk_scan_plain)
 from repro_torch.launch.serve import run_serving
@@ -266,6 +266,138 @@ def test_flash_attention_kernel_matches_plain(card, bh, sq, sk, d, causal):
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-5)
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("bh,sq,sk,d,causal", [
+    (4, 1000, 1000, 80, True),
+    (2, 100, 260, 80, False),
+    (2, 129, 129, 7, True),          # scalar loads
+    (2, 300, 300, 160, True),        # 32-key blocks
+    (1, 200, 200, 256, False),
+])
+def test_flash_attention_kernel_in_16_bits(card, dtype, bh, sq, sk, d,
+                                           causal):
+    g = torch.Generator(device=card).manual_seed(bh * sq + d)
+    q, k, v = (torch.randn((bh, s, d), generator=g, device=card).to(dtype)
+               for s in (sq, sk, sk))
+    before = flash_attention.launches
+    got = flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    assert got.dtype == dtype
+    want = flash_attention_plain(q, k, v, causal=causal)
+    # per element, three unit roundoffs of what each row sums
+    tol = flash_attention_tolerance(q, k, v, want, causal=causal)
+    excess = float(((got.float() - want.float()).abs() / tol).max())
+    assert excess <= 1.0, excess
+
+
+@pytest.mark.parametrize("d,sq,causal", [(160, 300, True), (129, 64, False),
+                                         (256, 1000, True)])
+def test_flash_attention_kernel_past_d_128(card, d, sq, causal):
+    g = torch.Generator(device=card).manual_seed(sq + d)
+    q, k, v = (torch.randn((2, sq, d), generator=g, device=card)
+               for _ in range(3))
+    got = flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, flash_attention_plain(q, k, v,
+                                                          causal=causal),
+                               rtol=1e-4, atol=1e-5)
+    with pytest.raises(ValueError, match="D <= 256"):
+        flash_attention(*(torch.zeros((1, 8, 257), device=card)
+                          for _ in range(3)))
+
+
+def _rounding_operands(card, seed):
+    """Integer A and B whose partial sums pass bf16's 8-bit significand
+    (values 1..15 at density 0.5, K = 300: three 128-wide k-tiles)."""
+    rng = np.random.default_rng(seed)
+    a = HostCSR.from_dense(((rng.random((64, 300)) < 0.5)
+                            * rng.integers(1, 16, (64, 300))).astype(
+                                np.float32))
+    b = ((rng.random((300, 40)) < 0.5)
+         * rng.integers(1, 16, (300, 40))).astype(np.float32)
+    bcc = bcc_from_host(a, device=card)
+    return bcc, torch.from_numpy(b).to(card)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_spmm_kernels_in_16_bits_round_after_every_step(card, dtype):
+    """K4 and K9 with 16-bit B give C in B's dtype, each step's fp32
+    product rounded to it and added in it, as the JAX package's kernels
+    do: equal to the plain versions, and (bf16) not the fp32 product
+    rounded once."""
+    bcc, b32 = _rounding_operands(card, 31)
+    b = b32.to(dtype)
+    bids, tids, vals = ops.bcc_compact_stream(bcc, cover_all_blocks=True)
+    kw = dict(block_r=8, block_k=128, nblocks=bcc.nblocks)
+    got4 = cluster_spmm_compact(bids, tids, vals, b, bn=40, **kw)
+    pkw = dict(block_r=8, block_k=128, tiles_per_block=bcc.tiles_per_block)
+    got9 = cluster_spmm(bcc.tile_ids, bcc.values, b, bn=40, **pkw)
+    torch.cuda.synchronize()
+    assert got4.dtype == got9.dtype == dtype
+    assert torch.equal(got4, cluster_spmm_compact_plain(bids, tids, vals, b,
+                                                        **kw))
+    assert torch.equal(got9, cluster_spmm_plain(bcc.tile_ids, bcc.values, b,
+                                                **pkw))
+    once = cluster_spmm_compact(bids, tids, vals, b32, bn=40, **kw).to(dtype)
+    if dtype == torch.bfloat16:
+        assert not torch.equal(got4, once)
+        assert not torch.equal(got9, once)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("n_cols,block_k", [(64, 128), (13, 128), (130, 128),
+                                            (64, 512)])
+def test_column_spmm_kernel_in_16_bits_exact_on_integers(card, dtype, n_cols,
+                                                         block_k):
+    a = _host(300, 1100, 0.02, 21)
+    bcc, (bids, tids, vals), bd = _spmm_operands(card, a, n_cols,
+                                                 block_k=block_k)
+    bd = bd.to(dtype)
+    cols = ops.slab_columns(vals)
+    kw = dict(block_r=8, block_k=block_k, nblocks=bcc.nblocks)
+    got = cluster_spmm_compact(bids, tids, vals, bd, bn=min(128, n_cols),
+                               cols=cols, **kw)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype
+    assert torch.equal(got, cluster_spmm_compact_plain(bids, tids, vals, bd,
+                                                       cols=cols, **kw))
+    assert np.array_equal(got[: a.nrows].float().cpu().numpy(),
+                          a.to_dense() @ bd.float().cpu().numpy())
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_column_spmm_non_finite_16_bit_b_equals_plain(card, dtype):
+    a = _host(300, 1100, 0.02, 22)
+    bcc, (bids, tids, vals), bd = _spmm_operands(card, a, 64)
+    bd = bd.to(dtype)
+    bd[5, 3] = float("inf")
+    bd[700, 10] = float("nan")
+    bd[1099, 0] = -float("inf")
+    kw = dict(block_r=8, block_k=128, nblocks=bcc.nblocks)
+    got = cluster_spmm_compact(bids, tids, vals, bd, bn=64, **kw)
+    want = cluster_spmm_compact_plain(bids, tids, vals, bd, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got.isnan(), want.isnan())
+    assert torch.equal(got.nan_to_num(7.0), want.nan_to_num(7.0))
+    assert bool(got.isnan().any())
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("compact", [False, True])
+def test_sparse_linear_on_the_card_in_16_bits(card, dtype, compact):
+    rng = np.random.default_rng(13)
+    w = ((rng.random((96, 700)) < 0.08)
+         * rng.integers(1, 4, (96, 700))).astype(np.float32)
+    lin = SparseLinear.from_dense(w, density=0.05, device=card)
+    x = torch.from_numpy(rng.integers(-2, 3, (3, 5, 700)).astype(
+        np.float32)).to(card)
+    got = lin.apply(x.to(dtype), compact=compact)
+    assert got.dtype == dtype
+    assert torch.equal(got.float(), lin.apply(x, use_kernel=False))
+    assert lin.apply(x.double(), compact=compact).dtype == torch.float32
+
+
 def test_flash_mha_gqa_on_the_card(card):
     g = torch.Generator(device=card).manual_seed(14)
     q = torch.randn((2, 8, 192, 80), generator=g, device=card)
@@ -280,24 +412,26 @@ def test_flash_mha_gqa_on_the_card(card):
                                atol=1e-5)
 
 
-@pytest.mark.parametrize("bh,nc,q,p,n", [
-    (4, 3, 64, 16, 16),
-    (3, 2, 256, 64, 64),             # the zamba2 chunk
-    (2, 1, 300, 64, 64),             # one ragged chunk of a whole sequence
-    (2, 2, 32, 64, 128),
-    (2, 3, 1, 8, 8),
+@pytest.mark.parametrize("bh,nc,q,p,n,rep", [
+    (4, 3, 64, 16, 16, 1),
+    (3, 2, 256, 64, 64, 1),          # the zamba2 chunk
+    (2, 1, 300, 64, 64, 1),          # one ragged chunk of a whole sequence
+    (2, 2, 32, 64, 128, 1),
+    (2, 3, 1, 8, 8, 1),
+    (8, 2, 256, 64, 64, 8),          # one group (G = 1) of 8 heads
+    (6, 1, 75, 16, 16, 3),           # groups with BH·nc·Q not a multiple of 4
 ])
-def test_ssd_chunk_kernel_matches_plain(card, bh, nc, q, p, n):
+def test_ssd_chunk_kernel_matches_plain(card, bh, nc, q, p, n, rep):
     g = torch.Generator(device=card).manual_seed(bh * q + n)
     x = torch.randn((bh, nc, q, p), generator=g, device=card) * 0.3
     a = -torch.rand((bh, nc, q), generator=g, device=card) * 0.3
-    b, c = (torch.randn((bh, nc, q, n), generator=g, device=card)
+    b, c = (torch.randn((bh // rep, nc, q, n), generator=g, device=card)
             for _ in range(2))
     before = ssd_chunk_scan.launches
-    y, h = ssd_chunk_scan(x, a, b, c)
+    y, h = ssd_chunk_scan(x, a, b, c, heads_per_group=rep)
     torch.cuda.synchronize()
     assert ssd_chunk_scan.launches == before + 1
-    y0, h0 = ssd_chunk_scan_plain(x, a, b, c)
+    y0, h0 = ssd_chunk_scan_plain(x, a, b, c, heads_per_group=rep)
     for got, want in ((y, y0), (h, h0)):
         err = float((got - want).abs().max())
         assert err <= 1e-4 * max(1.0, float(want.abs().max())), err

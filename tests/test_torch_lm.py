@@ -10,7 +10,8 @@ models run with ``use_pallas=False`` (their flash path has no interpret
 switch and cannot run on the CPU).
 
 Tolerances: the kernels' fp32 sums run in another order in the two
-packages — attention within 1e-5, the SSD scan within 2e-3 (as
+packages — attention within 1e-5 (16-bit attention within the bound its
+test states), the SSD scan within 2e-3 (as
 ``tests/test_extensions.py`` holds the JAX kernel to its chunked path);
 model logits within 1e-4 absolute + 1e-4 relative (observed ≈ 6e-6 on
 logits of magnitude ≈ 4); the port's kernel path against its chunked path
@@ -37,7 +38,8 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.convert import lm_params_from_numpy
 from repro_torch.kernels import ops
 from repro_torch.kernels.cluster_spmm import cluster_spmm
-from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.flash_attention import (flash_attention,
+                                                 flash_attention_tolerance)
 from repro_torch.kernels.ssd_chunk import ssd_chunk_scan
 from repro_torch.launch import serve as port_serve
 from repro_torch.models import attention, layers, mamba2, transformer
@@ -137,6 +139,26 @@ def test_ssd_scan_plain_matches_the_jax_kernel(bh, nc, q, p, n):
                                atol=2e-3)
 
 
+@pytest.mark.parametrize("bh,rep", [(8, 4), (6, 3), (4, 4)])
+def test_ssd_scan_plain_on_groups_matches_the_jax_kernel(bh, rep):
+    """B and C per group of ``rep`` heads (head bh reads group
+    bh // rep): the plain version against the JAX kernel on the same
+    operands expanded per head."""
+    x, a, b, c = _ssd_inputs(bh, 2, 32, 8, 16, seed=bh + rep)
+    bg, cg = b[::rep].copy(), c[::rep].copy()
+    y, h = ssd_chunk_scan(_t(x), _t(a), _t(bg), _t(cg), heads_per_group=rep)
+    ry, rh = ref_ssd_scan(jnp.asarray(x), jnp.asarray(a),
+                          jnp.asarray(np.repeat(bg, rep, axis=0)),
+                          jnp.asarray(np.repeat(cg, rep, axis=0)),
+                          interpret=True)
+    np.testing.assert_allclose(y.numpy(), np.asarray(ry), rtol=2e-3,
+                               atol=2e-3)
+    np.testing.assert_allclose(h.numpy(), np.asarray(rh), rtol=2e-3,
+                               atol=2e-3)
+    with pytest.raises(ValueError, match="heads_per_group"):
+        ssd_chunk_scan(_t(x), _t(a), _t(b), _t(c), heads_per_group=rep)
+
+
 @pytest.mark.parametrize("s,chunk,g", [(64, 16, 1), (48, 48, 2), (40, 8, 4)])
 def test_fused_ssd_matches_the_reference(s, chunk, g):
     """The ops-level adapter (dt folding, group broadcast, layouts)
@@ -201,6 +223,35 @@ def test_flash_plain_matches_the_jax_kernel(bh, sq, sk, d, causal):
                                 jnp.asarray(v), causal=causal,
                                 interpret=True))
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("d", [80, 160])
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
+def test_flash_plain_in_16_bits_matches_the_jax_kernel(dtype, d):
+    """bf16 and fp16 q, k, v: output in q's dtype, P rounded to v's dtype
+    before P·V, as in the JAX kernel (interpret mode); D = 160 past the
+    port kernel's first instantiation."""
+    rng = np.random.default_rng(d)
+    q, k, v = (rng.standard_normal((2, 256, d)).astype(np.float32)
+               for _ in range(3))
+    tq, tk, tv = (_t(t).to(getattr(torch, dtype)) for t in (q, k, v))
+    got = flash_attention(tq, tk, tv, causal=True)
+    assert got.dtype == getattr(torch, dtype)
+    want = np.asarray(ref_flash(*(jnp.asarray(t, dtype=getattr(jnp, dtype))
+                                  for t in (q, k, v)), causal=True,
+                                interpret=True))
+    assert want.dtype.name == dtype
+    # per element, three unit roundoffs of what each row sums (P is
+    # rounded against each package's running max: 128-key blocks in the
+    # JAX kernel, the final max in the plain version)
+    tol = flash_attention_tolerance(tq, tk, tv, got, causal=True).numpy()
+    err = np.abs(got.float().numpy() - want.astype(np.float32))
+    assert (err <= tol).all(), float((err / tol).max())
+    # P is rounded: the plain version differs from unrounded P·V
+    unrounded = torch.softmax(
+        (tq.float() @ tk.float().transpose(1, 2)) / d ** 0.5
+        + torch.triu(torch.full((256, 256), -1e30), 1), -1) @ tv.float()
+    assert not torch.equal(got, unrounded.to(got.dtype))
 
 
 @pytest.mark.parametrize("rep", [1, 4])
@@ -358,6 +409,40 @@ def test_kernel_path_matches_the_chunked_path(arch, seq):
     for key in set(rcache) - {"pos"}:
         assert float((kcache[key] - rcache[key]).abs().max()) <= 2e-3 * max(
             1.0, float(rcache[key].abs().max()))
+
+
+@pytest.mark.parametrize("seq", [64, 40])
+def test_bf16_kernel_path_prefill_matches_the_reference(seq):
+    """The zamba2 smoke model with every parameter in bf16 (the JAX
+    package's ``init_params(dtype=bfloat16)``, carried across): the
+    kernel path (``use_pallas=True``; on the CPU the plain versions, with
+    P rounded to bf16 in attention) against the JAX package's bf16
+    prefill and the port's own chunked path. bf16 rounds at other places
+    in the two packages over the layers, so the bound is 2^-4 of the
+    largest logit against the reference (the port's chunked path meets
+    it too) and 2^-5 between the port's two paths."""
+    rcfg, rparams, cfg, params = _both_params("zamba2-2.7b")
+    params = params.to(torch.bfloat16)
+    rb = jax.tree.map(lambda t: t.astype(jnp.bfloat16), rparams)
+    toks = np.random.default_rng(seq).integers(
+        0, cfg.vocab_size, (2, seq)).astype(np.int32)
+    batch = {"tokens": _t(toks).long()}
+    kern, _ = transformer.prefill(cfg, params, batch, seq + 2,
+                                  use_pallas=True)
+    chunked, _ = transformer.prefill(cfg, params, batch, seq + 2,
+                                     use_pallas=False)
+    want, _ = jax.jit(lambda p, b: ref_tf.prefill(rcfg, p, b, seq + 2))(
+        rb, {"tokens": jnp.asarray(toks)})
+    v = cfg.vocab_size
+    assert kern.dtype == torch.bfloat16
+    want = np.asarray(want).astype(np.float32)[..., :v]
+    kern = kern.float().numpy()[..., :v]
+    chunked = chunked.float().numpy()[..., :v]
+    scale = np.abs(want).max()
+    assert np.isfinite(kern).all()
+    assert np.abs(kern - want).max() <= 2.0 ** -4 * scale
+    assert np.abs(chunked - want).max() <= 2.0 ** -4 * scale
+    assert np.abs(kern - chunked).max() <= 2.0 ** -5 * scale
 
 
 # ---------------------------------------------------------------------------

@@ -262,3 +262,41 @@ def test_wide_request_served_on_the_padded_grid_like_the_reference(
         before[0] + 2, before[1] + 2)
     ((packed, _),) = port.planner._exec_cache.values()
     assert packed[2].route == "padded"
+
+
+def test_wide_bf16_request_is_served_widened_to_float32(monkeypatch):
+    """A served wide A·B under ``pallas_b_dtype=bfloat16``: the padded
+    grid's output is bf16 in both packages, and the reference returns it
+    as an ``ml_dtypes`` bfloat16 array. The port returns float32 — numpy
+    has no bfloat16, and the card's machine has no ``ml_dtypes`` — with
+    values bit-equal to the reference's widened (the documented
+    divergence); partial sums past bf16's 8-bit significand show that
+    both rounded per step alike."""
+    rng = np.random.default_rng(23)
+    a = ((rng.random((48, 96)) < 0.5)
+         * rng.integers(1, 16, (48, 96))).astype(np.float32)
+    b = ((rng.random((96, 200)) < 0.5)
+         * rng.integers(1, 16, (96, 200))).astype(np.float32)
+    (ra, pa), (rb, pb) = host_pair(a), host_pair(b)
+    monkeypatch.setattr(rops, "_COMPACT_C_STRIP_BUDGET", 4096)
+    import repro_torch.kernels.ops as port_ops
+    monkeypatch.setattr(port_ops, "_COMPACT_C_STRIP_BUDGET", 4096)
+    rc, pc = RefPlanCache(), PlanCache()
+    rc.put(RefPlan(fingerprint=ref_fingerprint(ra), reorder="original",
+                   scheme="pallas", reuse_hint=20))
+    pc.put(Plan(fingerprint=fingerprint(pa), reorder="original",
+                scheme="pallas", reuse_hint=20))
+    ref = RefServer(planner=RefPlanner(cache=rc,
+                                       pallas_b_dtype=jnp.bfloat16))
+    port = SpGEMMServer(Planner(cache=pc, device="cpu",
+                                pallas_b_dtype=torch.bfloat16))
+    r_ref, r_port = ref.submit(ra, rb), port.submit(pa, pb)
+    assert r_port.scheme == r_ref.scheme == "pallas"
+    assert not r_port.degraded and not r_ref.degraded
+    want = np.asarray(r_ref.result)
+    assert want.dtype.name == "bfloat16"
+    assert r_port.result.dtype == np.float32
+    assert np.array_equal(r_port.result, want.astype(np.float32))
+    exact = a @ b
+    assert np.abs(exact).max() > 256
+    assert not np.array_equal(r_port.result, exact)

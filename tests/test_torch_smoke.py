@@ -1,9 +1,9 @@
 """``chip_smoke.py`` — the script that drives the port on a card — keeps
 its contract off the card: without CUDA it exits non-zero and prints no
-result, and its ``--rehearse`` dry run (every phase on the CPU at small
-sizes, through the plain versions; the LM phase on the zamba2 smoke
-config) runs to its end and exits 2 without the final
-``{"ok": true, ...}`` line."""
+result, only one line naming the phase and the error; and its
+``--rehearse`` dry run (every phase on the CPU at small sizes, through
+the plain versions; the LM phase on the zamba2 smoke config) runs to its
+end and exits 2 without the final ``{"ok": true, ...}`` line."""
 import json
 import pathlib
 import sys
@@ -20,9 +20,10 @@ import chip_smoke  # noqa: E402
 def test_exits_non_zero_without_a_card(capsys):
     if torch.cuda.is_available():
         pytest.skip("a card is present")
-    assert chip_smoke.main([]) == 1
+    assert chip_smoke.run([]) == 1
     out = capsys.readouterr().out
-    assert out == ""
+    assert out == ("chip_smoke: failed in start: no CUDA device "
+                   "available\n")
 
 
 def test_rehearsal_runs_every_phase(capsys):
@@ -73,7 +74,18 @@ def test_rehearsal_runs_every_phase(capsys):
     for k in summary["kernels"][:2]:
         assert k["work_bound_ms"] is not None
         assert all(c["live_column_visits"] > 0 for c in k["cases"])
-    assert len(summary["kernels"][1]["cases"]) == 5
+    # K4 and K9 each with bf16 and fp16 activations on SparseLinear's
+    # layer beside fp32, equal to their plain versions in B's dtype
+    assert len(summary["kernels"][1]["cases"]) == 7
+    for k in (summary["kernels"][1], summary["kernels"][5]):
+        assert [c["dtype"] for c in k["cases"]
+                if "dtype" in c][-2:] == ["torch.bfloat16", "torch.float16"]
+    flash, ssd = summary["kernels"][6:]
+    assert {c["dtype"] for c in flash["cases"]} == {
+        "torch.float32", "torch.bfloat16", "torch.float16"}
+    assert max(c["shape"][2] for c in flash["cases"]) == 160
+    grouped = [c for c in ssd["cases"] if c["shape"]["heads_per_group"] > 1]
+    assert grouped and grouped[0]["shared_scores_flops"] < grouped[0]["flops"]
     serving = json.loads(next(line for line in lines
                               if line.startswith("  serving "))
                          .split("serving ", 1)[1])

@@ -6,7 +6,10 @@ Seeded integer-valued weights and activations go through both packages:
 equal), ``apply`` on the padded lattice and on the compact stream, and
 ``ops.bcc_spmm`` against the JAX kernel ``cluster_spmm`` in interpret
 mode, on the same packed operands. fp32 sums of small integers are exact
-in any order, so every comparison is exact.
+in any order, so every comparison is exact. ``apply`` on bf16, fp16 and
+fp64 activations (the kernel paths round each step to a 16-bit dtype, as
+the reference does) is held to the reference's dtype and values: equal
+on integers, within the tolerances its test states otherwise.
 """
 import dataclasses
 
@@ -153,3 +156,82 @@ def test_from_dense_defaults_to_the_card():
         pytest.skip("a card is present: the default device is usable")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         port_sl.SparseLinear.from_dense(_structured_weight(16, 256, 7))
+
+
+# -- activations in other dtypes ------------------------------------------
+
+# port dtype, JAX dtype, significand bits and least normal exponent of the
+# output (fp64 activations run as fp32 in the JAX package, which has no
+# 64-bit types)
+DTYPES = {"bfloat16": (torch.bfloat16, jnp.bfloat16),
+          "float16": (torch.float16, jnp.float16),
+          "float64": (torch.float64, jnp.float64)}
+SIGNIFICANDS = {"bfloat16": (8, -126), "float16": (11, -14)}
+
+
+def _ulp(x: np.ndarray, name: str) -> np.ndarray:
+    """The spacing of ``name``'s values at |x|."""
+    bits, emin = SIGNIFICANDS[name]
+    e = np.floor(np.log2(np.maximum(np.abs(x), 2.0 ** emin)))
+    return 2.0 ** (e - (bits - 1))
+
+
+_DTYPE_LAYER = {}
+
+
+def _dtype_layer():
+    """A 64 x 256 weight of integers in -3..3 at density 0.3
+    (``default_rng(0)``), packed by both packages, and 5 tokens of
+    integers in -2..2 and of standard normals."""
+    if not _DTYPE_LAYER:
+        rng = np.random.default_rng(0)
+        w = (rng.integers(-3, 4, (64, 256))
+             * (rng.random((64, 256)) < 0.3)).astype(np.float32)
+        _DTYPE_LAYER.update(
+            ref=ref_sl.SparseLinear.from_dense(w, density=0.3),
+            port=port_sl.SparseLinear.from_dense(w, density=0.3,
+                                                 device="cpu"),
+            w=port_sl.magnitude_prune(w, 0.3),
+            x_int=rng.integers(-2, 3, (5, 256)).astype(np.float32),
+            x_real=rng.standard_normal((5, 256)).astype(np.float32))
+    return _DTYPE_LAYER
+
+
+@pytest.mark.parametrize("use_kernel", [True, False])
+@pytest.mark.parametrize("compact", [True, False])
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_apply_takes_the_reference_dtypes(dtype, compact, use_kernel):
+    """bf16 and fp16 activations come back in their own dtype on the
+    kernel paths, each step's fp32 product rounded to it before it is
+    added, as in the JAX package; the dense path returns fp32; fp64 runs
+    as fp32. Equal on integer activations; on normal ones within one ulp
+    of a 16-bit output (the fp32 sums inside a step may round the other
+    way), within fp32's dot-product bound (256 · 2^-24 · Σ|w||x|) of an
+    fp32 one."""
+    lay = _dtype_layer()
+    tdt, jdt = DTYPES[dtype]
+    for x in (lay["x_int"], lay["x_real"]):
+        want = np.asarray(lay["ref"].apply(
+            jnp.asarray(x, dtype=jdt), use_kernel=use_kernel,
+            compact=compact, interpret=True))
+        got = lay["port"].apply(torch.from_numpy(x).to(tdt),
+                                use_kernel=use_kernel, compact=compact)
+        name = want.dtype.name
+        assert str(got.dtype).split(".")[-1] == name
+        assert got.shape == want.shape == (5, 64)
+        got, want = got.float().numpy(), want.astype(np.float32)
+        if x is lay["x_int"]:
+            assert np.array_equal(got, want)
+        elif name in SIGNIFICANDS:
+            assert (np.abs(got - want) <= _ulp(want, name)).all()
+        else:
+            xr = np.asarray(jnp.asarray(x, dtype=jdt)).astype(np.float32)
+            bound = 256 * 2.0 ** -24 * (np.abs(xr) @ np.abs(lay["w"]).T)
+            assert (np.abs(got - want) <= bound).all()
+    if use_kernel and dtype in SIGNIFICANDS:
+        # rounded after every step, not once: the fp32 product rounded
+        # to the dtype differs somewhere
+        x = torch.from_numpy(lay["x_real"]).to(tdt)
+        got = lay["port"].apply(x, compact=compact)
+        once = lay["port"].apply(x.float(), compact=compact).to(tdt)
+        assert not torch.equal(got, once)
