@@ -20,10 +20,12 @@ a run without a card, or from a directory that does not hold the port):
    version's, the bound (from the work the product needs: true flops, CSR
    operands read once, the result written once), the bound of the
    kernel's tile-padded work beside it, and one PyTorch library call
-   timed as a yardstick the port never calls; the two kernels that walk
-   A's live slab columns also print their own device time (profiler),
-   the work bound of that walk and the time to build the live-column
-   form; the padded-grid and flash-attention kernels print their
+   timed as a yardstick the port never calls; the kernels that walk A's
+   live slab columns also print their own device time (profiler) and
+   the work bound of that walk (the window and compact SpMM kernels also
+   the time to build the live-column form, the revisit and sharded
+   kernels the window kernel's time on the same product and the CTAs
+   launched); the padded-grid and flash-attention kernels print their
    device time too, the padded grid its live tiles and its zero-fill's
    rate. The kernels: the window
    kernel (kron-14 dense strips, caveman-16384 slabs, a block_k = 512
@@ -34,8 +36,10 @@ a run without a card, or from a directory that does not hold the port):
    82,944 columns, past the live-pair grid's strip budget; fp32 and bf16
    tiles), the revisit kernel and the sharded kernel (kron-14 with 1 and
    SM-count shards, caveman-16384 with 1, 8 and SM-count shards, with and
-   without the revisit order — each also equal to the window kernel's
-   strips), the padded-lattice SpMM kernel on SparseLinear's weight (a
+   without the revisit order, and the revisit kernel on kron-14 times its
+   first 256 columns, whose 256-block windows run as 4-block segments —
+   each also equal to the window kernel's strips), the padded-lattice
+   SpMM kernel on SparseLinear's weight (a
    2,560 × 10,240 weight at density 0.1 with seeded tile sets and
    shuffled rows, 4,096 tokens; exact on integer values), the
    flash-attention kernel (zamba2-2.7b's prefill shape (128, 1024, 80)
@@ -159,6 +163,15 @@ def integer_valued(h, rng):
     from repro_torch.core.formats import HostCSR
     return HostCSR(h.indptr, h.indices,
                    rng.integers(1, 4, h.nnz).astype(np.float32), h.shape)
+
+
+def first_columns(h, n: int):
+    """``h``'s first ``n`` columns, as a HostCSR."""
+    from repro_torch.core.formats import HostCSR
+    c = scipy_csr(h)[:, :n].tocsr()
+    c.sort_indices()
+    return HostCSR(c.indptr.astype(np.int64), c.indices.astype(np.int32),
+                   c.data.astype(np.float32), c.shape)
 
 
 def timed_ms(fn, device, reps: int = 5) -> float:
@@ -589,11 +602,12 @@ def padded_case(name, a, b, device, *, b_dtype=None, timing=True):
     return case
 
 
-def stream_cases(label, h, device, configs, *, timing=True):
-    """The revisit (K7) and sharded (K8) kernels on ``h @ h`` at the
-    serving packing, one case per ``(shards, revisit)`` config: each
-    against its plain version and against the window kernel's dense
-    strips (the same sums in the same order: bit-identical)."""
+def stream_cases(label, h, device, configs, *, b=None, timing=True):
+    """The revisit (K7) and sharded (K8) kernels on ``h @ b`` (``b``
+    defaults to ``h``) at the serving packing, one case per ``(shards,
+    revisit)`` config: each against its plain version and against the
+    window kernel's dense strips (the same sums in the same order:
+    bit-identical), the window kernel timed in the same call."""
     import torch
     from repro_torch.core.formats import (bcc_from_host, select_block_k,
                                           tiled_csr_from_host)
@@ -603,71 +617,82 @@ def stream_cases(label, h, device, configs, *, timing=True):
         Segments, cluster_spgemm_revisit, cluster_spgemm_revisit_plain,
         cluster_spgemm_sharded, cluster_spgemm_sharded_plain,
         cluster_spgemm_windows)
+    b = h if b is None else b
     bk = select_block_k(h)
     bcc = bcc_from_host(h, block_k=bk, device=device)
-    tiled = tiled_csr_from_host(h, block_k=bk, device=device)
+    tiled = tiled_csr_from_host(b, block_k=bk, device=device)
     flat = ops.pack_spgemm(bcc, tiled, sparse_c=False)
-    base = cluster_spgemm_windows(flat.launch, flat.stream[2], tiled.tiles,
-                                  flat.cols)
-    del flat
-    true_flops = flops_spgemm(h, h)
-    bound_ms, bound_by = bound(csr_bytes(h.nrows, h.nnz)
-                               + 4 * h.nrows * h.ncols, true_flops)
+    base_run = lambda: cluster_spgemm_windows(  # noqa: E731
+        flat.launch, flat.stream[2], tiled.tiles, flat.cols)
+    base = base_run()
+    base_ms = timed_ms(base_run, device) if timing else None
+    del flat, base_run
+    true_flops = flops_spgemm(h, b)
+    csr_in = csr_bytes(h.nrows, h.nnz) + (
+        0 if b is h else csr_bytes(b.nrows, b.nnz))
+    bound_ms, bound_by = bound(csr_in + 4 * h.nrows * b.ncols, true_flops)
     hc = torch_csr(h, device)
-    lib_ms = (library_ms(lambda: torch.sparse.mm(hc, hc).to_dense(), device)
+    bc = hc if b is h else torch_csr(b, device)
+    lib_ms = (library_ms(lambda: torch.sparse.mm(hc, bc).to_dense(), device)
               if timing else None)
     cases = []
     for shards, revisit in configs:
         pack = ops.pack_spgemm(bcc, tiled, shards=shards, revisit=revisit)
-        work, a_vals = pack.launch, pack.stream[2]
+        work, a_vals, cols = pack.launch, pack.stream[2], pack.cols
         nshards = len(pack.shard_pack[1])
-        if isinstance(work, Segments) and nshards == 1:
-            kernel, fn, plain_fn = ("cluster_spgemm_revisit",
-                                    cluster_spgemm_revisit,
-                                    cluster_spgemm_revisit_plain)
+        segments = isinstance(work, Segments)
+        # the revisit route's plain version reads the padded slabs, so it
+        # holds the live-column walk to the padded sum
+        if segments and nshards == 1:
+            kernel, fn = "cluster_spgemm_revisit", cluster_spgemm_revisit
+            plain = lambda: cluster_spgemm_revisit_plain(  # noqa: E731
+                work, a_vals, tiled.tiles)
         else:
-            kernel, fn, plain_fn = ("cluster_spgemm_sharded",
-                                    cluster_spgemm_sharded,
-                                    cluster_spgemm_sharded_plain)
+            kernel, fn = "cluster_spgemm_sharded", cluster_spgemm_sharded
+            plain = lambda: cluster_spgemm_sharded_plain(  # noqa: E731
+                work, a_vals, tiled.tiles, cols)
         launches0 = fn.launches
-        # the window variant walks live columns, packed with the shards
-        extra = (pack.cols,) if kernel == "cluster_spgemm_sharded" else ()
-        run = lambda: fn(work, a_vals, tiled.tiles, *extra)  # noqa: E731
-        plain = lambda: plain_fn(  # noqa: E731
-            work, a_vals, tiled.tiles, *extra)
+        run = lambda: fn(work, a_vals, tiled.tiles, cols)  # noqa: E731
         got, want = run(), plain()
         ok = bool(torch.equal(got, want)) and bool(torch.equal(got, base))
         err = max(float((got - want).abs().max()),
                   float((got - base).abs().max()))
-        # few shards leave most SMs idle: fewer timed repetitions
-        reps = 3 if nshards < 32 else 5
-        ms = timed_ms(run, device, reps=reps) if timing else None
+        ms = timed_ms(run, device) if timing else None
+        device_ms = (kernel_device_ms(
+            run, device, "segment_kernel" if segments
+            else "window_kernel") if timing else None)
         plain_ms = timed_ms(plain, device, reps=3) if timing else None
         npairs = work.npairs
         tile_flops = 2 * npairs * work.block_r * bk * work.bn
         tile_bytes = (a_vals.numel() * 4 + tiled.tiles.numel() * 4
                       + got.numel() * 4 + 12 * npairs)
         tile_bound_ms, tile_bound_by = bound(tile_bytes, tile_flops)
-        walk = ({} if pack.cols is None else column_work(
-            pack.cols, work.a_idx,
+        # the live-column walk's own work: each pair's visits to its
+        # slab's live columns, the B tile rows (slot, k) they select
+        walk = column_work(
+            cols, work.a_idx,
             lambda slab, col, unit: (work.slots.long()[unit] * bk
-                                     + pack.cols.col_k.long()[col]),
-            work.bn * 4, got.numel() * 4, work.bn))
+                                     + cols.col_k.long()[col]),
+            work.bn * 4, got.numel() * 4, work.bn)
         case = {"case": f"{kernel} ({label}, shards={shards}, "
                         f"revisit={revisit})",
                 "kernel": kernel, "rows": h.nrows, "nnz": h.nnz,
-                "block_k": bk, "shards": nshards,
+                "b_cols": b.ncols, "block_k": bk, "shards": nshards,
                 "window_blocks": pack.shard_pack[2],
-                "ctas": (work.nseg if kernel == "cluster_spgemm_revisit"
-                         else nshards),
+                "segment_blocks": work.max_nblk if segments else None,
+                "ctas": work.nseg if segments else work.nwin,
                 "pairs": npairs, "true_flops": true_flops,
                 "tile_flops": tile_flops, "max_abs_err": err,
                 "tolerance": ("exact (torch.equal) against the plain "
                               "version and the window kernel"),
-                "matched": ok, "ms": ms, "plain_ms": plain_ms,
+                "matched": ok, "ms": ms, "kernel_device_ms": device_ms,
+                "window_kernel_ms": base_ms,
+                "vs_window_kernel": (ms / base_ms if timing else None),
+                "plain_ms": plain_ms,
                 "bound_ms": bound_ms, "bound_by": bound_by,
-                "bound_rule": ("max(bytes: CSR A once + dense C once / "
-                               "3.35 TB/s, true flops / 67 TFLOP/s fp32)"),
+                "bound_rule": ("max(bytes: CSR A (and B) once + dense C "
+                               "once / 3.35 TB/s, true flops / 67 TFLOP/s "
+                               "fp32)"),
                 "tile_bound_ms": tile_bound_ms,
                 "tile_bound_by": tile_bound_by, **walk,
                 "library": "torch.sparse.mm(csr, csr).to_dense()",
@@ -679,7 +704,7 @@ def stream_cases(label, h, device, configs, *, timing=True):
                              f"the window kernel on {label}: max abs err "
                              f"{err}")
         cases.append(case)
-        del got, want, pack, work
+        del got, want, pack, work, cols
     return cases
 
 
@@ -1723,7 +1748,12 @@ def main(argv=None) -> int:
         "caveman", cave_i, device,
         [(1, True), (8, False), (8, True), (sm_count, False),
          (sm_count, True)], timing=timing)
-    stream_all = kron_streams + cave_streams
+    # a B of 256 columns: nnb = 2, so 256-block revisit windows, each cut
+    # into 4-block segments for the kernel's shared-memory accumulator
+    narrow_streams = stream_cases(
+        "kron x its first 256 columns", kron_i, device, [(1, True)],
+        b=first_columns(kron_i, 256), timing=timing)
+    stream_all = kron_streams + cave_streams + narrow_streams
     lin_layer, lin_x = sparse_linear_layer(*linear, device, rng)
     padded_spmm = padded_spmm_case(
         "padded-lattice SpMM, SparseLinear d_model x d_ff weight",
@@ -1820,7 +1850,7 @@ def main(argv=None) -> int:
               "src/repro_torch/kernels/csrc/cluster_spgemm.cu",
               "src/repro/kernels/cluster_spgemm.py:594 (K8 "
               "cluster_spgemm_pairs_sharded, the shard_map dispatch; "
-              "window_sharded_kernel here, segment_sharded_kernel in "
+              "window_kernel here, segment_kernel in "
               "csrc/cluster_spgemm_revisit.cu)", sharded_cases,
               sharded_main),
         entry("cluster_spmm",

@@ -34,10 +34,13 @@ with the same wrapper contract and a plain version beside it:
   dtype, rounded after every step as the JAX package's kernel rounds it;
 * :func:`cluster_spgemm_revisit` (``csrc/cluster_spgemm_revisit.cu``) —
   ``cluster_spgemm_pairs_window`` over a revisit-ordered stream: one CTA
-  per (window, j) segment, each B tile staged once per run of blocks;
+  per (window, j) segment (split by block sub-range where the window is
+  wider than its shared-memory accumulator), walking A's live slab
+  columns as the window kernel does, consecutive pairs of one B tile
+  together;
 * :func:`cluster_spgemm_sharded` — ``cluster_spgemm_pairs_sharded``: one
-  persistent CTA per shard of ``partition_pair_stream``, walking the
-  shard's windows (window kernel) or segments (revisit kernel).
+  launch of one CTA per window (window kernel) or segment (revisit
+  kernel) of every shard of ``partition_pair_stream``, shard-major.
 """
 from __future__ import annotations
 
@@ -53,7 +56,8 @@ from repro_torch.kernels.columns import SlabColumns, columns_for
 __all__ = ["Windows", "windows_from_pairs", "windows_from_shards",
            "cluster_spgemm_windows", "cluster_spgemm_windows_plain",
            "PaddedGrid", "padded_grid", "cluster_spgemm_padded",
-           "cluster_spgemm_padded_plain", "Segments", "segments_from_shards",
+           "cluster_spgemm_padded_plain", "Segments", "segment_blocks",
+           "segments_from_shards",
            "cluster_spgemm_revisit", "cluster_spgemm_revisit_plain",
            "cluster_spgemm_sharded", "cluster_spgemm_sharded_plain"]
 
@@ -72,8 +76,9 @@ class Windows:
     rows are ``ldc`` elements apart. Only live pairs (slot > 0) are kept.
     ``order`` is the kernel's launch order of the windows — column strip
     major, so that CTAs running together read the same strip of B's tiles
-    — and does not change any sum. ``shard_ptr`` (sharded launches only)
-    splits the windows into the shards' contiguous ranges.
+    — and does not change any sum. ``shard_ptr`` (sharded streams only)
+    records where each shard's contiguous range of windows starts;
+    ``order`` is then shard-major, column strip major within a shard.
     """
 
     win_ptr: torch.Tensor      # (W+1,) int32
@@ -150,17 +155,23 @@ def windows_from_shards(ranges, shard_pairs, *, nblocks: int, nnb: int,
     """Dense-strip windows of a partitioned pair stream
     (``partition_pair_stream``: contiguous block ranges, each sub-stream
     in (block, s, j) order), with ``shard_ptr`` marking where each shard's
-    windows start — the launch of :func:`cluster_spgemm_sharded`."""
+    windows start and ``order`` launching them shard by shard, column
+    strip by column strip within each — the launch of
+    :func:`cluster_spgemm_sharded`."""
     cat = [np.concatenate([np.asarray(p[i]) for p in shard_pairs])
            for i in range(4)]
     w = windows_from_pairs(*cat, nblocks=nblocks, nnb=nnb, block_r=block_r,
                            bn=bn, device=device)
-    win_blk = (w.win_out // (block_r * w.ldc)).cpu().numpy()
+    win_out = w.win_out.cpu().numpy()
+    win_blk = win_out // (block_r * w.ldc)
     starts = np.asarray(ranges, dtype=np.int64)[:, 0]
     shard_ptr = np.append(np.searchsorted(win_blk, starts, side="left"),
-                          win_blk.size).astype(np.int32)
-    return dataclasses.replace(w, order=None, shard_ptr=torch.from_numpy(
-        shard_ptr).to(device))
+                          win_blk.size)
+    order = _shard_strip_order(shard_ptr, win_out % (block_r * w.ldc) // bn,
+                               win_blk)
+    return dataclasses.replace(
+        w, order=torch.from_numpy(order).to(device),
+        shard_ptr=torch.from_numpy(shard_ptr.astype(np.int32)).to(device))
 
 
 def _check_operands(block_r: int, bn: int, a_values: torch.Tensor,
@@ -326,7 +337,8 @@ def cluster_spgemm_windows(w: Windows, a_values: torch.Tensor,
     _check(w, a_values, b_tiles)
     out = torch.zeros(w.out_shape, dtype=torch.float32,
                       device=a_values.device)
-    if _launch(w, a_values, b_tiles, out, cols, sharded=False):
+    if _launch(w, a_values, b_tiles, out, cols,
+               what="cluster_spgemm_windows"):
         cluster_spgemm_windows.launches += 1
     return out
 
@@ -383,12 +395,10 @@ def _on_card(what: str, out: torch.Tensor, block_r: int, bn: int) -> None:
                          f"bn={bn}")
 
 
-def _launch(w: Windows, a_values, b_tiles, out, cols, *,
-            sharded: bool) -> bool:
+def _launch(w: Windows, a_values, b_tiles, out, cols, *, what: str) -> bool:
     """Launch the window kernel over the slabs' live columns: one CTA per
-    window, or (``sharded``) one persistent CTA per shard. False when
-    nothing is live (C stays zero and no kernel runs)."""
-    what = "cluster_spgemm_sharded" if sharded else "cluster_spgemm_windows"
+    window, in ``w.order``. False when nothing is live (C stays zero and
+    no kernel runs)."""
     _on_card(what, out, w.block_r, w.bn)
     cols = columns_for(a_values, cols)
     b_tiles = b_tiles.contiguous()
@@ -402,19 +412,13 @@ def _launch(w: Windows, a_values, b_tiles, out, cols, *,
             a_values.shape[2], w.bn, w.ldc, stream]
     types = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4 + [
         ctypes.c_longlong, ctypes.c_void_p]
-    if not sharded:
-        lib, fn = _kernel_fn("cluster_spgemm", "cluster_spgemm_windows",
-                             b_tiles, [ctypes.c_void_p] + types)
-        if w.order is not None and w.order.device != out.device:
-            raise ValueError(f"window order on {w.order.device}, operands "
-                             f"on {out.device}")
-        args = [None if w.order is None else w.order.data_ptr()] + args
-    else:
-        lib, fn = _kernel_fn("cluster_spgemm",
-                             "cluster_spgemm_windows_sharded", b_tiles,
-                             [ctypes.c_void_p, ctypes.c_int] + types)
-        args = [w.shard_ptr.data_ptr(), w.shard_ptr.shape[0] - 1] + args
-    _raise_on(fn(*args), lib, "cluster_spgemm", what)
+    if w.order is not None and w.order.device != out.device:
+        raise ValueError(f"window order on {w.order.device}, operands "
+                         f"on {out.device}")
+    order = None if w.order is None else w.order.data_ptr()
+    lib, fn = _kernel_fn("cluster_spgemm", "cluster_spgemm_windows",
+                         b_tiles, [ctypes.c_void_p] + types)
+    _raise_on(fn(order, *args), lib, "cluster_spgemm", what)
     return True
 
 
@@ -583,19 +587,26 @@ class Segments:
 
     ``seg_ptr[g] .. seg_ptr[g+1]`` are segment ``g``'s pairs: the live
     pairs of one window of ``window_blocks`` row blocks and one column
-    strip ``j``, in the stream's (slot, block) order. The segment's C strip
-    starts at flat offset ``seg_out[g]`` (rows ``ldc`` apart) and spans
-    ``seg_nblk[g]`` blocks; pair ``p`` adds to block ``rows[p]`` of it.
-    ``shard_ptr`` splits the segments into the shards' ranges."""
+    strip ``j`` — or of one sub-range of the window's blocks
+    (:func:`segment_blocks`), where the window is wider than the kernel's
+    accumulator — in the stream's (slot, block) order. The segment's C
+    strip starts at flat offset ``seg_out[g]`` (rows ``ldc`` apart) and
+    spans ``seg_nblk[g]`` blocks; pair ``p`` adds to block ``rows[p]`` of
+    it. ``shard_ptr`` records where each shard's range of segments
+    starts, and CTA ``x`` runs segment ``order[x]``: shard by shard,
+    column strip by column strip within each."""
 
     seg_ptr: torch.Tensor      # (G+1,) int32
     seg_out: torch.Tensor      # (G,) int64
     seg_nblk: torch.Tensor     # (G,) int32
-    rows: torch.Tensor         # (P,) int32 block within the window
+    rows: torch.Tensor         # (P,) int32 block within the segment
     slots: torch.Tensor        # (P,) int32
     a_idx: torch.Tensor        # (P,) int32
     shard_ptr: torch.Tensor    # (nshards+1,) int32
+    order: torch.Tensor        # (G,) int32 launch order
     window_blocks: int
+    max_nblk: int              # widest segment, in blocks
+    ntiles: int                # live (block, j) tiles of C
     out_shape: tuple
     ldc: int
     block_r: int
@@ -610,89 +621,136 @@ class Segments:
         return int(self.slots.shape[0])
 
 
+# bytes of a segment's accumulator in the revisit kernel's shared memory
+# (csrc/cluster_spgemm_revisit.cu sizes it from the segments): 4 blocks at
+# bn = 128, so that a narrow B's wide windows still give the card many CTAs
+KERNEL_SEG_ACC_BYTES = 16 * 1024
+
+
+def segment_blocks(block_r: int, bn: int) -> int:
+    """Row blocks of one segment: as many ``(block_r, bn)`` fp32 strips
+    as the revisit kernel's accumulator holds."""
+    return max(1, KERNEL_SEG_ACC_BYTES // (block_r * bn * 4))
+
+
+def _shard_strip_order(shard_ptr: np.ndarray, js: np.ndarray,
+                       blks: np.ndarray) -> np.ndarray:
+    """The launch order of items listed shard by shard (``shard_ptr``
+    ranges): shard-major, then by column strip ``js``, then first block
+    ``blks``."""
+    shard = np.repeat(np.arange(shard_ptr.size - 1), np.diff(shard_ptr))
+    return np.lexsort((blks, js, shard)).astype(np.int32)
+
+
 def segments_from_shards(ranges, shard_pairs, *, window_blocks: int,
                          nblocks: int, nnb: int, block_r: int, bn: int,
                          device) -> Segments:
     """Segment a partition of revisit-ordered sub-streams (each shard's
     ``revisit_pair_stream`` with ``block_base`` = its first block) by
-    (window, j), keeping the stream order. Zero-slot sentinels and tail
-    pads are dropped."""
+    (window, j) and, where a window has more than
+    :func:`segment_blocks` blocks, by sub-range of them: a stable
+    regrouping, so each segment keeps the stream's order and every
+    ``(block, j)`` its slot order. Zero-slot sentinels and tail pads are
+    dropped."""
     ldc = nnb * bn
-    seg_ptr, seg_out, seg_nblk = [0], [], []
+    sub = min(segment_blocks(block_r, bn), window_blocks)
+    nparts = -(-window_blocks // sub)
+    seg_ptr, seg_out, seg_nblk, seg_j, seg_blk0 = [0], [], [], [], []
     rows, slots, a_idx, shard_ptr = [], [], [], [0]
     npairs = 0
+    tile_live = np.zeros(nblocks * nnb, bool)
     for (start, end), pairs in zip(np.asarray(ranges, dtype=np.int64),
                                    shard_pairs):
         blocks, js, sl, ai = (np.asarray(p).astype(np.int64) for p in pairs)
         live = sl > 0
         blocks, js, sl, ai = blocks[live], js[live], sl[live], ai[live]
-        win = (blocks - start) // window_blocks
-        key = win * nnb + js
+        tile_live[blocks * nnb + js] = True
+        local = blocks - start
+        win = local // window_blocks
+        key = ((win * nnb + js) * nparts
+               + (local - win * window_blocks) // sub)
+        o = np.argsort(key, kind="stable")
+        blocks, sl, ai, key = blocks[o], sl[o], ai[o], key[o]
         first = np.flatnonzero(np.r_[True, key[1:] != key[:-1]]) \
             if key.size else np.zeros(0, np.int64)
-        blk0 = start + win[first] * window_blocks
-        seg_ptr.extend((npairs + np.r_[first[1:], key.size])[
-            : first.size].tolist())
-        seg_out.append(blk0 * block_r * ldc + js[first] * bn)
-        seg_nblk.append(np.minimum(window_blocks, end - blk0))
-        rows.append(blocks - (start + win * window_blocks))
+        fkey = key[first]
+        fwin = fkey // (nnb * nparts)
+        fj = fkey // nparts % nnb
+        blk0 = start + fwin * window_blocks + fkey % nparts * sub
+        wend = np.minimum(start + (fwin + 1) * window_blocks, end)
+        counts = np.diff(np.r_[first, key.size])
+        seg_ptr.extend((npairs + np.cumsum(counts)).tolist())
+        seg_out.append(blk0 * block_r * ldc + fj * bn)
+        seg_nblk.append(np.minimum(blk0 + sub, wend) - blk0)
+        seg_j.append(fj)
+        seg_blk0.append(blk0)
+        rows.append(blocks - np.repeat(blk0, counts))
         slots.append(sl)
         a_idx.append(ai)
         shard_ptr.append(shard_ptr[-1] + first.size)
         npairs += key.size
 
-    def dev(parts, dtype):
-        arr = np.concatenate(parts) if parts else np.zeros(0)
-        return torch.from_numpy(arr.astype(dtype)).to(device)
+    def cat(parts):
+        return np.concatenate(parts) if parts else np.zeros(0, np.int64)
 
+    def dev(arr, dtype):
+        return torch.from_numpy(np.asarray(arr).astype(dtype)).to(device)
+
+    shard_ptr = np.asarray(shard_ptr, np.int64)
+    nblk = cat(seg_nblk)
     return Segments(
-        seg_ptr=dev([np.asarray(seg_ptr)], np.int32),
-        seg_out=dev(seg_out, np.int64), seg_nblk=dev(seg_nblk, np.int32),
-        rows=dev(rows, np.int32), slots=dev(slots, np.int32),
-        a_idx=dev(a_idx, np.int32),
-        shard_ptr=dev([np.asarray(shard_ptr)], np.int32),
+        seg_ptr=dev(seg_ptr, np.int32), seg_out=dev(cat(seg_out), np.int64),
+        seg_nblk=dev(nblk, np.int32), rows=dev(cat(rows), np.int32),
+        slots=dev(cat(slots), np.int32), a_idx=dev(cat(a_idx), np.int32),
+        shard_ptr=dev(shard_ptr, np.int32),
+        order=dev(_shard_strip_order(shard_ptr, cat(seg_j), cat(seg_blk0)),
+                  np.int32),
         window_blocks=int(window_blocks),
-        out_shape=(nblocks * block_r, ldc), ldc=ldc, block_r=block_r, bn=bn)
+        max_nblk=int(nblk.max()) if nblk.size else 0,
+        ntiles=int(tile_live.sum()), out_shape=(nblocks * block_r, ldc),
+        ldc=ldc, block_r=block_r, bn=bn)
 
 
 def _check_segments(g: Segments, a_values, b_tiles) -> None:
     _check_operands(g.block_r, g.bn, a_values, b_tiles, g.seg_ptr,
                     g.seg_out, g.seg_nblk, g.rows, g.slots, g.a_idx,
-                    g.shard_ptr)
+                    g.shard_ptr, g.order)
 
 
-def _launch_segments(g: Segments, a_values, b_tiles, out, *,
-                     sharded: bool) -> bool:
-    """Launch the revisit kernel: one CTA per segment, or (``sharded``)
-    one persistent CTA per shard. False when nothing is live."""
-    what = "cluster_spgemm_sharded" if sharded else "cluster_spgemm_revisit"
+def _launch_segments(g: Segments, a_values, b_tiles, out, cols, *,
+                     what: str) -> bool:
+    """Launch the revisit kernel over the slabs' live columns, one CTA per
+    segment of every shard, in ``g.order``. False when nothing is
+    live."""
     _on_card(what, out, g.block_r, g.bn)
-    a_values = a_values.contiguous()
+    cols = columns_for(a_values, cols)
     b_tiles = b_tiles.contiguous()
     if g.nseg == 0:
         return False
     lib, fn = _kernel_fn(
         "cluster_spgemm_revisit", "cluster_spgemm_revisit", b_tiles,
-        [ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 9
-        + [ctypes.c_int] * 3 + [ctypes.c_longlong, ctypes.c_int,
-                                ctypes.c_void_p])
+        [ctypes.c_void_p] * 12 + [ctypes.c_int] * 6
+        + [ctypes.c_longlong, ctypes.c_void_p])
     stream = torch.cuda.current_stream(out.device).cuda_stream
-    rc = fn(g.shard_ptr.data_ptr() if sharded else None,
-            g.shard_ptr.shape[0] - 1, g.seg_ptr.data_ptr(),
-            g.seg_out.data_ptr(), g.seg_nblk.data_ptr(), g.rows.data_ptr(),
-            g.slots.data_ptr(), g.a_idx.data_ptr(), a_values.data_ptr(),
-            b_tiles.data_ptr(), out.data_ptr(), g.nseg, a_values.shape[2],
-            g.bn, g.ldc, g.window_blocks, stream)
+    rc = fn(g.order.data_ptr(), g.seg_ptr.data_ptr(), g.seg_out.data_ptr(),
+            g.seg_nblk.data_ptr(), g.rows.data_ptr(), g.slots.data_ptr(),
+            g.a_idx.data_ptr(), cols.col_ptr.data_ptr(),
+            cols.col_k.data_ptr(), cols.col_vals.data_ptr(),
+            b_tiles.data_ptr(), out.data_ptr(), g.nseg, g.npairs,
+            g.ntiles, g.max_nblk, a_values.shape[2], g.bn, g.ldc, stream)
     _raise_on(rc, lib, "cluster_spgemm_revisit", what)
     return True
 
 
 def cluster_spgemm_revisit(g: Segments, a_values: torch.Tensor,
-                           b_tiles: torch.Tensor) -> torch.Tensor:
+                           b_tiles: torch.Tensor,
+                           cols: SlabColumns | None = None) -> torch.Tensor:
     """C = A_bcc @ B_tiled over a revisit-ordered stream: every segment's
-    pairs added to their blocks of its window strip, per element in slot
+    pairs added to their blocks of its strip, per element in slot
     (= A-stream) order — the window kernel's sums, bit for bit. Returns
-    the zero-filled fp32 ``g.out_shape`` C.
+    the zero-filled fp32 ``g.out_shape`` C. ``cols`` is the slabs'
+    live-column form (:func:`slab_columns`, built here when absent —
+    callers that launch again keep it).
 
     CUDA tensors launch the hand-written kernel (one CTA per segment; add
     one to ``cluster_spgemm_revisit.launches``); CPU tensors run the plain
@@ -702,7 +760,8 @@ def cluster_spgemm_revisit(g: Segments, a_values: torch.Tensor,
     _check_segments(g, a_values, b_tiles)
     out = torch.zeros(g.out_shape, dtype=torch.float32,
                       device=a_values.device)
-    if _launch_segments(g, a_values, b_tiles, out, sharded=False):
+    if _launch_segments(g, a_values, b_tiles, out, cols,
+                        what="cluster_spgemm_revisit"):
         cluster_spgemm_revisit.launches += 1
     return out
 
@@ -713,18 +772,21 @@ cluster_spgemm_revisit.launches = 0
 def cluster_spgemm_revisit_plain(g: Segments, a_values: torch.Tensor,
                                  b_tiles: torch.Tensor) -> torch.Tensor:
     """The plain PyTorch version of :func:`cluster_spgemm_revisit` (and of
-    its sharded launch), on any device: each pair's product, in stream
-    order, ``index_add_``ed into its (block, j) tile."""
+    its sharded launch), on any device: each pair's padded product, in
+    stream order, ``index_add_``ed into its (block, j) tile. It reads the
+    whole slabs, not their live columns, so it holds the kernel's
+    live-column walk to the padded sum (equal on finite data)."""
     _check_segments(g, a_values, b_tiles)
     dev = a_values.device
     out = torch.zeros(g.out_shape, dtype=torch.float32, device=dev)
     counts = (g.seg_ptr[1:] - g.seg_ptr[:-1]).long()
     pair_seg = torch.repeat_interleave(torch.arange(g.nseg, device=dev),
                                        counts)
-    key = pair_seg * g.window_blocks + g.rows.long()
+    span = max(g.max_nblk, 1)
+    key = pair_seg * span + g.rows.long()
     ukey, pair_tile = torch.unique(key, return_inverse=True)
-    tile_out = (g.seg_out[ukey // g.window_blocks]
-                + (ukey % g.window_blocks) * (g.block_r * g.ldc))
+    tile_out = (g.seg_out[ukey // span]
+                + (ukey % span) * (g.block_r * g.ldc))
     return _tile_sum_plain(pair_tile, tile_out, g.slots, g.a_idx, a_values,
                            b_tiles, out, block_r=g.block_r, bn=g.bn,
                            ldc=g.ldc)
@@ -733,13 +795,13 @@ def cluster_spgemm_revisit_plain(g: Segments, a_values: torch.Tensor,
 def cluster_spgemm_sharded(work: Windows | Segments, a_values: torch.Tensor,
                            b_tiles: torch.Tensor,
                            cols: SlabColumns | None = None) -> torch.Tensor:
-    """C = A_bcc @ B_tiled over a partitioned pair stream, one persistent
-    CTA per shard: ``work`` is :func:`windows_from_shards`' dense-strip
-    windows or :func:`segments_from_shards`' revisit segments, each with
-    its ``shard_ptr``. Shards own disjoint block ranges, so the result is
-    the unsharded kernel's, bit for bit. Returns the zero-filled fp32 C.
-    ``cols`` (windows only: the revisit kernel reads the padded slabs) is
-    the slabs' live-column form, built here when absent.
+    """C = A_bcc @ B_tiled over a partitioned pair stream, in one launch of
+    one CTA per window (``work``: :func:`windows_from_shards`' dense-strip
+    windows) or per segment (:func:`segments_from_shards`' revisit
+    segments) of every shard, shard-major, each shard column strip by
+    column strip. Shards own disjoint block ranges, so the result is the
+    unsharded kernel's, bit for bit. Returns the zero-filled fp32 C.
+    ``cols`` is the slabs' live-column form, built here when absent.
 
     CUDA tensors launch the hand-written kernel (and add one to
     ``cluster_spgemm_sharded.launches``); CPU tensors run the plain
@@ -752,12 +814,12 @@ def cluster_spgemm_sharded(work: Windows | Segments, a_values: torch.Tensor,
                       device=a_values.device)
     if isinstance(work, Segments):
         _check_segments(work, a_values, b_tiles)
-        launched = _launch_segments(work, a_values, b_tiles, out,
-                                    sharded=True)
+        launched = _launch_segments(work, a_values, b_tiles, out, cols,
+                                    what="cluster_spgemm_sharded")
     else:
         _check(work, a_values, b_tiles)
         launched = _launch(work, a_values, b_tiles, out, cols,
-                           sharded=True)
+                           what="cluster_spgemm_sharded")
     if launched:
         cluster_spgemm_sharded.launches += 1
     return out

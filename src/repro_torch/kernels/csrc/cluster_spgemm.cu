@@ -6,8 +6,9 @@
 //   cluster_spgemm_pairs_db            -> dense C row-strip output
 //   cluster_spgemm_pairs_sparse,
 //   cluster_spgemm_pairs_sparse_db     -> CompactedC slab output
-//   cluster_spgemm_pairs_sharded       -> window_sharded_kernel: one
-//                                         persistent CTA per shard (K8)
+//   cluster_spgemm_pairs_sharded       -> the same kernel over every
+//                                         shard's windows in one launch
+//                                         (K8)
 // All five compute, for every live (blk, j) window of C,
 //   C[blk*8 : +8, j*bn : +bn] = sum over the window's pairs p, s ascending,
 //                               of A_slab[a_idx[p]] @ B_tile[slot[p]]
@@ -37,7 +38,10 @@
 //    parts in order through shared memory, which shortens the chain of a
 //    hub window; at about one pair per window (caveman) it is one warp.
 //  * Windows launch column strip by column strip (Windows.order), so the
-//    CTAs in flight read one strip of B's tiles, which stays in L2.
+//    CTAs in flight read one strip of B's tiles, which stays in L2. A
+//    sharded stream is one launch too: its order is shard-major, then
+//    strip by strip within each shard. Shards own disjoint row ranges, so
+//    the windows (and the sums) are the unsharded stream's.
 //
 // What bounds it: kron-14 A^2 (16,384 rows, 8.2M live pairs in 258,210
 // windows) visits ~41M live columns, one 512-byte B row each: ~21 GB of
@@ -63,29 +67,25 @@ namespace {
 
 constexpr int kBNMax = 128;     // widest window (bn)
 
-// A window's live pairs: pair p walks the live columns of slab a_idx[p]
-// against B tile slots[p].
-struct PairUnits {
-  const int32_t* a_idx;
-  const int32_t* slots;
-  const int32_t* col_ptr;
-  __device__ live_columns::Meta meta(int p) const {
-    const int a = a_idx[p];
-    return {col_ptr[a], col_ptr[a + 1], slots[p]};
-  }
-};
+using live_columns::PairUnits;
 
-// One window: the sum of its pairs over their live columns, written once.
-// The one-window-per-CTA kernel and the persistent sharded kernel run the
-// same body.
+// One CTA per window, the sum of its pairs over their live columns,
+// written once; `order` (optional) is the launch order of the windows, so
+// that CTAs running together share B's column strip.
 template <typename TB, int V>
-__device__ __forceinline__ void window_body(
-    int w, const int32_t* __restrict__ win_ptr,
-    const int64_t* __restrict__ win_out, const PairUnits& units,
-    const int32_t* __restrict__ col_k, const float* __restrict__ col_vals,
-    const TB* __restrict__ b_tiles, float* __restrict__ out, int block_k,
-    int bn, int64_t ldc, int groups_q, const live_columns::Geometry& g) {
+__global__ void __launch_bounds__(live_columns::kMaxThreads,
+                                  live_columns::kMinBlocks)
+window_kernel(const int32_t* __restrict__ order,
+              const int32_t* __restrict__ win_ptr,
+              const int64_t* __restrict__ win_out, PairUnits units,
+              const int32_t* __restrict__ col_k,
+              const float* __restrict__ col_vals,
+              const TB* __restrict__ b_tiles, float* __restrict__ out,
+              int block_k, int bn, int64_t ldc, int groups_q) {
   using namespace live_columns;
+  extern __shared__ float4 smem4[];
+  const Geometry g(groups_q, smem4);
+  const int w = order ? order[blockIdx.x] : static_cast<int>(blockIdx.x);
   const int c = g.q * V;
   const bool active = g.lane_used && c < bn;
   const TB* cols = b_tiles + (active ? c : 0);
@@ -105,56 +105,13 @@ __device__ __forceinline__ void window_body(
   }
 }
 
-// One CTA per window; `order` (optional) is the launch order of the
-// windows, so that CTAs running together share B's column strip.
-template <typename TB, int V>
-__global__ void __launch_bounds__(live_columns::kMaxThreads,
-                                  live_columns::kMinBlocks)
-window_kernel(const int32_t* __restrict__ order,
-              const int32_t* __restrict__ win_ptr,
-              const int64_t* __restrict__ win_out, PairUnits units,
-              const int32_t* __restrict__ col_k,
-              const float* __restrict__ col_vals,
-              const TB* __restrict__ b_tiles, float* __restrict__ out,
-              int block_k, int bn, int64_t ldc, int groups_q) {
-  extern __shared__ float4 smem4[];
-  const live_columns::Geometry g(groups_q, smem4);
-  const int w = order ? order[blockIdx.x] : static_cast<int>(blockIdx.x);
-  window_body<TB, V>(w, win_ptr, win_out, units, col_k, col_vals, b_tiles,
-                     out, block_k, bn, ldc, groups_q, g);
-}
-
-// K8, the sharded pair stream: one persistent CTA per shard walks the
-// windows shard_ptr[shard] .. shard_ptr[shard + 1] in order. A shard is a
-// contiguous range of row blocks, so its windows are a contiguous range of
-// the window-major stream and no two CTAs write the same C rows.
-template <typename TB, int V>
-__global__ void __launch_bounds__(live_columns::kMaxThreads,
-                                  live_columns::kMinBlocks)
-window_sharded_kernel(const int32_t* __restrict__ shard_ptr,
-                      const int32_t* __restrict__ win_ptr,
-                      const int64_t* __restrict__ win_out, PairUnits units,
-                      const int32_t* __restrict__ col_k,
-                      const float* __restrict__ col_vals,
-                      const TB* __restrict__ b_tiles, float* __restrict__ out,
-                      int block_k, int bn, int64_t ldc, int groups_q) {
-  extern __shared__ float4 smem4[];
-  const live_columns::Geometry g(groups_q, smem4);
-  const int w1 = shard_ptr[blockIdx.x + 1];
-  for (int w = shard_ptr[blockIdx.x]; w < w1; ++w) {
-    window_body<TB, V>(w, win_ptr, win_out, units, col_k, col_vals, b_tiles,
-                       out, block_k, bn, ldc, groups_q, g);
-  }
-}
-
 template <typename TB>
-int launch(const void* shard_ptr, int nshards, const void* order,
-           const void* win_ptr, const void* win_out, const void* slots,
-           const void* a_idx, const void* col_ptr, const void* col_k,
-           const void* col_vals, const void* b_tiles, void* out, int nwin,
-           int npairs, int block_k, int bn, long long ldc, void* stream) {
-  if (nwin <= 0 || block_k <= 0 || bn <= 0 || bn > kBNMax ||
-      (shard_ptr != nullptr && nshards <= 0)) {
+int launch(const void* order, const void* win_ptr, const void* win_out,
+           const void* slots, const void* a_idx, const void* col_ptr,
+           const void* col_k, const void* col_vals, const void* b_tiles,
+           void* out, int nwin, int npairs, int block_k, int bn,
+           long long ldc, void* stream) {
+  if (nwin <= 0 || block_k <= 0 || bn <= 0 || bn > kBNMax) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   // V-wide loads and stores need V-aligned strips: bn, ldc and every
@@ -179,16 +136,9 @@ int launch(const void* shard_ptr, int nshards, const void* order,
   const auto o = static_cast<float*>(out);
   const auto go = [&](auto vec) {
     constexpr int V = decltype(vec)::value;
-    if (shard_ptr == nullptr) {
-      window_kernel<TB, V><<<nwin, shape.threads, shape.smem_bytes, s>>>(
-          static_cast<const int32_t*>(order), wp, wo, units, ck, cv, bt, o,
-          block_k, bn, ldc, shape.groups_q);
-    } else {
-      window_sharded_kernel<TB, V>
-          <<<nshards, shape.threads, shape.smem_bytes, s>>>(
-              static_cast<const int32_t*>(shard_ptr), wp, wo, units, ck, cv,
-              bt, o, block_k, bn, ldc, shape.groups_q);
-    }
+    window_kernel<TB, V><<<nwin, shape.threads, shape.smem_bytes, s>>>(
+        static_cast<const int32_t*>(order), wp, wo, units, ck, cv, bt, o,
+        block_k, bn, ldc, shape.groups_q);
   };
   if (vec == 4) {
     go(std::integral_constant<int, 4>());
@@ -209,27 +159,13 @@ int launch(const void* shard_ptr, int nshards, const void* order,
                       const void* col_k, const void* col_vals,               \
                       const void* b_tiles, void* out, int nwin, int npairs,  \
                       int block_k, int bn, long long ldc, void* stream) {    \
-    return launch<TB>(nullptr, 0, order, win_ptr, win_out, slots, a_idx,     \
-                      col_ptr, col_k, col_vals, b_tiles, out, nwin, npairs,  \
-                      block_k, bn, ldc, stream);                             \
-  }
-#define SHARDED_ENTRY(NAME, TB)                                              \
-  extern "C" int NAME(const void* shard_ptr, int nshards,                    \
-                      const void* win_ptr, const void* win_out,              \
-                      const void* slots, const void* a_idx,                  \
-                      const void* col_ptr, const void* col_k,                \
-                      const void* col_vals, const void* b_tiles, void* out,  \
-                      int nwin, int npairs, int block_k, int bn,             \
-                      long long ldc, void* stream) {                         \
-    return launch<TB>(shard_ptr, nshards, nullptr, win_ptr, win_out, slots,  \
-                      a_idx, col_ptr, col_k, col_vals, b_tiles, out, nwin,   \
-                      npairs, block_k, bn, ldc, stream);                     \
+    return launch<TB>(order, win_ptr, win_out, slots, a_idx, col_ptr, col_k, \
+                      col_vals, b_tiles, out, nwin, npairs, block_k, bn,     \
+                      ldc, stream);                                          \
   }
 
 WINDOWS_ENTRY(cluster_spgemm_windows_f32, float)
 WINDOWS_ENTRY(cluster_spgemm_windows_bf16, __nv_bfloat16)
-SHARDED_ENTRY(cluster_spgemm_windows_sharded_f32, float)
-SHARDED_ENTRY(cluster_spgemm_windows_sharded_bf16, __nv_bfloat16)
 
 extern "C" const char* cluster_spgemm_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));

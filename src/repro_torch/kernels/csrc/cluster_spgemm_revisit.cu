@@ -2,287 +2,235 @@
 // stream, hand-written for Hopper (sm_90a), IEEE fp32 on the CUDA cores.
 //
 // Replaces the TPU kernels of src/repro/kernels/cluster_spgemm.py:
-//   cluster_spgemm_pairs_window        -> segment_kernel: one CTA per
+//   cluster_spgemm_pairs_window        -> segment_kernel, one CTA per
 //                                         (window, j) segment (K7)
-//   cluster_spgemm_pairs_sharded with  -> segment_sharded_kernel: one
-//   window_blocks set                     persistent CTA per shard (K8)
+//   cluster_spgemm_pairs_sharded with  -> the same kernel over every
+//   window_blocks set                     shard's segments in one launch
+//                                         (K8)
 // The revisit order (core/formats.py::revisit_pair_stream) sorts the pairs
 // of each window of `window_blocks` consecutive row blocks by
 // (j, slot, block), so a B tile's uses across the window's blocks are
 // adjacent. For every live pair p of window W and column strip j,
 //   C[blk*8 : +8, j*bn : +bn] += A_slab[a_idx[p]] @ B_tile[slot[p]]
-// with blk = window origin + rows[p]. Per C element the pairs come slot
-// ascending, which is A-stream ascending, so each element's sum has the
-// order of the window kernel (csrc/cluster_spgemm.cu): bit-identical output.
+// with blk = the segment's first block + rows[p]. Per C element the pairs
+// come slot ascending, which is A-stream ascending, so each element's sum
+// has the order of the window kernel (csrc/cluster_spgemm.cu): identical
+// output, bit for bit.
 //
 // Design:
-//  * One CTA per (window, j) segment of the stream (seg_ptr offsets). The
-//    CTA owns that window's column strip of C: no other CTA writes it, so
-//    no atomics. The TPU kernel zeroed the whole window on entry; here the
-//    caller zero-fills C, and the CTA writes its strip once.
-//  * The point of the order is the B fetch dedup: the CTA stages a B tile's
-//    K sub-tile in shared memory once per run of equal slot (up to kRun
-//    blocks at a time) and applies it to every block of the run. Each
-//    block's pair product is summed in registers (part) over the whole of
-//    block_k before it is added to the block's accumulator, as the window
-//    kernel does.
-//  * The accumulator for the window strip (window_blocks x 8 x 128 fp32) is
-//    kept in shared memory while it fits (kAccMaxBytes); revisit_window_
-//    blocks sizes windows for a 2 MiB TPU budget, so at nnb <= 2 a window is
-//    256 blocks (1 MiB) and the CTA then adds into its own C strip in
-//    global memory instead. Each thread owns the same 4 elements of every
-//    block (column t % 128, rows 4 * (t / 128) .. + 3), so the accumulator
-//    needs no synchronisation.
-//  * 256 threads; A slabs and B tiles are staged in K sub-tiles of 64 rows
-//    (block_k reaches 512).
+//  * One CTA per segment: the pairs of one window and one column strip j,
+//    or, where the window is wider than the accumulator below holds, of
+//    one sub-range of its blocks (kernels/cluster_spgemm.py::
+//    segments_from_shards splits it at pack time, keeping the stream order
+//    within each part). The CTA owns that strip of C: no other CTA writes
+//    it, so no atomics. The caller zero-fills C; the CTA writes its strip
+//    once. A sharded launch runs every shard's segments as one grid; the
+//    launch order (order) is shard-major and column strip by column strip
+//    within a shard, so the CTAs in flight share B's strip in L2.
+//  * The pairs are walked over A's live columns (live_columns.cuh, the
+//    window kernel's walk): each live column k of slab a_idx[p] reads row
+//    k of B tile slots[p] and applies it to the block's 8 rows; the padded
+//    slab is never read. A CTA runs up to 8 consecutive pairs at a time,
+//    one unit group (a warp at bn = 128) each: as many groups as a (block,
+//    j) tile's pairs call for, while the segments leave the card's thread
+//    slots unfilled. Pairs of one slot run come together, so a B tile's
+//    rows are read close in time (L1 hits); on an H100 the same segments
+//    run block-major were only a few per cent slower on kron-14 A^2, the B
+//    rows being L2 hits either way (PERF.md).
+//  * Each pair's part (k ascending) is added to its block's accumulator in
+//    pair order by group 0, which owns the whole strip in shared memory
+//    (segment blocks x 8 x bn fp32; the host's segment_blocks in
+//    kernels/cluster_spgemm.py bounds it at 16 KiB, 4 blocks at bn = 128);
+//    each thread owns the same V columns of every row, so the adds need no
+//    synchronisation.
 //
-// What bounds it: the same tile-padded fp32 multiply-adds as the window
-// kernel (2 * 8 * block_k * bn per live pair, ~31 ms at kron-14 at the
-// 67 TFLOP/s fp32 rate of the H100 SXM data sheet); what the order saves is
-// B bytes (one fetch per tile per window run instead of per block), which
-// on a card whose L2 holds 50 MB may already be served from cache. PERF.md
-// has the measured times.
+// What bounds it: the window kernel's live-column walk (kron-14 A^2: ~41M
+// live-column visits, 2 * 8 * bn flops each, ~1.25 ms at 67 TFLOP/s fp32)
+// and the dense C written once (1 GiB, ~0.32 ms at 3.35 TB/s); like that
+// kernel it is held by the load latency of each pair's metadata, columns
+// and B rows. PERF.md has the measured times.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
+#include "live_columns.cuh"
+
 namespace {
 
-constexpr int kBR = 8;          // rows of a BCC block (block_r)
 constexpr int kBNMax = 128;     // widest column strip (bn)
-constexpr int kKT = 64;         // K sub-tile staged per step
-constexpr int kRun = 8;         // blocks of one slot run staged together
-constexpr int kThreads = 256;
-constexpr int kStageFloats = kKT * kBNMax + kRun * kKT * kBR;
-constexpr int kAccMaxBytes = 160 * 1024;
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
+using live_columns::PairUnits;
 
-template <typename TB, bool kSmemAcc>
-__device__ __forceinline__ void segment_body(
-    int g, const int32_t* __restrict__ seg_ptr,
-    const int64_t* __restrict__ seg_out, const int32_t* __restrict__ seg_nblk,
-    const int32_t* __restrict__ rows, const int32_t* __restrict__ slots,
-    const int32_t* __restrict__ a_idx, const float* __restrict__ a_values,
-    const TB* __restrict__ b_tiles, float* __restrict__ out, int block_k,
-    int bn, int64_t ldc, float* smem) {
-  float* b_s = smem;                      // [kKT][kBNMax]
-  float* a_s = b_s + kKT * kBNMax;        // [kRun][kKT][kBR]
-  float* acc = a_s + kRun * kKT * kBR;    // [nblk * kBR][kBNMax]
-  const int t = threadIdx.x;
-  const int col = t & (kBNMax - 1);
-  const int row0 = (t >> 7) * 4;
-  const int p0 = seg_ptr[g];
-  const int p1 = seg_ptr[g + 1];
-  const int nblk = seg_nblk[g];
-  float* o = out + seg_out[g];
-  if (kSmemAcc) {
-    for (int rb = 0; rb < nblk; ++rb) {
+template <int V>
+__device__ __forceinline__ void add_vec(float* p, const float (&x)[V]) {
+  if constexpr (V == 4) {
+    float4 a = *reinterpret_cast<float4*>(p);
+    a.x += x[0]; a.y += x[1]; a.z += x[2]; a.w += x[3];
+    *reinterpret_cast<float4*>(p) = a;
+  } else if constexpr (V == 2) {
+    float2 a = *reinterpret_cast<float2*>(p);
+    a.x += x[0]; a.y += x[1];
+    *reinterpret_cast<float2*>(p) = a;
+  } else {
 #pragma unroll
-      for (int q = 0; q < 4; ++q) acc[(rb * kBR + row0 + q) * kBNMax + col] = 0.f;
-    }
-  }
-  for (int p = p0; p < p1;) {
-    const int slot = slots[p];
-    int n = 1;
-    while (p + n < p1 && n < kRun && slots[p + n] == slot) ++n;
-    const TB* b = b_tiles + static_cast<int64_t>(slot) * block_k * bn;
-    float part[kRun][4];
-#pragma unroll
-    for (int r = 0; r < kRun; ++r) {
-#pragma unroll
-      for (int q = 0; q < 4; ++q) part[r][q] = 0.f;
-    }
-    for (int k0 = 0; k0 < block_k; k0 += kKT) {
-      const int kt = min(kKT, block_k - k0);
-      __syncthreads();  // every thread is done with the previous sub-tile
-      for (int i = t; i < kt * kBNMax; i += kThreads) {
-        const int k = i >> 7;
-        const int c = i & (kBNMax - 1);
-        b_s[k * kBNMax + c] =
-            c < bn ? to_f32(b[static_cast<int64_t>(k0 + k) * bn + c]) : 0.f;
-      }
-      for (int i = t; i < n * kBR * kt; i += kThreads) {
-        const int r = i / (kBR * kt);
-        const int rem = i - r * kBR * kt;
-        const int row = rem / kt;
-        const int k = rem - row * kt;
-        a_s[(r * kKT + k) * kBR + row] =
-            a_values[static_cast<int64_t>(a_idx[p + r]) * kBR * block_k +
-                     row * block_k + k0 + k];
-      }
-      __syncthreads();
-      for (int k = 0; k < kt; ++k) {
-        const float bv = b_s[k * kBNMax + col];
-#pragma unroll
-        for (int r = 0; r < kRun; ++r) {
-          if (r < n) {
-            const float4 av =
-                *reinterpret_cast<const float4*>(&a_s[(r * kKT + k) * kBR + row0]);
-            part[r][0] = fmaf(av.x, bv, part[r][0]);
-            part[r][1] = fmaf(av.y, bv, part[r][1]);
-            part[r][2] = fmaf(av.z, bv, part[r][2]);
-            part[r][3] = fmaf(av.w, bv, part[r][3]);
-          }
-        }
-      }
-    }
-    if (col < bn) {
-#pragma unroll
-      for (int r = 0; r < kRun; ++r) {
-        if (r < n) {
-          const int base = rows[p + r] * kBR + row0;
-#pragma unroll
-          for (int q = 0; q < 4; ++q) {
-            if (kSmemAcc) {
-              acc[(base + q) * kBNMax + col] += part[r][q];
-            } else {
-              o[static_cast<int64_t>(base + q) * ldc + col] += part[r][q];
-            }
-          }
-        }
-      }
-    }
-    p += n;
-  }
-  if (kSmemAcc && col < bn) {
-    for (int rb = 0; rb < nblk; ++rb) {
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        const int row = rb * kBR + row0 + q;
-        o[static_cast<int64_t>(row) * ldc + col] = acc[row * kBNMax + col];
-      }
-    }
+    for (int v = 0; v < V; ++v) p[v] += x[v];
   }
 }
 
-template <typename TB, bool kSmemAcc>
-__global__ void __launch_bounds__(kThreads)
-segment_kernel(const int32_t* __restrict__ seg_ptr,
+// CTA x runs segment order[x]; the accumulator, the segment's strip of
+// nblk x 8 rows of bn floats, starts acc_off floats into shared memory,
+// past the walk's own buffers.
+template <typename TB, int V>
+__global__ void __launch_bounds__(live_columns::kMaxThreads,
+                                  live_columns::kMinBlocks)
+segment_kernel(const int32_t* __restrict__ order,
+               const int32_t* __restrict__ seg_ptr,
                const int64_t* __restrict__ seg_out,
                const int32_t* __restrict__ seg_nblk,
-               const int32_t* __restrict__ rows,
-               const int32_t* __restrict__ slots,
-               const int32_t* __restrict__ a_idx,
-               const float* __restrict__ a_values,
+               const int32_t* __restrict__ rows, PairUnits units,
+               const int32_t* __restrict__ col_k,
+               const float* __restrict__ col_vals,
                const TB* __restrict__ b_tiles, float* __restrict__ out,
-               int block_k, int bn, int64_t ldc) {
-  extern __shared__ __align__(16) float smem[];
-  segment_body<TB, kSmemAcc>(blockIdx.x, seg_ptr, seg_out, seg_nblk, rows,
-                             slots, a_idx, a_values, b_tiles, out, block_k, bn,
-                             ldc, smem);
-}
-
-// K8 over a revisit-ordered stream: one persistent CTA per shard walks its
-// segments shard_ptr[shard] .. shard_ptr[shard + 1] in order. Shards own
-// disjoint row-block ranges, so their C strips never meet.
-template <typename TB, bool kSmemAcc>
-__global__ void __launch_bounds__(kThreads)
-segment_sharded_kernel(const int32_t* __restrict__ shard_ptr,
-                       const int32_t* __restrict__ seg_ptr,
-                       const int64_t* __restrict__ seg_out,
-                       const int32_t* __restrict__ seg_nblk,
-                       const int32_t* __restrict__ rows,
-                       const int32_t* __restrict__ slots,
-                       const int32_t* __restrict__ a_idx,
-                       const float* __restrict__ a_values,
-                       const TB* __restrict__ b_tiles, float* __restrict__ out,
-                       int block_k, int bn, int64_t ldc) {
-  extern __shared__ __align__(16) float smem[];
-  const int g1 = shard_ptr[blockIdx.x + 1];
-  for (int g = shard_ptr[blockIdx.x]; g < g1; ++g) {
-    segment_body<TB, kSmemAcc>(g, seg_ptr, seg_out, seg_nblk, rows, slots,
-                               a_idx, a_values, b_tiles, out, block_k, bn, ldc,
-                               smem);
+               int block_k, int bn, int64_t ldc, int groups_q, int acc_off) {
+  using namespace live_columns;
+  extern __shared__ float4 smem4[];
+  const Geometry g(groups_q, smem4);
+  float* acc = reinterpret_cast<float*>(smem4) + acc_off;
+  const int s = order[blockIdx.x];
+  const int nblk = seg_nblk[s];
+  for (int i = threadIdx.x; i < nblk * kRows * bn; i += blockDim.x) {
+    acc[i] = 0.f;
   }
-}
-
-template <typename TB, bool kSmemAcc>
-int launch_as(const void* shard_ptr, int nshards, const void* seg_ptr,
-              const void* seg_out, const void* seg_nblk, const void* rows,
-              const void* slots, const void* a_idx, const void* a_values,
-              const void* b_tiles, void* out, int nseg, int block_k, int bn,
-              long long ldc, int smem_bytes, cudaStream_t s) {
-  const auto sp = static_cast<const int32_t*>(seg_ptr);
-  const auto so = static_cast<const int64_t*>(seg_out);
-  const auto sn = static_cast<const int32_t*>(seg_nblk);
-  const auto rw = static_cast<const int32_t*>(rows);
-  const auto sl = static_cast<const int32_t*>(slots);
-  const auto ai = static_cast<const int32_t*>(a_idx);
-  const auto av = static_cast<const float*>(a_values);
-  const auto bt = static_cast<const TB*>(b_tiles);
-  const auto o = static_cast<float*>(out);
-  cudaError_t err;
-  if (shard_ptr == nullptr) {
-    err = cudaFuncSetAttribute(segment_kernel<TB, kSmemAcc>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               smem_bytes);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    segment_kernel<TB, kSmemAcc><<<nseg, kThreads, smem_bytes, s>>>(
-        sp, so, sn, rw, sl, ai, av, bt, o, block_k, bn, ldc);
-  } else {
-    err = cudaFuncSetAttribute(segment_sharded_kernel<TB, kSmemAcc>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               smem_bytes);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    segment_sharded_kernel<TB, kSmemAcc><<<nshards, kThreads, smem_bytes, s>>>(
-        static_cast<const int32_t*>(shard_ptr), sp, so, sn, rw, sl, ai, av, bt,
-        o, block_k, bn, ldc);
+  // (walk_parts' first __syncthreads orders the zero-fill before any add)
+  const int c = g.q * V;
+  const bool active = g.lane_used && c < bn;
+  const TB* cols = b_tiles + (active ? c : 0);
+  const int64_t tile_elems = static_cast<int64_t>(block_k) * bn;
+  const auto band_of = [&](const Meta& m) {
+    return Band<TB>{cols + m.band * tile_elems, block_k};
+  };
+  walk_parts<TB, V>(seg_ptr[s], seg_ptr[s + 1], units, band_of, col_k,
+                    col_vals, bn, active, g, groups_q,
+                    [&](int p, const float (&part)[kRows][V]) {
+                      if (!active) return;
+                      float* a = acc + __ldg(rows + p) * kRows * bn + c;
+#pragma unroll
+                      for (int r = 0; r < kRows; ++r) {
+                        add_vec<V>(a + r * bn, part[r]);
+                      }
+                    });
+  __syncthreads();
+  // the strip, nblk * 8 rows of bn columns, V at a time
+  const int vecs = bn / V;
+  float* o = out + seg_out[s];
+  for (int i = threadIdx.x; i < nblk * kRows * vecs; i += blockDim.x) {
+    const int row = i / vecs;
+    const int cv = (i - row * vecs) * V;
+    float x[V];
+#pragma unroll
+    for (int v = 0; v < V; ++v) x[v] = acc[row * bn + cv + v];
+    store_vec<V>(o + static_cast<int64_t>(row) * ldc + cv, x);
   }
-  return static_cast<int>(cudaGetLastError());
 }
 
 template <typename TB>
-int launch(const void* shard_ptr, int nshards, const void* seg_ptr,
-           const void* seg_out, const void* seg_nblk, const void* rows,
-           const void* slots, const void* a_idx, const void* a_values,
-           const void* b_tiles, void* out, int nseg, int block_k, int bn,
-           long long ldc, int window_blocks, void* stream) {
-  if (nseg <= 0 || block_k <= 0 || bn <= 0 || bn > kBNMax ||
-      window_blocks <= 0 || (shard_ptr != nullptr && nshards <= 0)) {
+int launch(const void* order, const void* seg_ptr, const void* seg_out,
+           const void* seg_nblk, const void* rows, const void* slots,
+           const void* a_idx, const void* col_ptr, const void* col_k,
+           const void* col_vals, const void* b_tiles, void* out, int nseg,
+           int npairs, int ntiles, int max_nblk, int block_k, int bn,
+           long long ldc, void* stream) {
+  if (nseg <= 0 || order == nullptr || block_k <= 0 || bn <= 0 ||
+      bn > kBNMax || max_nblk <= 0 || ntiles <= 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const auto s = static_cast<cudaStream_t>(stream);
-  const long long acc_bytes =
-      static_cast<long long>(window_blocks) * kBR * kBNMax * 4;
-  if (acc_bytes <= kAccMaxBytes) {
-    const int smem = kStageFloats * 4 + static_cast<int>(acc_bytes);
-    return launch_as<TB, true>(shard_ptr, nshards, seg_ptr, seg_out, seg_nblk,
-                               rows, slots, a_idx, a_values, b_tiles, out,
-                               nseg, block_k, bn, ldc, smem, s);
+  // V-wide loads, adds and stores need V-aligned strips: bn, ldc and every
+  // segment origin (a multiple of bn) divisible by V, aligned bases
+  const auto aligned = [&](int v) {
+    return bn % v == 0 && ldc % v == 0 &&
+           reinterpret_cast<uintptr_t>(b_tiles) % (v * sizeof(TB)) == 0 &&
+           reinterpret_cast<uintptr_t>(out) % (4 * v) == 0;
+  };
+  const int vec = aligned(4) ? 4 : aligned(2) ? 2 : 1;
+  const int v = live_columns::vec_for(bn, vec);
+  // unit groups by the pairs per live (block, j) tile, as the window
+  // kernel sizes them per window, but no more than the segments need to
+  // fill the card's thread slots: group 0 adds every part of a round, so a
+  // group more costs a barrier per round (on an H100 kron-14 A^2 ran
+  // faster with one group than with two, while a narrow B's 1024 segments
+  // want four; PERF.md)
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) {
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   }
-  return launch_as<TB, false>(shard_ptr, nshards, seg_ptr, seg_out, seg_nblk,
-                              rows, slots, a_idx, a_values, b_tiles, out, nseg,
-                              block_k, bn, ldc, kStageFloats * 4, s);
+  if (err == cudaSuccess) {
+    err = cudaDeviceGetAttribute(
+        &per_sm, cudaDevAttrMaxThreadsPerMultiProcessor, dev);
+  }
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const auto shape = live_columns::shape_for(
+      bn, v, npairs, ntiles, nseg, static_cast<long long>(sms) * per_sm);
+  // (cudaFuncSetAttribute refuses an accumulator past the card's shared
+  // memory; segment_blocks keeps it at 16 KiB)
+  const int acc_off = static_cast<int>((shape.smem_bytes + 15) / 16 * 4);
+  const long long smem =
+      acc_off * 4LL + static_cast<long long>(max_nblk) *
+                          live_columns::kRows * bn * sizeof(float);
+  if (smem > INT32_MAX) return static_cast<int>(cudaErrorInvalidValue);
+  const auto s = static_cast<cudaStream_t>(stream);
+  const PairUnits units{static_cast<const int32_t*>(a_idx),
+                        static_cast<const int32_t*>(slots),
+                        static_cast<const int32_t*>(col_ptr)};
+  const auto go = [&](auto vec_c) {
+    constexpr int V = decltype(vec_c)::value;
+    const auto kernel = segment_kernel<TB, V>;
+    err = cudaFuncSetAttribute(kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem));
+    if (err != cudaSuccess) return;
+    kernel<<<nseg, shape.threads, static_cast<size_t>(smem), s>>>(
+        static_cast<const int32_t*>(order),
+        static_cast<const int32_t*>(seg_ptr),
+        static_cast<const int64_t*>(seg_out),
+        static_cast<const int32_t*>(seg_nblk),
+        static_cast<const int32_t*>(rows), units,
+        static_cast<const int32_t*>(col_k),
+        static_cast<const float*>(col_vals), static_cast<const TB*>(b_tiles),
+        static_cast<float*>(out), block_k, bn, ldc, shape.groups_q, acc_off);
+  };
+  if (v == 4) {
+    go(std::integral_constant<int, 4>());
+  } else if (v == 2) {
+    go(std::integral_constant<int, 2>());
+  } else {
+    go(std::integral_constant<int, 1>());
+  }
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-extern "C" int cluster_spgemm_revisit_f32(
-    const void* shard_ptr, int nshards, const void* seg_ptr,
-    const void* seg_out, const void* seg_nblk, const void* rows,
-    const void* slots, const void* a_idx, const void* a_values,
-    const void* b_tiles, void* out, int nseg, int block_k, int bn,
-    long long ldc, int window_blocks, void* stream) {
-  return launch<float>(shard_ptr, nshards, seg_ptr, seg_out, seg_nblk, rows,
-                       slots, a_idx, a_values, b_tiles, out, nseg, block_k, bn,
-                       ldc, window_blocks, stream);
-}
+#define SEGMENTS_ENTRY(NAME, TB)                                             \
+  extern "C" int NAME(const void* order, const void* seg_ptr,                \
+                      const void* seg_out,                                   \
+                      const void* seg_nblk, const void* rows,                \
+                      const void* slots, const void* a_idx,                  \
+                      const void* col_ptr, const void* col_k,                \
+                      const void* col_vals, const void* b_tiles, void* out,  \
+                      int nseg, int npairs, int ntiles, int max_nblk,        \
+                      int block_k, int bn, long long ldc, void* stream) {    \
+    return launch<TB>(order, seg_ptr, seg_out, seg_nblk, rows, slots, a_idx, \
+                      col_ptr, col_k, col_vals, b_tiles, out, nseg, npairs,  \
+                      ntiles, max_nblk, block_k, bn, ldc, stream);           \
+  }
 
-extern "C" int cluster_spgemm_revisit_bf16(
-    const void* shard_ptr, int nshards, const void* seg_ptr,
-    const void* seg_out, const void* seg_nblk, const void* rows,
-    const void* slots, const void* a_idx, const void* a_values,
-    const void* b_tiles, void* out, int nseg, int block_k, int bn,
-    long long ldc, int window_blocks, void* stream) {
-  return launch<__nv_bfloat16>(shard_ptr, nshards, seg_ptr, seg_out, seg_nblk,
-                               rows, slots, a_idx, a_values, b_tiles, out,
-                               nseg, block_k, bn, ldc, window_blocks, stream);
-}
+SEGMENTS_ENTRY(cluster_spgemm_revisit_f32, float)
+SEGMENTS_ENTRY(cluster_spgemm_revisit_bf16, __nv_bfloat16)
 
 extern "C" const char* cluster_spgemm_revisit_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));

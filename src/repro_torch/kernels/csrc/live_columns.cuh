@@ -1,5 +1,6 @@
-// The live-column walk shared by the compact SpMM kernel (cluster_spmm.cu)
-// and the window kernels (cluster_spgemm.cu).
+// The live-column walk shared by the compact SpMM kernel (cluster_spmm.cu),
+// the window kernels (cluster_spgemm.cu) and the revisit kernel
+// (cluster_spgemm_revisit.cu).
 //
 // A BCC slab is 8 rows x block_k columns, but on a sparse operand only a
 // few of its columns hold a nonzero (kron-14: ~5 of 128). The host keeps,
@@ -19,12 +20,13 @@
 // where it can (bn = 128: V = 4; bn = 64: V = 2). A CTA holds NG such
 // groups. Group g computes the sum of unit base + g in registers ("part",
 // k ascending -- skipping a zero column is exact, fmaf(0, b, x) == x for
-// finite b); then the parts are added to the accumulator of group 0 in
-// unit order through shared memory. So every output keeps the order of the
-// padded kernels' sums -- per unit k ascending, units ascending -- and
-// equals them bit for bit on finite data, while a unit-heavy block or
-// window (a power-law hub) runs NG units at a time. The host picks NG from
-// the mean units per CTA.
+// finite b); then group 0 takes the parts in unit order through shared
+// memory -- into its registers (walk), or wherever the caller's add puts
+// them (walk_parts: the revisit kernel's per-block strip). So every output
+// keeps the order of the padded kernels' sums -- per unit k ascending,
+// units ascending -- and equals them bit for bit on finite data, while a
+// unit-heavy block or window (a power-law hub) runs NG units at a time.
+// The host picks NG from the mean units per output tile.
 //
 // Latency. A unit has few live columns, so dependent loads, not FMAs, are
 // the cost. The CTA stages the metadata of up to kMetaChunk units (column
@@ -261,17 +263,16 @@ __device__ __forceinline__ void unit_part(
 // Walk units u0 .. u1: stage their metadata (units.meta(u)) kMetaChunk at a
 // time, then run them in rounds of ngroups -- group g takes unit b + g of
 // round b, its part summed over the unit's live columns against
-// band_of(meta) -- and after each round group 0 adds the round's parts to
-// acc in unit order, each rounded as acc_add<TO> says (TO = float: no
-// rounding).
-template <typename TB, int V, typename TO = float, class Units, class BandOf>
-__device__ __forceinline__ void walk(int u0, int u1, const Units& units,
-                                     const BandOf& band_of,
-                                     const int32_t* __restrict__ col_k,
-                                     const float* __restrict__ col_vals,
-                                     int64_t stride, bool active,
-                                     const Geometry& g, int groups_q,
-                                     float (&acc)[kRows][V]) {
+// band_of(meta) -- and after each round group 0 hands the round's parts to
+// add(unit, part) in unit order (only group 0's threads call it).
+template <typename TB, int V, class Units, class BandOf, class Add>
+__device__ __forceinline__ void walk_parts(int u0, int u1, const Units& units,
+                                           const BandOf& band_of,
+                                           const int32_t* __restrict__ col_k,
+                                           const float* __restrict__ col_vals,
+                                           int64_t stride, bool active,
+                                           const Geometry& g, int groups_q,
+                                           const Add& add) {
   const int width = groups_q * V;
   for (int m0 = u0; m0 < u1; m0 += kMetaChunk) {
     const int mn = min(kMetaChunk, u1 - m0);
@@ -293,11 +294,7 @@ __device__ __forceinline__ void walk(int u0, int u1, const Units& units,
                          active, g, part);
       }
       if (g.ngroups == 1) {
-#pragma unroll
-        for (int r = 0; r < kRows; ++r)
-#pragma unroll
-          for (int v = 0; v < V; ++v)
-            acc[r][v] = acc_add<TO>(acc[r][v], part[r][v]);
+        add(m0 + b, part);
         continue;
       }
       if (g.grp > 0 && g.lane_used) {
@@ -309,11 +306,7 @@ __device__ __forceinline__ void walk(int u0, int u1, const Units& units,
       }
       __syncthreads();
       if (g.grp == 0) {
-#pragma unroll
-        for (int r = 0; r < kRows; ++r)
-#pragma unroll
-          for (int v = 0; v < V; ++v)
-            acc[r][v] = acc_add<TO>(acc[r][v], part[r][v]);
+        add(m0 + b, part);
         const int last = min(g.ngroups, mn - b);
         for (int j = 1; j < last; ++j) {
           const float* s =
@@ -322,13 +315,46 @@ __device__ __forceinline__ void walk(int u0, int u1, const Units& units,
           for (int r = 0; r < kRows; ++r)
 #pragma unroll
             for (int v = 0; v < V; ++v)
-              acc[r][v] = acc_add<TO>(acc[r][v], s[r * width + g.q * V + v]);
+              part[r][v] = s[r * width + g.q * V + v];
+          add(m0 + b + j, part);
         }
       }
       __syncthreads();  // the next round overwrites the parts
     }
   }
 }
+
+// walk_parts into group 0's registers: acc gets the parts in unit order,
+// each rounded as acc_add<TO> says (TO = float: no rounding).
+template <typename TB, int V, typename TO = float, class Units, class BandOf>
+__device__ __forceinline__ void walk(int u0, int u1, const Units& units,
+                                     const BandOf& band_of,
+                                     const int32_t* __restrict__ col_k,
+                                     const float* __restrict__ col_vals,
+                                     int64_t stride, bool active,
+                                     const Geometry& g, int groups_q,
+                                     float (&acc)[kRows][V]) {
+  walk_parts<TB, V>(u0, u1, units, band_of, col_k, col_vals, stride, active,
+                    g, groups_q, [&](int, const float (&part)[kRows][V]) {
+#pragma unroll
+                      for (int r = 0; r < kRows; ++r)
+#pragma unroll
+                        for (int v = 0; v < V; ++v)
+                          acc[r][v] = acc_add<TO>(acc[r][v], part[r][v]);
+                    });
+}
+
+// The Sp x Sp kernels' units: live pair p walks the live columns of slab
+// a_idx[p] against B tile slots[p].
+struct PairUnits {
+  const int32_t* a_idx;
+  const int32_t* slots;
+  const int32_t* col_ptr;
+  __device__ Meta meta(int p) const {
+    const int a = a_idx[p];
+    return {col_ptr[a], col_ptr[a + 1], slots[p]};
+  }
+};
 
 // Store group 0's 8 rows of V values (rows `ld` elements apart).
 template <int V>
@@ -356,22 +382,27 @@ inline int vec_for(int width, int align) {
 }
 
 // Launch shape for a strip of `width` columns at vector width `vec`, with
-// `units` units over `ctas` CTAs: as many unit groups as keep four units
-// per group per CTA on average (at most kMaxGroups, kMaxThreads threads).
+// `units` units over `tiles` output tiles (one per CTA, but several per
+// revisit segment): as many unit groups as keep four units per group per
+// tile on average (at most kMaxGroups, kMaxThreads threads) and, where
+// `slots` is given, only while `ctas` CTAs of that size leave the card's
+// `slots` thread slots unfilled -- past that a group more only adds a
+// barrier to every round.
 struct Shape {
   int groups_q;
   int threads;
   size_t smem_bytes;
 };
 
-inline Shape shape_for(int width, int vec, long long units, long long ctas) {
+inline Shape shape_for(int width, int vec, long long units, long long tiles,
+                       long long ctas = 0, long long slots = 0) {
   Shape s;
   s.groups_q = (width + vec - 1) / vec;
   const int tg = group_threads(s.groups_q);
-  const double mean = static_cast<double>(units) / (ctas > 0 ? ctas : 1);
+  const double mean = static_cast<double>(units) / (tiles > 0 ? tiles : 1);
   int ng = 1;
   while (2 * ng <= kMaxGroups && 2 * ng * tg <= kMaxThreads &&
-         8.0 * ng <= mean) {
+         8.0 * ng <= mean && (slots == 0 || ctas * ng * tg < slots)) {
     ng *= 2;
   }
   s.threads = tg * ng;

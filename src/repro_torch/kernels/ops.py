@@ -13,9 +13,10 @@ keep the JAX package's selection *rules*:
   most 0.5 (:func:`predict_c_window_density`) and the product is not
   sharded;
 * ``shards > 1`` splits the live-pair stream into contiguous block ranges
-  balanced by live pairs (:func:`build_shard_pack`), one persistent CTA
-  each (:func:`cluster_spgemm_sharded`); ``revisit=True`` orders each
-  range's pairs so a B tile's uses across a window of blocks are adjacent
+  balanced by live pairs (:func:`build_shard_pack`), run in one launch of
+  one CTA per window of every range, shard-major
+  (:func:`cluster_spgemm_sharded`); ``revisit=True`` orders each range's
+  pairs so a B tile's uses across a window of blocks are adjacent
   (:func:`cluster_spgemm_revisit`). :func:`pallas_shard_count` is 1, so
   the serving path does not shard by default;
 * each launch is labelled with the variant the JAX package would have
@@ -28,8 +29,8 @@ Host packing stays numpy; the packed streams are moved to the operands'
 device once, in :func:`pack_spgemm`, so a caller that keeps the pack
 (the planner's serving path) launches with no host work at all. The pack
 also holds the live-column form of A's slabs (:func:`slab_columns`),
-which the window and compact SpMM kernels walk instead of the padded
-slabs; it is built on the device once per packed operand.
+which every Sp×Sp kernel and the compact SpMM kernel walk instead of the
+padded slabs; it is built on the device once per packed operand.
 
 The dense-B SpMM wrappers (:func:`bcc_spmm` on BCC's padded lattice,
 :func:`bcc_spmm_compact` on its compact stream) back ``SparseLinear``;
@@ -327,8 +328,7 @@ class SpGEMMPack:
     CompactedC table on the device. A caller that keeps the pack (the
     planner's exec cache) launches from it and B alone, without A's
     padded slab array. ``cols`` is the live-column form of the stream's
-    slabs on the routes whose kernel walks it (``dense``, ``sparse_c``,
-    ``sharded``, ``padded``)."""
+    slabs, which every route's kernel walks."""
 
     stream: tuple              # (block_ids, tile_ids, values)
     pairs: tuple | None        # (blocks, js, slots, a_idx) host int32
@@ -398,7 +398,7 @@ def pack_spgemm(a: BCC, b: TiledCSR, *, sparse_c: bool | None = None,
         return SpGEMMPack(
             pairs=pairs, route="sharded" if wb is None else "sharded_revisit",
             launch=launch, table=None, shard_pack=shard_pack,
-            cols=slab_columns(stream[2]) if wb is None else None, **common)
+            cols=slab_columns(stream[2]), **common)
     if sparse_c is None:
         sparse_c = predict_c_window_density(
             pairs, nblocks=nblocks, nnb=b.nnb) <= _SPARSE_C_DENSITY
@@ -473,7 +473,8 @@ def bcc_spgemm_tiled(a: BCC | None, b: TiledCSR, *,
         with tracer.span("kernel_variant", variant=pack.route,
                          shards=nshards):
             if pack.route == "sharded_revisit" and nshards == 1:
-                out = cluster_spgemm_revisit(pack.launch, values, b.tiles)
+                out = cluster_spgemm_revisit(pack.launch, values, b.tiles,
+                                             pack.cols)
             else:
                 out = cluster_spgemm_sharded(pack.launch, values, b.tiles,
                                              pack.cols)

@@ -160,9 +160,9 @@ def test_padded_kernel_matches_plain(card, block_k, dtype):
 
 @pytest.mark.parametrize("n,m", [(300, 200), (2100, 16384)])
 def test_revisit_kernel_matches_plain_and_window_kernel(card, n, m):
-    """(300, 200): nnb = 2, 256-block windows — the accumulator lives in
-    global memory; (2100, 16384): nnb = 128, 4-block windows in shared
-    memory."""
+    """(300, 200): nnb = 2, 256-block windows, split into segments of 4
+    blocks for the shared-memory accumulator; (2100, 16384): nnb = 128,
+    4-block windows."""
     a, b = _host(n, n, 0.02, 8), _host(n, m, 0.002, 9)
     bcc = bcc_from_host(a, device=card)
     tiled = tiled_csr_from_host(b, device=card)
@@ -194,6 +194,67 @@ def test_sharded_kernel_matches_plain(card, shards, revisit):
         pack.launch, pack.stream[2], tiled.tiles))
     dense = ops.bcc_spgemm_tiled(None, tiled, pack=pack).cpu().numpy()
     assert np.array_equal(dense, a.to_dense() @ a.to_dense())
+
+
+@pytest.mark.parametrize("block_k,dtype", [
+    (128, torch.bfloat16), (512, torch.float32), (512, torch.bfloat16)])
+def test_revisit_kernel_wide_windows_bf16_and_block_k_512(card, block_k,
+                                                          dtype):
+    """K7 at nnb = 2 (256-block windows in 4-block segments) with bf16
+    tiles and at block_k = 512: integer values, so exact against the plain
+    version and the window kernel."""
+    a, b = _host(300, 1030, 0.02, 12), _host(1030, 200, 0.01, 13)
+    bcc = bcc_from_host(a, block_k=block_k, device=card)
+    tiled = tiled_csr_from_host(b, block_k=block_k, device=card,
+                                dtype=dtype)
+    pack = ops.pack_spgemm(bcc, tiled, revisit=True)
+    assert pack.launch.window_blocks == 256 and pack.launch.max_nblk == 4
+    before = cluster_spgemm_revisit.launches
+    got = cluster_spgemm_revisit(pack.launch, pack.stream[2], tiled.tiles,
+                                 pack.cols)
+    torch.cuda.synchronize()
+    assert cluster_spgemm_revisit.launches == before + 1
+    assert torch.equal(got, cluster_spgemm_revisit_plain(
+        pack.launch, pack.stream[2], tiled.tiles))
+    flat = ops.pack_spgemm(bcc, tiled, sparse_c=False)
+    assert torch.equal(got, cluster_spgemm_windows(
+        flat.launch, flat.stream[2], tiled.tiles, flat.cols))
+    dense = ops.bcc_spgemm_tiled(None, tiled, pack=pack).cpu().numpy()
+    assert np.array_equal(dense, a.to_dense() @ b.to_dense())
+
+
+@pytest.mark.parametrize("revisit", [False, True])
+@pytest.mark.parametrize("shards", [1, 3, 132])
+def test_sharded_kernel_one_cta_per_window_equals_window_kernel(
+        card, shards, revisit):
+    """K8 over 1, 3 and 132 shards, with and without the revisit order:
+    one launch of one CTA per window or segment of every shard, exact
+    against the plain version and the window kernel."""
+    from repro_torch.core.formats import partition_pair_stream
+    a = _host(1030, 1030, 0.01, 14)
+    bcc = bcc_from_host(a, device=card)
+    tiled = tiled_csr_from_host(a, device=card)
+    if shards == 1 and not revisit:
+        # one shard is not sharded by default: hand pack_spgemm the
+        # partition
+        pairs = ops.build_live_pairs(bcc, tiled)
+        ranges, sp = partition_pair_stream(pairs, nblocks=bcc.nblocks,
+                                           num_shards=1)
+        pack = ops.pack_spgemm(bcc, tiled, shard_pack=(ranges, sp, None))
+    else:
+        pack = ops.pack_spgemm(bcc, tiled, shards=shards, revisit=revisit)
+    work = pack.launch
+    assert work.shard_ptr.shape[0] - 1 == min(shards, bcc.nblocks)
+    before = cluster_spgemm_sharded.launches
+    got = cluster_spgemm_sharded(work, pack.stream[2], tiled.tiles,
+                                 pack.cols)
+    torch.cuda.synchronize()
+    assert cluster_spgemm_sharded.launches == before + 1
+    assert torch.equal(got, cluster_spgemm_sharded_plain(
+        work, pack.stream[2], tiled.tiles, pack.cols))
+    flat = ops.pack_spgemm(bcc, tiled, sparse_c=False)
+    assert torch.equal(got, cluster_spgemm_windows(
+        flat.launch, flat.stream[2], tiled.tiles, flat.cols))
 
 
 def test_server_ladder_degrades_to_the_fixed_rung_on_the_card(card):

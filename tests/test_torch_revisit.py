@@ -13,6 +13,12 @@ against the JAX package's.
 * ``bcc_spgemm_tiled(shards=…, revisit=…)`` equals the JAX package's on
   the ``tests/test_sharded_pairs.py`` cases (integer-valued here, so the
   comparison is exact) and labels its launches the same way.
+* The kernels' launch metadata — segments split by block sub-range where
+  a window is wider than the revisit kernel's accumulator, and the
+  shard-major, column-strip-major launch order — covers every live
+  ``(block, j)`` pair once and keeps each ``(block, j)``'s slot order;
+  the plain versions walking it equal the Pallas kernels at ``nnb ≤ 2``
+  (256-block windows), at ``block_k = 512`` and at 1, 3 and 8 shards.
 
 The kernels themselves run only on a card (``tests/test_torch_cuda.py``).
 """
@@ -32,6 +38,7 @@ from repro_torch.kernels import ops as pops
 from repro_torch.kernels.cluster_spgemm import (cluster_spgemm_revisit,
                                                 cluster_spgemm_sharded,
                                                 cluster_spgemm_sharded_plain,
+                                                segment_blocks,
                                                 segments_from_shards,
                                                 windows_from_shards)
 from repro_torch.obs import metrics as port_metrics
@@ -256,3 +263,158 @@ def test_card_cost_model_shard_term_is_inert_at_one_shard(monkeypatch):
     cpu = pcm.CostModel(device="cpu")
     assert cpu.score(feats, cand, 20, workload="a2").kernel_rel \
         == pcm.PALLAS_INTERPRET_REL
+
+
+# B of 200 columns: nnb = 2 at bn = 128, so revisit windows of 256 blocks,
+# split into segments of 4 (the kernel's 16 KiB accumulator)
+WIDE = (integer_dense(300, 300, 0.02, 41), integer_dense(300, 200, 0.03, 42))
+
+
+def _launch_pairs(work, nblocks):
+    """Each launched pair as (block, j, slot, a_idx), in launch order
+    (CTA ``x`` runs item ``order[x]``), with the C block range of its CTA
+    and the shard whose range of CTAs holds ``x``."""
+    ldc, block_r = work.ldc, work.block_r
+    ptr = work.shard_ptr.numpy()
+    shard = np.repeat(np.arange(ptr.size - 1), np.diff(ptr))
+    items = work.order.numpy()
+    if hasattr(work, "seg_ptr"):
+        iptr, out, nblk = (work.seg_ptr.numpy(), work.seg_out.numpy(),
+                           work.seg_nblk.numpy())
+        rows = work.rows.numpy()
+    else:
+        iptr, out = work.win_ptr.numpy(), work.win_out.numpy()
+        nblk = np.ones(out.size, np.int64)
+        rows = np.zeros(work.npairs, np.int64)
+    blk0 = out // (block_r * ldc)
+    js = out % (block_r * ldc) // work.bn
+    got = []
+    for x, it in enumerate(items):
+        lo, hi = iptr[it], iptr[it + 1]
+        assert hi > lo
+        r = rows[lo:hi]
+        assert ((r >= 0) & (r < nblk[it])).all()
+        assert blk0[it] + nblk[it] <= nblocks
+        for p in range(lo, hi):
+            got.append((shard[x], int(js[it]), int(blk0[it] + rows[p]),
+                        int(work.slots[p]), int(work.a_idx[p])))
+    return got, shard, items, blk0, js
+
+
+@pytest.mark.parametrize("revisit", [False, True])
+@pytest.mark.parametrize("shards", [1, 3, 5, 8])
+@pytest.mark.parametrize("name", ["sharded", "ragged", "pairless_blocks",
+                                  "wide"])
+def test_launch_metadata_covers_each_live_pair_once_in_slot_order(
+        name, shards, revisit):
+    """The CASES at bn = 16 in 4-block windows, and WIDE at bn = 128 in
+    256-block windows cut into 4-block segments."""
+    bn = 128 if name == "wide" else 16
+    bcc, tiled, _, pairs, _ = _pack(*(WIDE if name == "wide"
+                                      else CASES[name]), bn=bn)
+    nblocks, nnb = bcc.nblocks, tiled.nnb
+    ranges, sp = PF.partition_pair_stream(pairs, nblocks=nblocks,
+                                          num_shards=shards)
+    geo = dict(nblocks=nblocks, nnb=nnb, block_r=8, bn=bn, device="cpu")
+    if revisit:
+        wb = (PF.revisit_window_blocks(nnb, block_r=8, bn=bn)
+              if name == "wide" else 4)
+        sp = [PF.revisit_pair_stream(p, window_blocks=wb, block_base=int(s))
+              for p, (s, _) in zip(sp, ranges)]
+        work = segments_from_shards(ranges, sp, window_blocks=wb, **geo)
+        assert work.max_nblk <= min(segment_blocks(8, bn), wb)
+        if name == "wide":
+            assert wb == 256 and work.max_nblk == 4
+    else:
+        work = windows_from_shards(ranges, sp, **geo)
+    got, shard, items, blk0, js = _launch_pairs(work, nblocks)
+    ptr = work.shard_ptr.numpy()
+    # each shard's CTAs run a permutation of its items, column strip by
+    # column strip, inside the shard's block range
+    for s, (start, end) in enumerate(ranges):
+        its = items[ptr[s]:ptr[s + 1]]
+        assert sorted(its.tolist()) == list(range(ptr[s], ptr[s + 1]))
+        keys = list(zip(js[its], blk0[its]))
+        assert keys == sorted(keys)
+        assert ((blk0[its] >= start) & (blk0[its] < end)).all()
+    # every live pair once; per (block, j) the stream's s (= slot) order
+    blocks, jj, slots, a_idx = (np.asarray(p) for p in pairs)
+    live = slots > 0
+    want = sorted(zip(blocks[live].tolist(), jj[live].tolist(),
+                      slots[live].tolist(), a_idx[live].tolist()))
+    assert sorted((b, j, sl, a) for _, j, b, sl, a in got) == want
+    per_tile = {}
+    for _, j, b, sl, a in got:
+        per_tile.setdefault((b, j), []).append(sl)
+    for seq in per_tile.values():
+        assert seq == sorted(seq)
+    assert len(per_tile) == len({(b, j) for b, j, _, _ in want})
+    if revisit:
+        assert work.ntiles == len(per_tile)
+
+
+@pytest.mark.parametrize("block_k", [128, 512])
+@pytest.mark.parametrize("shards", [1, 3, 8])
+@pytest.mark.parametrize("revisit", [False, True])
+def test_plain_on_split_launches_matches_the_pallas_kernels(block_k, shards,
+                                                            revisit):
+    """At nnb = 2 (256-block revisit windows, split into segments of 4
+    blocks) and at block_k = 512, the plain versions walking the kernels'
+    launch metadata equal ``cluster_spgemm_pairs_sharded`` (and with one
+    shard and the revisit order, ``cluster_spgemm_pairs_window``) in
+    interpret mode, and the unsharded pair kernel."""
+    bcc, tiled, stream, pairs, _ = _pack(*WIDE, block_k=block_k, bn=128)
+    nblocks, nnb = bcc.nblocks, tiled.nnb
+    assert nnb == 2
+    kw = dict(block_r=8, block_k=block_k, bn=128, nblocks=nblocks, nnb=nnb)
+    ranges, sp = RF.partition_pair_stream(pairs, nblocks=nblocks,
+                                          num_shards=shards)
+    wb = None
+    if revisit:
+        wb = RF.revisit_window_blocks(nnb, block_r=8, bn=128)
+        assert wb == 256
+        sp = [RF.revisit_pair_stream(p, window_blocks=wb, block_base=int(s))
+              for p, (s, _) in zip(sp, ranges)]
+    want = np.asarray(RK.cluster_spgemm_pairs_sharded(
+        sp, ranges, stream[2], tiled.tiles, window_blocks=wb,
+        interpret=True, **kw))
+    base = np.asarray(RK.cluster_spgemm_pairs(*pairs, stream[2], tiled.tiles,
+                                              interpret=True, **kw))
+    a_values, tiles = _port_tensors(stream, tiled)
+    geo = dict(nblocks=nblocks, nnb=nnb, block_r=8, bn=128, device="cpu")
+    if revisit:
+        work = segments_from_shards(ranges, sp, window_blocks=wb, **geo)
+        assert segment_blocks(8, 128) == 4
+        # each shard's one window is cut into segments of 4 blocks
+        widths = ranges[:, 1] - ranges[:, 0]
+        assert work.max_nblk == min(4, int(widths.max()))
+        if shards == 1:
+            assert nblocks == 38 and work.nseg == 10 * nnb   # 9 x 4 + 2
+            rv = sp[0]
+            wins = (np.asarray(rv[0]).astype(np.int64) // wb).astype(
+                np.int32)
+            window = np.asarray(RK.cluster_spgemm_pairs_window(
+                wins, *rv, stream[2], tiled.tiles, window_blocks=wb,
+                interpret=True, **kw))
+            assert np.array_equal(
+                cluster_spgemm_revisit(work, a_values, tiles).numpy(),
+                window)
+    else:
+        work = windows_from_shards(ranges, sp, **geo)
+    got = cluster_spgemm_sharded(work, a_values, tiles).numpy()
+    assert np.array_equal(got, want)
+    assert np.array_equal(got, base)
+    assert np.array_equal(got[:300, :200], WIDE[0] @ WIDE[1])
+
+
+@pytest.mark.parametrize("kw", [{"revisit": True}, {"shards": 3},
+                                {"shards": 3, "revisit": True}])
+def test_pack_spgemm_builds_slab_columns_on_the_shard_routes(kw):
+    _, _, _, _, (p_bcc, p_tiled) = _pack(*CASES["wrapper"])
+    pack = pops.pack_spgemm(p_bcc, p_tiled, **kw)
+    assert pack.route == ("sharded_revisit" if kw.get("revisit")
+                          else "sharded")
+    want = pops.slab_columns(pack.stream[2])
+    for f in ("col_ptr", "col_k", "col_vals"):
+        assert torch.equal(getattr(pack.cols, f), getattr(want, f)), f
+    assert pack.cols.block_k == want.block_k
