@@ -38,10 +38,17 @@ a run without a card, or from a directory that does not hold the port):
    SM-count shards, caveman-16384 with 1, 8 and SM-count shards, with and
    without the revisit order, and the revisit kernel on kron-14 times its
    first 256 columns, whose 256-block windows run as 4-block segments —
-   each also equal to the window kernel's strips), the padded-lattice
-   SpMM kernel on SparseLinear's weight (a
+   each also equal to the window kernel's strips), the Sp×Sp kernels on
+   a B holding inf, -inf and NaN (kron-12 squared: the dense strips, the
+   CompactedC slabs, the padded grid, the revisit order and 8 shards in
+   both orders, each position for position equal to its plain version and
+   to the dense strips; the window, padded-grid and revisit cases print
+   the non-finite census's tiles, bytes and device time on finite B), the
+   padded-lattice SpMM kernel on SparseLinear's weight (a
    2,560 × 10,240 weight at density 0.1 with seeded tile sets and
-   shuffled rows, 4,096 tokens; exact on integer values), the
+   shuffled rows, 4,096 tokens; exact on integer values; its panels, the
+   distinct B tiles per panel slot and the modelled B bytes printed; the
+   same weight packed without the clustering reorder beside it), the
    flash-attention kernel (zamba2-2.7b's prefill shape (128, 1024, 80)
    causal, a ragged S = 1000 and a D = 128 case) and the SSD chunk-scan
    kernel (zamba2-2.7b's (320, 4, 256, 64/64) and the single-chunk
@@ -235,6 +242,23 @@ def kernel_device_ms(fn, device, kernel, reps: int = 5, *,
     return med if split else med["total"]
 
 
+# the non-finite census's launches (csrc/nonfinite.cuh): the compact SpMM
+# marks its tiles per launch; the Sp x Sp packs list theirs
+SPMM_CENSUS_KERNELS = ("mark_tiles_kernel", "count_kernel")
+SPGEMM_CENSUS_KERNEL = "count_kernel"
+
+
+def census_work(census, b_tiles) -> dict:
+    """What the census of a Sp x Sp launch reads on finite B: the listed
+    tile slots (those some pair meets through a slab with a dead column),
+    each read once (``block_k * bn`` values)."""
+    tile_bytes = b_tiles[0].numel() * b_tiles.element_size()
+    return {"census_tiles": int(census.numel()),
+            "tile_store_tiles": int(b_tiles.shape[0]),
+            "census_bytes": int(census.numel()) * tile_bytes,
+            "tile_store_bytes": b_tiles.numel() * b_tiles.element_size()}
+
+
 def bound(nbytes: int, flops: int,
           peak: float = PEAK_FP32_FLOPS) -> tuple[float, str]:
     """The least time for the work, in ms, and what sets it: ``peak`` is
@@ -338,7 +362,7 @@ def window_case(name, h, device, *, sparse_c, b_dtype=None, windows=None,
     from repro_torch.core.spgemm import flops_spgemm
     from repro_torch.kernels import ops
     from repro_torch.kernels.cluster_spgemm import (
-        cluster_spgemm_windows, cluster_spgemm_windows_plain)
+        census_tiles, cluster_spgemm_windows, cluster_spgemm_windows_plain)
     launches0 = cluster_spgemm_windows.launches
     bk = select_block_k(h)
     bcc = bcc_from_host(h, block_k=bk, device=device)
@@ -347,15 +371,17 @@ def window_case(name, h, device, *, sparse_c, b_dtype=None, windows=None,
     if windows is None:
         pack = ops.pack_spgemm(bcc, tiled, sparse_c=sparse_c)
         windows, a_vals, cols = pack.launch, pack.stream[2], pack.cols
+        census = pack.census
     else:
         a_vals = ops.bcc_compact_stream(bcc, cover_all_blocks=True)[2]
         cols = ops.slab_columns(a_vals)
+        census = census_tiles(windows, cols)
     del bcc
     # the live-column form is built once per packed operand: timed alone
     cols_ms = (timed_ms(lambda: ops.slab_columns(a_vals), device)
                if timing else None)
     run = lambda: cluster_spgemm_windows(windows, a_vals,  # noqa: E731
-                                         tiled.tiles, cols)
+                                         tiled.tiles, cols, census)
     plain = lambda: cluster_spgemm_windows_plain(  # noqa: E731
         windows, a_vals, tiled.tiles, cols)
     got, want = run(), plain()
@@ -368,6 +394,10 @@ def window_case(name, h, device, *, sparse_c, b_dtype=None, windows=None,
         tol_txt = f"max|kernel-plain| <= {tol:g} x max|plain|"
     ms = timed_ms(run, device) if timing else None
     device_ms = (kernel_device_ms(run, device, "window_kernel")
+                 if timing else None)
+    # what the non-finite census costs on this finite B: its launch's
+    # device time, and the listed tiles it reads
+    census_ms = (kernel_device_ms(run, device, SPGEMM_CENSUS_KERNEL)
                  if timing else None)
     plain_ms = timed_ms(plain, device) if timing else None
     # the bound: what A @ A needs — its true flops, the CSR operand read
@@ -413,6 +443,9 @@ def window_case(name, h, device, *, sparse_c, b_dtype=None, windows=None,
             "out_bytes": got.numel() * 4,
             "max_abs_err": err, "tolerance": tol_txt, "matched": ok,
             "ms": ms, "kernel_device_ms": device_ms, "plain_ms": plain_ms,
+            "census_device_ms": census_ms,
+            **census_work(census, tiled.tiles),
+            "census_share_of_ms": (census_ms / ms if census_ms else None),
             "bound_ms": bound_ms,
             "bound_by": bound_by,
             "bound_rule": ("max(bytes: CSR A once + result once (dense C, "
@@ -528,7 +561,7 @@ def padded_case(name, a, b, device, *, b_dtype=None, timing=True):
                          f"{pack.route}")
     grid, a_vals, cols = pack.launch, pack.stream[2], pack.cols
     run = lambda: cluster_spgemm_padded(grid, a_vals,  # noqa: E731
-                                        tiled.tiles, cols)
+                                        tiled.tiles, cols, pack.census)
     plain = lambda: cluster_spgemm_padded_plain(  # noqa: E731
         grid, a_vals, tiled.tiles)
     got, want = run(), plain()
@@ -541,6 +574,8 @@ def padded_case(name, a, b, device, *, b_dtype=None, timing=True):
                  if timing else None)
     fill_ms = (kernel_device_ms(run, device, "zero_fill_kernel")
                if timing else None)
+    census_ms = (kernel_device_ms(run, device, SPGEMM_CENSUS_KERNEL)
+                 if timing else None)
     plain_ms = timed_ms(plain, device, reps=3) if timing else None
     # the bound: A·B's true flops, both CSR operands read once, the dense
     # result (in B's dtype, as the kernel writes it) written once
@@ -580,7 +615,8 @@ def padded_case(name, a, b, device, *, b_dtype=None, timing=True):
             "tile_flops": tile_flops, "out_bytes": out_bytes,
             "max_abs_err": err, "tolerance": "exact (torch.equal)",
             "matched": ok, "ms": ms, "kernel_device_ms": device_ms,
-            "fill_device_ms": fill_ms,
+            "fill_device_ms": fill_ms, "census_device_ms": census_ms,
+            **census_work(pack.census, tiled.tiles),
             "fill_rate_tb_s": (out_bytes / fill_ms / 1e9
                                if fill_ms else None),
             "plain_ms": plain_ms,
@@ -623,7 +659,7 @@ def stream_cases(label, h, device, configs, *, b=None, timing=True):
     tiled = tiled_csr_from_host(b, block_k=bk, device=device)
     flat = ops.pack_spgemm(bcc, tiled, sparse_c=False)
     base_run = lambda: cluster_spgemm_windows(  # noqa: E731
-        flat.launch, flat.stream[2], tiled.tiles, flat.cols)
+        flat.launch, flat.stream[2], tiled.tiles, flat.cols, flat.census)
     base = base_run()
     base_ms = timed_ms(base_run, device) if timing else None
     del flat, base_run
@@ -652,7 +688,8 @@ def stream_cases(label, h, device, configs, *, b=None, timing=True):
             plain = lambda: cluster_spgemm_sharded_plain(  # noqa: E731
                 work, a_vals, tiled.tiles, cols)
         launches0 = fn.launches
-        run = lambda: fn(work, a_vals, tiled.tiles, cols)  # noqa: E731
+        run = lambda: fn(work, a_vals, tiled.tiles, cols,  # noqa: E731
+                         pack.census)
         got, want = run(), plain()
         ok = bool(torch.equal(got, want)) and bool(torch.equal(got, base))
         err = max(float((got - want).abs().max()),
@@ -661,6 +698,8 @@ def stream_cases(label, h, device, configs, *, b=None, timing=True):
         device_ms = (kernel_device_ms(
             run, device, "segment_kernel" if segments
             else "window_kernel") if timing else None)
+        census_ms = (kernel_device_ms(run, device, SPGEMM_CENSUS_KERNEL)
+                     if timing else None)
         plain_ms = timed_ms(plain, device, reps=3) if timing else None
         npairs = work.npairs
         tile_flops = 2 * npairs * work.block_r * bk * work.bn
@@ -686,6 +725,7 @@ def stream_cases(label, h, device, configs, *, b=None, timing=True):
                 "tolerance": ("exact (torch.equal) against the plain "
                               "version and the window kernel"),
                 "matched": ok, "ms": ms, "kernel_device_ms": device_ms,
+                "census_device_ms": census_ms,
                 "window_kernel_ms": base_ms,
                 "vs_window_kernel": (ms / base_ms if timing else None),
                 "plain_ms": plain_ms,
@@ -708,6 +748,115 @@ def stream_cases(label, h, device, configs, *, b=None, timing=True):
     return cases
 
 
+def nan_equal(got, want) -> bool:
+    """Equal position for position: NaN where the other is NaN, infs of
+    the same sign, equal finite values."""
+    import torch
+    return got.shape == want.shape and bool(torch.equal(
+        got.isnan(), want.isnan())) and bool(
+        ((got == want) | got.isnan()).all())
+
+
+def finite_err(got, want) -> float:
+    """max |got - want| over the positions where both are finite."""
+    import torch
+    both = got.isfinite() & want.isfinite()
+    if not bool(both.any()):
+        return 0.0
+    return float((got.float() - want.float())[both].abs().max())
+
+
+def nonfinite_spgemm_case(h, device, rng, *, shards: int = 8):
+    """The Sp x Sp kernels on a B holding inf, -inf and NaN: ``h`` squared
+    with 6 of B's values (seeded positions) made non-finite. Each route's
+    kernel -- dense strips (K1), CompactedC slabs (K5), the padded grid
+    (K6), the revisit order (K7), ``shards`` shards in both orders (K8) --
+    against its plain version, position for position (the dead slab
+    columns that meet a non-finite value make their blocks NaN, as the
+    whole-slab product does), and every route's dense result against the
+    dense strips'."""
+    import torch
+    from repro_torch.core.formats import (CompactedC, HostCSR, bcc_from_host,
+                                          select_block_k, tiled_csr_from_host)
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.cluster_spgemm import (
+        cluster_spgemm_padded, cluster_spgemm_padded_plain,
+        cluster_spgemm_revisit, cluster_spgemm_revisit_plain,
+        cluster_spgemm_sharded, cluster_spgemm_sharded_plain,
+        cluster_spgemm_windows, cluster_spgemm_windows_plain)
+    data = h.data.copy()
+    pos = rng.choice(h.nnz, 6, replace=False)
+    data[pos] = [np.inf, -np.inf, np.nan, np.inf, -np.inf, np.nan]
+    b = HostCSR(h.indptr, h.indices, data, h.shape)
+    bk = select_block_k(h)
+    bcc = bcc_from_host(h, block_k=bk, device=device)
+    tiled = tiled_csr_from_host(b, block_k=bk, device=device)
+    routes = {
+        "dense strips (K1)": (dict(sparse_c=False), cluster_spgemm_windows,
+                              cluster_spgemm_windows_plain),
+        "CompactedC slabs (K5)": (dict(sparse_c=True),
+                                  cluster_spgemm_windows,
+                                  cluster_spgemm_windows_plain),
+        "padded grid (K6)": (dict(compact=False), cluster_spgemm_padded,
+                             lambda g, a, t, c: cluster_spgemm_padded_plain(
+                                 g, a, t)),
+        "revisit (K7)": (dict(shards=1, revisit=True), cluster_spgemm_revisit,
+                         lambda g, a, t, c: cluster_spgemm_revisit_plain(
+                             g, a, t)),
+        f"{shards} shards (K8)": (dict(shards=shards),
+                                  cluster_spgemm_sharded,
+                                  cluster_spgemm_sharded_plain),
+        f"{shards} shards, revisit (K8)": (dict(shards=shards, revisit=True),
+                                           cluster_spgemm_sharded,
+                                           cluster_spgemm_sharded_plain),
+    }
+    cases, base = [], None
+    for label, (kw, fn, plain) in routes.items():
+        pack = ops.pack_spgemm(bcc, tiled, **kw)
+        args = (pack.launch, pack.stream[2], tiled.tiles, pack.cols)
+        launches0 = fn.launches
+        got, want = fn(*args, pack.census), plain(*args)
+        ok, err = nan_equal(got, want), finite_err(got, want)
+        if pack.sparse_c:
+            got = CompactedC(slabs=got, table=pack.table, nrows=h.nrows,
+                             ncols=h.ncols, block_r=8, bn=tiled.bn).to_dense()
+        dense = got[:h.nrows, :h.ncols].float()
+        if base is None:
+            base = dense
+        same_as_k1 = nan_equal(dense, base)
+        # the live-column visits the walk makes (every live (step, j) of
+        # the padded grid, every pair of the others)
+        ncol = (pack.cols.col_ptr[1:] - pack.cols.col_ptr[:-1]).long()
+        if pack.route == "padded":
+            g = pack.launch
+            js = torch.arange(g.nnb, device=device)
+            live = (g.table[g.tile_ids.long()[:, None] * g.nnb + js]
+                    > 0).sum(dim=1)
+            visits = int((live * ncol).sum())
+        else:
+            visits = int(ncol[pack.launch.a_idx.long()].sum())
+        case = {"case": f"non-finite B, {label}", "rows": h.nrows,
+                "nnz": h.nnz, "block_k": bk, "route": pack.route,
+                "non_finite_b_values": 6, "live_column_visits": visits,
+                "census_tiles": int(pack.census.numel()),
+                "nan": int(dense.isnan().sum()),
+                "inf": int(dense.isinf().sum()),
+                "max_abs_err": err,
+                "tolerance": ("position for position: NaN where the plain "
+                              "version is NaN, infs of the same sign, "
+                              "finite values equal (torch.equal)"),
+                "matched": ok and same_as_k1, "equal_to_plain": ok,
+                "equal_to_dense_strips": same_as_k1,
+                "compare_launches": fn.launches - launches0}
+        log("  case", json.dumps(case))
+        if not case["matched"] or case["nan"] == 0:
+            raise SystemExit(f"non-finite B: {label} differs from its plain "
+                             f"version or from the dense strips")
+        cases.append(case)
+        del pack, got, want, dense
+    return cases
+
+
 def sparse_linear_layer(rows, cols, tokens, device, rng, *,
                         density=0.1, groups=16, tiles_per_row=10):
     """SparseLinear's weight as ``examples/sparse_ffn.py`` builds it:
@@ -715,7 +864,8 @@ def sparse_linear_layer(rows, cols, tokens, device, rng, *,
     column tiles (``tiles_per_row`` per row, ``density * cols`` nonzeros
     per row, integer values ±1..3), then the rows are shuffled; pruned
     to ``density``, hierarchically reordered and packed on the device.
-    Returns (layer, integer activations (tokens, cols) on the device)."""
+    Returns (layer, integer activations (tokens, cols) on the device, the
+    same weight packed without the reorder)."""
     import torch
     from repro_torch.models.sparse_linear import SparseLinear
     ntiles = cols // 128
@@ -738,14 +888,19 @@ def sparse_linear_layer(rows, cols, tokens, device, rng, *,
         f"{json.dumps(layer.stats)}")
     x = torch.from_numpy(rng.integers(-2, 3, (tokens, cols)).astype(
         np.float32)).to(device)
-    return layer, x
+    unordered = SparseLinear.from_dense(w, density=density,
+                                        reorder="original", device=device)
+    return layer, x, unordered
 
 
 def padded_spmm_case(name, layer, x, device, *, dtype=None, timing=True):
     """The padded-lattice SpMM kernel (K9) at SparseLinear's padded path:
     the packed weight against the activations' transpose (fp32, or cast
     to a 16-bit ``dtype``: the integer activations stay exact, the output
-    is rounded after every slot in both versions)."""
+    is rounded after every slot in both versions), launched with the
+    layer's panel schedule. Prints the panels' distinct B tiles per slot
+    and the B bytes the panels stage (modelled: every entry's tile rows
+    once per column strip) against those of one block per CTA."""
     import torch
     from repro_torch.kernels.cluster_spmm import (KERNEL_MAX_BN,
                                                   cluster_spmm,
@@ -757,15 +912,16 @@ def padded_spmm_case(name, layer, x, device, *, dtype=None, timing=True):
     kw = dict(block_r=bcc.block_r, block_k=bcc.block_k,
               tiles_per_block=bcc.tiles_per_block)
     bn = min(KERNEL_MAX_BN, max(8, xt.shape[1]))
+    panels = layer.panels
     run = lambda: cluster_spmm(bcc.tile_ids, bcc.values, xt,  # noqa: E731
-                               bn=bn, **kw)
+                               bn=bn, panels=panels, **kw)
     plain = lambda: cluster_spmm_plain(  # noqa: E731
         bcc.tile_ids, bcc.values, xt, **kw)
     got, want = run(), plain()
     ok = bool(torch.equal(got, want)) and got.dtype == xt.dtype
     err = float((got.float() - want.float()).abs().max())
     ms = timed_ms(run, device) if timing else None
-    device_ms = (kernel_device_ms(run, device, "spmm_kernel")
+    device_ms = (kernel_device_ms(run, device, "spmm_panel_kernel")
                  if timing else None)
     plain_ms = timed_ms(plain, device, reps=3) if timing else None
     # the yardstick: cuSPARSE's CSR × dense on the packed weight
@@ -785,6 +941,12 @@ def padded_spmm_case(name, layer, x, device, *, dtype=None, timing=True):
         csr_bytes(layer.out_features, nnz) + esize * xt.numel()
         + esize * layer.out_features * tokens, true_flops)
     slabs = bcc.values.shape[0]
+    # B's bytes staged: each (panel, slot) entry's tile rows (those below
+    # K) across all column strips, against one block per CTA
+    tile_rows = min(bcc.block_k, xt.shape[0])
+    per_tile = tile_rows * tokens * esize
+    b_bytes = panels.nentries * per_tile
+    b_bytes_per_block = slabs * per_tile
     tile_flops = 2 * slabs * bcc.block_r * bcc.block_k * tokens
     tile_bound_ms, tile_bound_by = bound(
         4 * bcc.values.numel() + esize * xt.numel() + esize * got.numel()
@@ -794,6 +956,12 @@ def padded_spmm_case(name, layer, x, device, *, dtype=None, timing=True):
             "weight_nnz": nnz, "tokens": tokens, "block_k": bcc.block_k,
             "nblocks": bcc.nblocks, "tiles_per_block": bcc.tiles_per_block,
             "live_tiles": layer.stats["live_tiles"], "slabs": slabs,
+            "panels": panels.npanels, "panel_entries": panels.nentries,
+            "blocks_per_panel": bcc.nblocks / panels.npanels,
+            "tiles_per_panel_slot": panels.tiles_per_slot,
+            "modelled_b_bytes": b_bytes,
+            "modelled_b_bytes_one_block_per_cta": b_bytes_per_block,
+            "b_bytes_ratio": b_bytes / b_bytes_per_block,
             "true_flops": true_flops, "tile_flops": tile_flops,
             "max_abs_err": err, "tolerance": "exact (torch.equal)",
             "matched": ok, "ms": ms, "kernel_device_ms": device_ms,
@@ -851,8 +1019,7 @@ def linear_compact_case(name, layer, x, device, *, dtype=None,
                  if timing else None)
     # what finding a dead column's non-finite value costs on finite data:
     # the tile marks and the count of B's non-finite values
-    repair_ms = (kernel_device_ms(run, device, ("mark_tiles_kernel",
-                                                "nonfinite_count_kernel"))
+    repair_ms = (kernel_device_ms(run, device, SPMM_CENSUS_KERNELS)
                  if timing else None)
     plain_ms = timed_ms(plain, device, reps=3) if timing else None
     # K9 on the same (pad-free) slabs: the tile-padded body this kernel
@@ -1641,6 +1808,7 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     if args.rehearse:
         kron = suite.gen_kron(10, 16, seed=0)
+        nonfinite_h = suite.gen_kron(8, 16, seed=0)
         cave = suite.gen_caveman(4096, 24, seed=0)
         plaw = suite.gen_powerlaw(512, 12, seed=3)
         # still wider than the live-pair grid's strip budget (65,536)
@@ -1656,6 +1824,7 @@ def main(argv=None) -> int:
                       (8, 1, 75, 16, 16, 1)]
     else:
         kron = suite.gen_kron(14, 16, seed=0)
+        nonfinite_h = suite.gen_kron(12, 16, seed=0)
         cave = suite.gen_caveman(16384, 24, seed=0)
         plaw = suite.generate(next(s for s in suite.SUITE
                                    if s.name == "plaw_4096_12"))
@@ -1754,10 +1923,21 @@ def main(argv=None) -> int:
         "kron x its first 256 columns", kron_i, device, [(1, True)],
         b=first_columns(kron_i, 256), timing=timing)
     stream_all = kron_streams + cave_streams + narrow_streams
-    lin_layer, lin_x = sparse_linear_layer(*linear, device, rng)
+    # inf, -inf and NaN in B: every Sp x Sp kernel against its plain
+    # version, position for position
+    nonfinite = nonfinite_spgemm_case(
+        integer_valued(nonfinite_h, rng), device, rng)
+    lin_layer, lin_x, lin_unordered = sparse_linear_layer(*linear, device,
+                                                          rng)
     padded_spmm = padded_spmm_case(
         "padded-lattice SpMM, SparseLinear d_model x d_ff weight",
         lin_layer, lin_x, device, timing=timing)
+    # the paper's point: the same weight packed without the clustering
+    # reorder (more live tiles, blocks that share few of them)
+    padded_unordered = padded_spmm_case(
+        "padded-lattice SpMM, the same weight without the clustering reorder",
+        lin_unordered, lin_x, device, timing=timing)
+    del lin_unordered
     linear_compact = linear_compact_case(
         "compact SpMM, SparseLinear d_model x d_ff weight (dense slabs)",
         lin_layer, lin_x, device, timing=timing)
@@ -1800,7 +1980,7 @@ def main(argv=None) -> int:
     launches.update(lm_launches)
 
     # -- phase 4: summary ------------------------------------------------------
-    win_cases = [dense, slab, tall, bf16]
+    win_cases = [dense, slab, tall, bf16] + nonfinite[:2]
     spmm_cases = [spmm, ragged, spmm_cave, spmm_plaw, linear_compact,
                   linear_16[1], linear_16[3]]
     revisit_cases = [c for c in stream_all
@@ -1840,23 +2020,24 @@ def main(argv=None) -> int:
               "src/repro_torch/kernels/csrc/cluster_spgemm_padded.cu",
               "src/repro/kernels/cluster_spgemm.py:199 (K6a "
               "cluster_spgemm_tiled; also :261 K6b cluster_spgemm_resident)",
-              [padded, padded_bf16], padded),
+              [padded, padded_bf16, nonfinite[2]], padded),
         entry("cluster_spgemm_revisit",
               "src/repro_torch/kernels/csrc/cluster_spgemm_revisit.cu",
               "src/repro/kernels/cluster_spgemm.py:537 (K7 "
-              "cluster_spgemm_pairs_window)", revisit_cases,
+              "cluster_spgemm_pairs_window)", revisit_cases + nonfinite[3:4],
               revisit_cases[0]),
         entry("cluster_spgemm_sharded",
               "src/repro_torch/kernels/csrc/cluster_spgemm.cu",
               "src/repro/kernels/cluster_spgemm.py:594 (K8 "
               "cluster_spgemm_pairs_sharded, the shard_map dispatch; "
               "window_kernel here, segment_kernel in "
-              "csrc/cluster_spgemm_revisit.cu)", sharded_cases,
+              "csrc/cluster_spgemm_revisit.cu)", sharded_cases + nonfinite[4:],
               sharded_main),
         entry("cluster_spmm",
               "src/repro_torch/kernels/csrc/cluster_spmm.cu",
               "src/repro/kernels/cluster_spmm.py:103 (K9 cluster_spmm, "
-              "the padded grid)", [padded_spmm, linear_16[0], linear_16[2]],
+              "the padded grid)", [padded_spmm, padded_unordered,
+                                   linear_16[0], linear_16[2]],
               padded_spmm),
         entry("flash_attention",
               "src/repro_torch/kernels/csrc/flash_attention.cuh",

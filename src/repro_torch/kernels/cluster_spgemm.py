@@ -23,6 +23,14 @@ launches the kernel (counting the launch in its ``launches`` attribute)
 or raises; on a CPU tensor it runs :func:`cluster_spgemm_windows_plain`,
 the same sum over the same live columns written with ``index_add_``.
 
+The JAX package multiplies whole slabs, so a non-finite B value that a
+slab's dead column (all its values zero) meets makes the slab's rows NaN
+there. The live-column kernels (window, revisit, padded grid) and the
+live-column plain version find those by counting B's non-finite values
+per tile slot against those the live columns meet
+(``csrc/nonfinite.cuh``, :func:`_dead_column_hits`), so every route gives
+the JAX package's NaN positions and inf signs; on finite B no bit moves.
+
 Three more launches serve the JAX package's other pair-grid kernels, each
 with the same wrapper contract and a plain version beside it:
 
@@ -53,7 +61,8 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.columns import SlabColumns, columns_for
 
-__all__ = ["Windows", "windows_from_pairs", "windows_from_shards",
+__all__ = ["census_tiles", "Windows", "windows_from_pairs",
+           "windows_from_shards",
            "cluster_spgemm_windows", "cluster_spgemm_windows_plain",
            "PaddedGrid", "padded_grid", "cluster_spgemm_padded",
            "cluster_spgemm_padded_plain", "Segments", "segment_blocks",
@@ -255,7 +264,8 @@ def _column_sum_plain(pair_tile: torch.Tensor, tile_out: torch.Tensor,
     visits the live columns ``k`` of slab ``a_idx[p]``, and each visit's
     ``block_r`` values times row ``k`` of B tile ``slots[p]`` (fp32) is
     ``index_add_``ed into tile ``pair_tile[p]`` — the window kernel's
-    visits, in chunks of about 512 MiB of products."""
+    visits, in chunks of about 512 MiB of products — then NaN where a
+    dead column met a non-finite B value (:func:`_dead_column_hits`)."""
     dev = out.device
     ntiles = int(tile_out.shape[0])
     if ntiles == 0:
@@ -277,7 +287,48 @@ def _column_sum_plain(pair_tile: torch.Tensor, tile_out: torch.Tensor,
         rows = b_tiles[slots[p].long(), cols.col_k[col].long()].float()
         acc.index_add_(0, pair_tile[p],
                        cols.col_vals[col][:, :, None] * rows[:, None, :])
+    hit = _dead_column_hits(pair_tile, ntiles, slots, a_idx, cols, b_tiles)
+    if hit is not None:
+        acc = torch.where(hit[:, None, :], torch.full_like(acc, float("nan")),
+                          acc)
     return _place_plain(acc, tile_out, out, block_r=block_r, bn=bn, ldc=ldc)
+
+
+def _dead_column_hits(pair_tile: torch.Tensor, ntiles: int,
+                      slots: torch.Tensor, a_idx: torch.Tensor,
+                      cols: SlabColumns, b_tiles: torch.Tensor
+                      ) -> torch.Tensor | None:
+    """Where a dead column (all ``block_r`` values zero) of a pair's slab
+    meets a non-finite value of its B tile — the tile's column holds more
+    of them than the slab's live columns meet — the whole-slab product is
+    NaN in that column of the pair's output tile: ``(ntiles, bn)`` True
+    there, or None when B is finite. The census of
+    ``csrc/nonfinite.cuh``, in torch ops."""
+    bad = ~torch.isfinite(b_tiles)                          # (cap, bk, bn)
+    if not bool(bad.any()):
+        return None
+    dev = b_tiles.device
+    per_slot = bad.sum(1, dtype=torch.int32)                # (cap, bn)
+    a = a_idx.long()
+    c0 = cols.col_ptr[:-1].long()[a]
+    ncol = cols.col_ptr[1:].long()[a] - c0
+    sl = slots.long()
+    # the pairs with a dead column whose tile holds a non-finite value
+    check = torch.nonzero((ncol < cols.block_k)
+                          & per_slot[sl].any(1)).view(-1)
+    nc = ncol[check]
+    first = torch.cumsum(nc, 0) - nc
+    vis = torch.repeat_interleave(torch.arange(check.numel(), device=dev),
+                                  nc)
+    col = c0[check][vis] + torch.arange(vis.numel(), device=dev) - first[vis]
+    met = torch.zeros((check.numel(), b_tiles.shape[2]), dtype=torch.int32,
+                      device=dev)
+    met.index_add_(0, vis, bad[sl[check][vis], cols.col_k[col].long()].int())
+    dead = (per_slot[sl[check]] > met).int()
+    hit = torch.zeros((ntiles, b_tiles.shape[2]), dtype=torch.int32,
+                      device=dev)
+    hit.index_add_(0, pair_tile[check], dead)
+    return hit > 0
 
 
 def _ranked_sum_plain(pair_tile: torch.Tensor, tile_out: torch.Tensor,
@@ -322,12 +373,15 @@ def _ranked_sum_plain(pair_tile: torch.Tensor, tile_out: torch.Tensor,
 
 def cluster_spgemm_windows(w: Windows, a_values: torch.Tensor,
                            b_tiles: torch.Tensor,
-                           cols: SlabColumns | None = None) -> torch.Tensor:
+                           cols: SlabColumns | None = None,
+                           census: torch.Tensor | None = None
+                           ) -> torch.Tensor:
     """Σ over each live window's pairs of ``a_values[a_idx] @
     b_tiles[slot]`` (fp32 accumulate; bf16 tiles upcast), written once per
     window into a zero-filled float32 output of ``w.out_shape``. ``cols``
-    is the slabs' live-column form (:func:`slab_columns`, built here when
-    absent — callers that launch again keep it).
+    is the slabs' live-column form (:func:`slab_columns`) and ``census``
+    the launch's :func:`census_tiles`, both built here when absent —
+    callers that launch again keep them.
 
     CUDA tensors launch the hand-written kernel (and add one to
     ``cluster_spgemm_windows.launches``); CPU tensors run the plain
@@ -337,7 +391,7 @@ def cluster_spgemm_windows(w: Windows, a_values: torch.Tensor,
     _check(w, a_values, b_tiles)
     out = torch.zeros(w.out_shape, dtype=torch.float32,
                       device=a_values.device)
-    if _launch(w, a_values, b_tiles, out, cols,
+    if _launch(w, a_values, b_tiles, out, cols, census,
                what="cluster_spgemm_windows"):
         cluster_spgemm_windows.launches += 1
     return out
@@ -352,7 +406,9 @@ def cluster_spgemm_windows_plain(w: Windows, a_values: torch.Tensor,
                                  ) -> torch.Tensor:
     """The plain PyTorch version of :func:`cluster_spgemm_windows`, on any
     device: each pair's visits to its slab's live columns (B tile rows
-    gathered in chunks, fp32) ``index_add_``ed into their windows."""
+    gathered in chunks, fp32) ``index_add_``ed into their windows, NaN
+    where a slab's dead column meets a non-finite value of its tile (as
+    the whole-slab product gives)."""
     _check(w, a_values, b_tiles)
     cols = columns_for(a_values, cols)
     dev = a_values.device
@@ -385,6 +441,46 @@ def _raise_on(rc: int, lib, lib_name: str, what: str) -> None:
         raise RuntimeError(f"{what} launch failed: {err(rc).decode()}")
 
 
+def census_tiles(work, cols: SlabColumns) -> torch.Tensor:
+    """The B tile slots that a launch (:class:`Windows`,
+    :class:`Segments` or :class:`PaddedGrid`) meets through a slab with a
+    dead column — the only tiles whose non-finite values the live-column
+    walk could miss — sorted, int32, on the launch's device. They depend
+    on A's pattern and B's tile table, not on B's values: build them once
+    per pack (one host sync), as the live columns are; every launch then
+    counts the non-finite values of these tiles
+    (``csrc/nonfinite.cuh``)."""
+    ncol = cols.col_ptr[1:] - cols.col_ptr[:-1]
+    dead = ncol < cols.block_k
+    if isinstance(work, PaddedGrid):
+        steps = torch.nonzero(dead).view(-1)
+        rows = work.table.view(-1, work.nnb)
+        found = [work.table.new_zeros(0)]
+        chunk = max(1, (1 << 24) // max(work.nnb, 1))
+        for lo in range(0, int(steps.shape[0]), chunk):
+            sl = rows[work.tile_ids[steps[lo:lo + chunk]].long()]
+            found.append(torch.unique(sl[sl > 0]))
+        slots = torch.unique(torch.cat(found))
+    else:
+        slots = torch.unique(work.slots[dead[work.a_idx.long()]])
+    return slots.int().contiguous()
+
+
+def _census(work, cols, census, b_tiles):
+    """``census`` (the launch's :func:`census_tiles`) checked, or built
+    here, and the census's scratch for a launch over ``b_tiles``: a flag,
+    then the slots' per-column counts (the kernel's library fills it)."""
+    if census is None:
+        census = census_tiles(work, cols)
+    elif census.device != b_tiles.device or census.dtype != torch.int32:
+        raise ValueError(f"census tiles ({census.dtype} on {census.device})"
+                         f" must be int32 on {b_tiles.device}")
+    cap, _, bn = b_tiles.shape
+    scratch = torch.empty(1 + cap * bn, dtype=torch.int32,
+                          device=b_tiles.device)
+    return census, scratch
+
+
 def _on_card(what: str, out: torch.Tensor, block_r: int, bn: int) -> None:
     if out.device.type != "cuda":
         raise ValueError(f"{what}: tensors on {out.device}; the kernel runs "
@@ -395,23 +491,26 @@ def _on_card(what: str, out: torch.Tensor, block_r: int, bn: int) -> None:
                          f"bn={bn}")
 
 
-def _launch(w: Windows, a_values, b_tiles, out, cols, *, what: str) -> bool:
+def _launch(w: Windows, a_values, b_tiles, out, cols, census, *,
+            what: str) -> bool:
     """Launch the window kernel over the slabs' live columns: one CTA per
-    window, in ``w.order``. False when nothing is live (C stays zero and
-    no kernel runs)."""
+    window, in ``w.order``, after the non-finite census of B's tiles.
+    False when nothing is live (C stays zero and no kernel runs)."""
     _on_card(what, out, w.block_r, w.bn)
     cols = columns_for(a_values, cols)
     b_tiles = b_tiles.contiguous()
     if w.nwin == 0:
         return False
+    census, scratch = _census(w, cols, census, b_tiles)
     stream = torch.cuda.current_stream(out.device).cuda_stream
     args = [w.win_ptr.data_ptr(), w.win_out.data_ptr(), w.slots.data_ptr(),
             w.a_idx.data_ptr(), cols.col_ptr.data_ptr(),
             cols.col_k.data_ptr(), cols.col_vals.data_ptr(),
-            b_tiles.data_ptr(), out.data_ptr(), w.nwin, w.npairs,
-            a_values.shape[2], w.bn, w.ldc, stream]
-    types = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4 + [
-        ctypes.c_longlong, ctypes.c_void_p]
+            b_tiles.data_ptr(), out.data_ptr(), census.data_ptr(),
+            int(census.shape[0]), scratch.data_ptr(), b_tiles.shape[0],
+            w.nwin, w.npairs, a_values.shape[2], w.bn, w.ldc, stream]
+    types = ([ctypes.c_void_p] * 10 + [ctypes.c_int, ctypes.c_void_p]
+             + [ctypes.c_int] * 5 + [ctypes.c_longlong, ctypes.c_void_p])
     if w.order is not None and w.order.device != out.device:
         raise ValueError(f"window order on {w.order.device}, operands "
                          f"on {out.device}")
@@ -498,7 +597,9 @@ def _check_grid(g: PaddedGrid, a_values, b_tiles) -> None:
 
 def cluster_spgemm_padded(g: PaddedGrid, a_values: torch.Tensor,
                           b_tiles: torch.Tensor,
-                          cols: SlabColumns | None = None) -> torch.Tensor:
+                          cols: SlabColumns | None = None,
+                          census: torch.Tensor | None = None
+                          ) -> torch.Tensor:
     """C = A_bcc @ B_tiled on the padded per-tile grid: every tile
     ``(blk, j)`` is the s-ascending sum over block ``blk``'s steps ``s``
     with a live ``slot = table[tile_ids[s] * nnb + j]`` of
@@ -506,9 +607,10 @@ def cluster_spgemm_padded(g: PaddedGrid, a_values: torch.Tensor,
     the JAX package's padded kernels round it: each step's fp32 product is
     rounded to B's dtype and added to the running tile, which is rounded
     again (with fp32 tiles, the plain fp32 sum). ``cols`` is the slabs'
-    live-column form (:func:`slab_columns`, built here when absent —
-    callers that launch again keep it); the kernel multiplies only those
-    columns.
+    live-column form (:func:`slab_columns`) and ``census`` the grid's
+    :func:`census_tiles`, both built here when absent — callers that
+    launch again keep them; the kernel multiplies only the live columns
+    (and gives the whole slabs' NaN where a dead one meets inf or NaN).
 
     CUDA tensors launch the hand-written kernel (and add one to
     ``cluster_spgemm_padded.launches``); CPU tensors run the plain
@@ -521,18 +623,21 @@ def cluster_spgemm_padded(g: PaddedGrid, a_values: torch.Tensor,
                       device=a_values.device)
     _on_card("cluster_spgemm_padded", out, g.block_r, g.bn)
     b_tiles = b_tiles.contiguous()
+    census, scratch = _census(g, cols, census, b_tiles)
     lib, fn = _kernel_fn(
         "cluster_spgemm_padded", "cluster_spgemm_padded", b_tiles,
-        [ctypes.c_void_p] * 4 + [ctypes.c_int] + [ctypes.c_void_p] * 5
-        + [ctypes.c_int] * 4 + [ctypes.c_longlong, ctypes.c_void_p])
+        [ctypes.c_void_p] * 4 + [ctypes.c_int] + [ctypes.c_void_p] * 6
+        + [ctypes.c_int, ctypes.c_void_p] + [ctypes.c_int] * 5
+        + [ctypes.c_longlong, ctypes.c_void_p])
     stream = torch.cuda.current_stream(out.device).cuda_stream
-    # two launches: the zero-fill of C, then one CTA per live tile
+    # the zero-fill of C, the non-finite census, then one CTA per live tile
     rc = fn(g.block_ptr.data_ptr(), g.tile_ids.data_ptr(),
             g.table.data_ptr(), g.live_tiles.data_ptr(),
             int(g.live_tiles.shape[0]), cols.col_ptr.data_ptr(),
             cols.col_k.data_ptr(), cols.col_vals.data_ptr(),
-            b_tiles.data_ptr(), out.data_ptr(), g.nblocks, g.nnb,
-            a_values.shape[2], g.bn, g.nnb * g.bn, stream)
+            b_tiles.data_ptr(), out.data_ptr(), census.data_ptr(),
+            int(census.shape[0]), scratch.data_ptr(), b_tiles.shape[0],
+            g.nblocks, g.nnb, a_values.shape[2], g.bn, g.nnb * g.bn, stream)
     _raise_on(rc, lib, "cluster_spgemm_padded", "cluster_spgemm_padded")
     cluster_spgemm_padded.launches += 1
     return out
@@ -717,40 +822,46 @@ def _check_segments(g: Segments, a_values, b_tiles) -> None:
                     g.shard_ptr, g.order)
 
 
-def _launch_segments(g: Segments, a_values, b_tiles, out, cols, *,
+def _launch_segments(g: Segments, a_values, b_tiles, out, cols, census, *,
                      what: str) -> bool:
     """Launch the revisit kernel over the slabs' live columns, one CTA per
-    segment of every shard, in ``g.order``. False when nothing is
-    live."""
+    segment of every shard, in ``g.order``, after the non-finite census of
+    B's tiles. False when nothing is live."""
     _on_card(what, out, g.block_r, g.bn)
     cols = columns_for(a_values, cols)
     b_tiles = b_tiles.contiguous()
     if g.nseg == 0:
         return False
+    census, scratch = _census(g, cols, census, b_tiles)
     lib, fn = _kernel_fn(
         "cluster_spgemm_revisit", "cluster_spgemm_revisit", b_tiles,
-        [ctypes.c_void_p] * 12 + [ctypes.c_int] * 6
-        + [ctypes.c_longlong, ctypes.c_void_p])
+        [ctypes.c_void_p] * 13 + [ctypes.c_int, ctypes.c_void_p]
+        + [ctypes.c_int] * 7 + [ctypes.c_longlong, ctypes.c_void_p])
     stream = torch.cuda.current_stream(out.device).cuda_stream
     rc = fn(g.order.data_ptr(), g.seg_ptr.data_ptr(), g.seg_out.data_ptr(),
             g.seg_nblk.data_ptr(), g.rows.data_ptr(), g.slots.data_ptr(),
             g.a_idx.data_ptr(), cols.col_ptr.data_ptr(),
             cols.col_k.data_ptr(), cols.col_vals.data_ptr(),
-            b_tiles.data_ptr(), out.data_ptr(), g.nseg, g.npairs,
-            g.ntiles, g.max_nblk, a_values.shape[2], g.bn, g.ldc, stream)
+            b_tiles.data_ptr(), out.data_ptr(), census.data_ptr(),
+            int(census.shape[0]), scratch.data_ptr(), b_tiles.shape[0],
+            g.nseg, g.npairs, g.ntiles, g.max_nblk, a_values.shape[2], g.bn,
+            g.ldc, stream)
     _raise_on(rc, lib, "cluster_spgemm_revisit", what)
     return True
 
 
 def cluster_spgemm_revisit(g: Segments, a_values: torch.Tensor,
                            b_tiles: torch.Tensor,
-                           cols: SlabColumns | None = None) -> torch.Tensor:
+                           cols: SlabColumns | None = None,
+                           census: torch.Tensor | None = None
+                           ) -> torch.Tensor:
     """C = A_bcc @ B_tiled over a revisit-ordered stream: every segment's
     pairs added to their blocks of its strip, per element in slot
     (= A-stream) order — the window kernel's sums, bit for bit. Returns
     the zero-filled fp32 ``g.out_shape`` C. ``cols`` is the slabs'
-    live-column form (:func:`slab_columns`, built here when absent —
-    callers that launch again keep it).
+    live-column form (:func:`slab_columns`) and ``census`` the segments'
+    :func:`census_tiles`, both built here when absent — callers that
+    launch again keep them.
 
     CUDA tensors launch the hand-written kernel (one CTA per segment; add
     one to ``cluster_spgemm_revisit.launches``); CPU tensors run the plain
@@ -760,7 +871,7 @@ def cluster_spgemm_revisit(g: Segments, a_values: torch.Tensor,
     _check_segments(g, a_values, b_tiles)
     out = torch.zeros(g.out_shape, dtype=torch.float32,
                       device=a_values.device)
-    if _launch_segments(g, a_values, b_tiles, out, cols,
+    if _launch_segments(g, a_values, b_tiles, out, cols, census,
                         what="cluster_spgemm_revisit"):
         cluster_spgemm_revisit.launches += 1
     return out
@@ -794,14 +905,17 @@ def cluster_spgemm_revisit_plain(g: Segments, a_values: torch.Tensor,
 
 def cluster_spgemm_sharded(work: Windows | Segments, a_values: torch.Tensor,
                            b_tiles: torch.Tensor,
-                           cols: SlabColumns | None = None) -> torch.Tensor:
+                           cols: SlabColumns | None = None,
+                           census: torch.Tensor | None = None
+                           ) -> torch.Tensor:
     """C = A_bcc @ B_tiled over a partitioned pair stream, in one launch of
     one CTA per window (``work``: :func:`windows_from_shards`' dense-strip
     windows) or per segment (:func:`segments_from_shards`' revisit
     segments) of every shard, shard-major, each shard column strip by
     column strip. Shards own disjoint block ranges, so the result is the
     unsharded kernel's, bit for bit. Returns the zero-filled fp32 C.
-    ``cols`` is the slabs' live-column form, built here when absent.
+    ``cols`` is the slabs' live-column form and ``census`` the launch's
+    :func:`census_tiles`, both built here when absent.
 
     CUDA tensors launch the hand-written kernel (and add one to
     ``cluster_spgemm_sharded.launches``); CPU tensors run the plain
@@ -815,10 +929,10 @@ def cluster_spgemm_sharded(work: Windows | Segments, a_values: torch.Tensor,
     if isinstance(work, Segments):
         _check_segments(work, a_values, b_tiles)
         launched = _launch_segments(work, a_values, b_tiles, out, cols,
-                                    what="cluster_spgemm_sharded")
+                                    census, what="cluster_spgemm_sharded")
     else:
         _check(work, a_values, b_tiles)
-        launched = _launch(work, a_values, b_tiles, out, cols,
+        launched = _launch(work, a_values, b_tiles, out, cols, census,
                            what="cluster_spgemm_sharded")
     if launched:
         cluster_spgemm_sharded.launches += 1

@@ -17,6 +17,9 @@ Two forms of A, two kernels in ``csrc/cluster_spmm.cu``, each giving a
 * :func:`cluster_spmm` (the counterpart of ``cluster_spmm``) takes BCC's
   padded lattice as it is: ``tiles_per_block`` slabs per block, the pad
   slabs zero and pointing at tile 0, all of them summed as dense slabs.
+  Its kernel runs panels of blocks that name the same B tiles slot by
+  slot (:func:`spmm_panels`, built once per weight), staging each B tile
+  once for the whole panel.
 
 A's values are fp32; B is fp32, bf16 or fp16, and C comes back in B's
 dtype. With a 16-bit B each stream or lattice step's product is formed in
@@ -31,6 +34,7 @@ version (:func:`cluster_spmm_compact_plain`, over the same live columns;
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 
 import torch
 import torch.nn.functional as F
@@ -39,10 +43,12 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.columns import SlabColumns, columns_for
 
 __all__ = ["cluster_spmm", "cluster_spmm_plain", "cluster_spmm_compact",
-           "cluster_spmm_compact_plain"]
+           "cluster_spmm_compact_plain", "SpmmPanels", "spmm_panels"]
 
 KERNEL_BLOCK_R = 8
 KERNEL_MAX_BN = 128
+# row blocks of a panel: the panel kernel's warps, one block each
+KERNEL_PANEL_BLOCKS = 8
 # B's dtypes and their codes at the kernels' C interface
 B_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
@@ -265,16 +271,112 @@ def _padded_operands(tile_ids, a_values, b, *, block_r, block_k,
     return tile_ids
 
 
+@dataclasses.dataclass(frozen=True)
+class SpmmPanels:
+    """The padded lattice's blocks in panels, for the panel kernel.
+
+    Panel ``p`` is blocks ``blocks[panel_ptr[p] .. panel_ptr[p+1]]`` (at
+    most :data:`KERNEL_PANEL_BLOCKS`; ``blocks`` is a permutation of the
+    lattice's blocks). Its entries at slot ``t`` are
+    ``entry_ptr[p * tiles_per_block + t] .. [+1]`` of ``entries``, one per
+    distinct tile the panel's blocks name at that slot, ascending: ``(tile,
+    slot, mask)``, bit ``w`` of ``mask`` set when the panel's block ``w``
+    names the tile there. Entries are ordered by (panel, slot, tile)."""
+
+    blocks: torch.Tensor       # (nblocks,) int32 block of each panel place
+    panel_ptr: torch.Tensor    # (npanels+1,) int32
+    entry_ptr: torch.Tensor    # (npanels * tiles_per_block + 1,) int32
+    entries: torch.Tensor      # (E, 3) int32 tile, slot, block mask
+    tiles_per_block: int
+
+    @property
+    def nblocks(self) -> int:
+        return int(self.blocks.shape[0])
+
+    @property
+    def npanels(self) -> int:
+        return int(self.panel_ptr.shape[0]) - 1
+
+    @property
+    def nentries(self) -> int:
+        return int(self.entries.shape[0])
+
+    @property
+    def tiles_per_slot(self) -> float:
+        """Mean distinct tiles per (panel, slot): the B sub-tiles a panel
+        stages per slot (1 where its blocks agree)."""
+        return self.nentries / max(self.npanels * self.tiles_per_block, 1)
+
+
+def spmm_panels(tile_ids, *, tiles_per_block: int) -> SpmmPanels:
+    """Group the padded lattice's ``(nblocks * tiles_per_block,)``
+    ``tile_ids`` into panels, with torch ops on their device (one host
+    sync: build it once per weight, not per launch).
+
+    The blocks are ordered by their tile lists (lexicographically, slot 0
+    first; a stable sort), so blocks that name the same tiles slot by slot
+    come together wherever they sit in the lattice. In that order a block
+    joins its predecessor's run when at least 3/4 of its slots name the
+    same tile as the predecessor's; a run longer than
+    :data:`KERNEL_PANEL_BLOCKS` is cut into panels of that many and one
+    of the rest (a panel's blocks are the kernel's warps, two to an SM
+    sub-partition at 8: full panels keep the sub-partitions evenly
+    loaded). A block that shares with no other is a panel of one."""
+    tile_ids = torch.as_tensor(tile_ids)
+    dev = tile_ids.device
+    tpb = tiles_per_block
+    if tpb <= 0 or tile_ids.numel() % tpb or not tile_ids.numel():
+        raise ValueError(f"{tile_ids.numel()} tile ids are not nblocks >= 1 "
+                         f"x tiles_per_block={tpb}")
+    ids = tile_ids.long().view(-1, tpb)
+    nblocks = ids.shape[0]
+    order = torch.arange(nblocks, device=dev)
+    for t in range(tpb - 1, -1, -1):
+        order = order[torch.argsort(ids[order, t], stable=True)]
+    ids = ids[order]
+    ar = torch.arange(nblocks, device=dev)
+    start = torch.ones(nblocks, dtype=torch.bool, device=dev)
+    start[1:] = 4 * (ids[1:] == ids[:-1]).sum(1) < 3 * tpb
+    first = ar[start]
+    run = torch.cumsum(start, 0) - 1
+    pstart = (ar - first[run]) % KERNEL_PANEL_BLOCKS == 0
+    pfirst = ar[pstart]
+    panel = torch.cumsum(pstart, 0) - 1
+    npanels = int(pfirst.numel())
+    place = ar - pfirst[panel]
+    # the distinct (panel, slot, tile) keys, each with its blocks' bits
+    ntile = int(ids.max()) + 1
+    slot = torch.arange(tpb, device=dev)
+    key = ((panel[:, None] * tpb + slot[None, :]) * ntile + ids).view(-1)
+    ukey, inv = torch.unique(key, sorted=True, return_inverse=True)
+    bits = (1 << place)[:, None].expand(nblocks, tpb).reshape(-1)
+    mask = torch.zeros(ukey.shape[0], dtype=torch.long, device=dev)
+    mask.index_add_(0, inv, bits)
+    ps = ukey // ntile
+    entry_ptr = torch.zeros(npanels * tpb + 1, dtype=torch.int32, device=dev)
+    entry_ptr[1:] = torch.cumsum(
+        torch.bincount(ps, minlength=npanels * tpb), 0)
+    return SpmmPanels(
+        blocks=order.int(),
+        panel_ptr=torch.cat([pfirst, pfirst.new_tensor([nblocks])]).int(),
+        entry_ptr=entry_ptr,
+        entries=torch.stack([ukey % ntile, ps % tpb, mask], 1).int()
+        .contiguous(),
+        tiles_per_block=tpb)
+
+
 def cluster_spmm(tile_ids, a_values: torch.Tensor, b: torch.Tensor, *,
                  block_r: int, block_k: int, tiles_per_block: int,
-                 bn: int = 128) -> torch.Tensor:
+                 bn: int = 128, panels: SpmmPanels | None = None
+                 ) -> torch.Tensor:
     """C = A_bcc @ B over BCC's padded lattice: ``tile_ids``
     ``(nblocks * tiles_per_block,)`` and the matching value slabs, pad
     slabs zero. ``b`` is ``(K, N)`` (rows past K and the ragged last
     column strip are masked, no padding needed); ``bn`` is the kernel's
-    column-strip width (≤ 128). Returns ``(nblocks * block_r, N)`` in
-    B's dtype (fp32, bf16 or fp16; 16-bit sums rounded after every
-    slot).
+    column-strip width (≤ 128); ``panels`` is the lattice's panel
+    schedule (:func:`spmm_panels`, built here when absent — callers that
+    launch again keep it). Returns ``(nblocks * block_r, N)`` in B's
+    dtype (fp32, bf16 or fp16; 16-bit sums rounded after every slot).
 
     CUDA tensors launch the hand-written kernel (and add one to
     ``cluster_spmm.launches``); CPU tensors run the plain version; any
@@ -296,21 +398,32 @@ def cluster_spmm(tile_ids, a_values: torch.Tensor, b: torch.Tensor, *,
                          f"bn={bn}")
     k, n = b.shape
     nblocks = a_values.shape[0] // tiles_per_block
-    # every (block, strip) CTA writes its whole strip: no zero-fill
+    # every (panel, strip) CTA writes its blocks' whole strip: no zero-fill
     out = torch.empty((nblocks * block_r, n), dtype=b.dtype, device=dev)
     if nblocks == 0 or n == 0:
         return out
+    if panels is None:
+        panels = spmm_panels(tile_ids, tiles_per_block=tiles_per_block)
+    if (panels.nblocks, panels.tiles_per_block) != (nblocks,
+                                                     tiles_per_block) \
+            or panels.entries.device != dev:
+        raise ValueError(f"panels of {panels.nblocks} x "
+                         f"{panels.tiles_per_block} slots on "
+                         f"{panels.entries.device} do not describe this "
+                         f"lattice ({nblocks} x {tiles_per_block} on {dev})")
     a_values = a_values.contiguous()
     b = b.contiguous()
     lib = _build.load("cluster_spmm")
     fn = lib.cluster_spmm_padded
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [
         ctypes.c_void_p]
     fn.restype = ctypes.c_int
     stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = fn(tile_ids.data_ptr(), a_values.data_ptr(), b.data_ptr(),
-            out.data_ptr(), nblocks, tiles_per_block, block_k, k, n, bn,
-            B_DTYPES[b.dtype], stream)
+    rc = fn(panels.blocks.data_ptr(), panels.panel_ptr.data_ptr(),
+            panels.entry_ptr.data_ptr(),
+            panels.entries.data_ptr(), a_values.data_ptr(), b.data_ptr(),
+            out.data_ptr(), panels.npanels, tiles_per_block, block_k, k, n,
+            bn, B_DTYPES[b.dtype], stream)
     if rc != 0:
         lib.cluster_spmm_error_string.restype = ctypes.c_char_p
         lib.cluster_spmm_error_string.argtypes = [ctypes.c_int]

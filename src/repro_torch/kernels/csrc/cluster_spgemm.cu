@@ -33,8 +33,14 @@
 //  * Each pair is summed in its own part (k ascending) and added to the
 //    window's accumulator in pair order -- the reference's `o += dot(a, b)`
 //    -- so the result equals the tile-padded kernel's bit for bit on finite
-//    data. Where windows hold many pairs (kron-14: 31.7 on average), a CTA
-//    runs up to 4 pairs at a time (a warp each at bn = 128) and adds their
+//    data. Before the walk, the launch runs nonfinite.cuh's census: the
+//    per-column non-finite counts of the tile slots that some pair meets
+//    through a slab with a dead column (listed once per pack); a window
+//    whose dead columns meet a non-finite value gets the padded sum's NaN
+//    there. On finite B the census costs one read of the listed tiles and
+//    changes no bit.
+//  * Where windows hold many pairs (kron-14: 31.7 on average), a CTA runs
+//    up to 4 pairs at a time (a warp each at bn = 128) and adds their
 //    parts in order through shared memory, which shortens the chain of a
 //    hub window; at about one pair per window (caveman) it is one warp.
 //  * Windows launch column strip by column strip (Windows.order), so the
@@ -62,6 +68,7 @@
 #include <type_traits>
 
 #include "live_columns.cuh"
+#include "nonfinite.cuh"
 
 namespace {
 
@@ -81,7 +88,9 @@ window_kernel(const int32_t* __restrict__ order,
               const int32_t* __restrict__ col_k,
               const float* __restrict__ col_vals,
               const TB* __restrict__ b_tiles, float* __restrict__ out,
-              int block_k, int bn, int64_t ldc, int groups_q) {
+              const int32_t* __restrict__ counts,
+              const int32_t* __restrict__ flag, int block_k, int bn,
+              int64_t ldc, int groups_q) {
   using namespace live_columns;
   extern __shared__ float4 smem4[];
   const Geometry g(groups_q, smem4);
@@ -100,6 +109,25 @@ window_kernel(const int32_t* __restrict__ order,
   };
   walk<TB, V>(win_ptr[w], win_ptr[w + 1], units, band_of, col_k, col_vals,
               bn, active, g, groups_q, acc);
+  if (g.grp == 0 && active && *flag != 0) {
+    // B holds a non-finite value in a tile some slab with a dead column
+    // meets (nonfinite.cuh): NaN where this window's dead columns meet one
+    bool hit[V];
+#pragma unroll
+    for (int v = 0; v < V; ++v) hit[v] = false;
+    for (int p = win_ptr[w]; p < win_ptr[w + 1]; ++p) {
+      const Meta m = units.meta(p);
+      if (m.c1 - m.c0 >= block_k) continue;
+      nonfinite::dead_hits<TB, V>(
+          m.c0, m.c1, col_k, counts + static_cast<int64_t>(m.band) * bn + c,
+          cols + m.band * tile_elems, bn, block_k, hit);
+    }
+#pragma unroll
+    for (int r = 0; r < kRows; ++r)
+#pragma unroll
+      for (int v = 0; v < V; ++v)
+        if (hit[v]) acc[r][v] += nonfinite::nan_value();
+  }
   if (g.grp == 0 && active) {
     store_rows<V>(out + win_out[w] + c, ldc, acc);
   }
@@ -109,9 +137,11 @@ template <typename TB>
 int launch(const void* order, const void* win_ptr, const void* win_out,
            const void* slots, const void* a_idx, const void* col_ptr,
            const void* col_k, const void* col_vals, const void* b_tiles,
-           void* out, int nwin, int npairs, int block_k, int bn,
+           void* out, const void* census, int ncensus, void* scratch,
+           int cap, int nwin, int npairs, int block_k, int bn,
            long long ldc, void* stream) {
-  if (nwin <= 0 || block_k <= 0 || bn <= 0 || bn > kBNMax) {
+  if (nwin <= 0 || block_k <= 0 || bn <= 0 || bn > kBNMax || cap <= 0 ||
+      ncensus < 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   // V-wide loads and stores need V-aligned strips: bn, ldc and every
@@ -125,6 +155,15 @@ int launch(const void* order, const void* win_ptr, const void* win_out,
                                             : aligned(2) ? 2 : 1);
   const auto shape = live_columns::shape_for(bn, vec, npairs, nwin);
   const auto s = static_cast<cudaStream_t>(stream);
+  const auto bt = static_cast<const TB*>(b_tiles);
+  // the non-finite census of the listed tiles (nonfinite.cuh): scratch is
+  // the flag, then the counts (cap x bn)
+  auto* flag = static_cast<int32_t*>(scratch);
+  auto* counts = flag + 1;
+  const int rc = nonfinite::count_tile_store<TB>(
+      bt, cap, block_k, bn, static_cast<const int32_t*>(census), ncensus,
+      flag, counts, s);
+  if (rc != 0) return rc;
   const auto wp = static_cast<const int32_t*>(win_ptr);
   const auto wo = static_cast<const int64_t*>(win_out);
   const PairUnits units{static_cast<const int32_t*>(a_idx),
@@ -132,13 +171,12 @@ int launch(const void* order, const void* win_ptr, const void* win_out,
                         static_cast<const int32_t*>(col_ptr)};
   const auto ck = static_cast<const int32_t*>(col_k);
   const auto cv = static_cast<const float*>(col_vals);
-  const auto bt = static_cast<const TB*>(b_tiles);
   const auto o = static_cast<float*>(out);
   const auto go = [&](auto vec) {
     constexpr int V = decltype(vec)::value;
     window_kernel<TB, V><<<nwin, shape.threads, shape.smem_bytes, s>>>(
         static_cast<const int32_t*>(order), wp, wo, units, ck, cv, bt, o,
-        block_k, bn, ldc, shape.groups_q);
+        counts, flag, block_k, bn, ldc, shape.groups_q);
   };
   if (vec == 4) {
     go(std::integral_constant<int, 4>());
@@ -157,11 +195,13 @@ int launch(const void* order, const void* win_ptr, const void* win_out,
                       const void* win_out, const void* slots,                \
                       const void* a_idx, const void* col_ptr,                \
                       const void* col_k, const void* col_vals,               \
-                      const void* b_tiles, void* out, int nwin, int npairs,  \
-                      int block_k, int bn, long long ldc, void* stream) {    \
+                      const void* b_tiles, void* out, const void* census,    \
+                      int ncensus, void* scratch, int cap, int nwin,         \
+                      int npairs, int block_k, int bn, long long ldc,        \
+                      void* stream) {                                        \
     return launch<TB>(order, win_ptr, win_out, slots, a_idx, col_ptr, col_k, \
-                      col_vals, b_tiles, out, nwin, npairs, block_k, bn,     \
-                      ldc, stream);                                          \
+                      col_vals, b_tiles, out, census, ncensus, scratch, cap, \
+                      nwin, npairs, block_k, bn, ldc, stream);               \
   }
 
 WINDOWS_ENTRY(cluster_spgemm_windows_f32, float)

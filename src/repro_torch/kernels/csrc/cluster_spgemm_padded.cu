@@ -34,7 +34,12 @@
 //    a time, and the 8 x bn accumulator is fp32 in registers (4 values a
 //    thread). Skipping an all-zero column is exact (fmaf(0, b, x) == x for
 //    finite b), and the columns ascend, so a step's sum is the whole
-//    slab's, k ascending; on the wide operands below a slab has about 10
+//    slab's, k ascending. Where B is not finite the whole slab's 0 * inf
+//    is NaN: between the fill and the tile launch, nonfinite.cuh's census
+//    counts the non-finite values of the tile slots that a live (step, j)
+//    meets through a slab with a dead column (listed once per pack), and
+//    a tile whose dead columns meet one gets the NaN. On the
+//    wide operands below a slab has about 10
 //    live columns of 128, so a step reads that many 512-byte B rows, not
 //    the 64 KiB tile.
 //  * The output has B's dtype, as the TPU kernel's does, and is rounded
@@ -60,6 +65,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "nonfinite.cuh"
 
 namespace {
 
@@ -138,8 +145,10 @@ padded_kernel(const int32_t* __restrict__ block_ptr,
               const int32_t* __restrict__ col_ptr,
               const int32_t* __restrict__ col_k,
               const float* __restrict__ col_vals,
-              const TB* __restrict__ b_tiles, TB* __restrict__ out, int nnb,
-              int block_k, int bn, int64_t ldc) {
+              const TB* __restrict__ b_tiles, TB* __restrict__ out,
+              const int32_t* __restrict__ counts,
+              const int32_t* __restrict__ flag, int nnb, int block_k, int bn,
+              int64_t ldc) {
   __shared__ __align__(16) float a_s[kKT][kBR];  // live columns' values
   __shared__ float b_s[kKT][kBNMax];             // the B rows they select
   const int t = threadIdx.x;
@@ -187,6 +196,25 @@ padded_kernel(const int32_t* __restrict__ block_ptr,
       acc[q] = round_to(TB(), acc[q] + round_to(TB(), part[q]));
     }
   }
+  if (col < bn && *flag != 0) {
+    // B holds a non-finite value in a tile some slab with a dead column
+    // meets (nonfinite.cuh): NaN where this block's dead columns meet one
+    bool hit[1] = {false};
+    for (int s = s0; s < s1; ++s) {
+      const int slot = table[static_cast<int64_t>(tile_ids[s]) * nnb + j];
+      const int c0 = col_ptr[s];
+      const int c1 = col_ptr[s + 1];
+      if (slot <= 0 || c1 - c0 >= block_k) continue;
+      nonfinite::dead_hits<TB, 1>(
+          c0, c1, col_k, counts + static_cast<int64_t>(slot) * bn + col,
+          b_tiles + static_cast<int64_t>(slot) * block_k * bn + col, bn,
+          block_k, hit);
+    }
+    if (hit[0]) {
+#pragma unroll
+      for (int q = 0; q < 4; ++q) acc[q] += nonfinite::nan_value();
+    }
+  }
   if (col < bn) {
     TB* o = out + blk * kBR * ldc + static_cast<int64_t>(j) * bn + col;
 #pragma unroll
@@ -198,17 +226,26 @@ template <typename TB>
 int launch(const void* block_ptr, const void* tile_ids, const void* table,
            const void* live_tiles, int nlive, const void* col_ptr,
            const void* col_k, const void* col_vals, const void* b_tiles,
-           void* out, int nblocks, int nnb, int block_k, int bn,
-           long long ldc, void* stream) {
+           void* out, const void* census, int ncensus, void* scratch,
+           int cap, int nblocks, int nnb, int block_k, int bn, long long ldc,
+           void* stream) {
   const long long ntiles = static_cast<long long>(nblocks) * nnb;
   if (nblocks <= 0 || nnb <= 0 || ntiles > 0x7fffffffLL || nlive < 0 ||
       nlive > ntiles || block_k <= 0 || bn <= 0 || bn > kBNMax ||
-      ldc < static_cast<long long>(nnb) * bn) {
+      ldc < static_cast<long long>(nnb) * bn || cap <= 0 || ncensus < 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const auto s = static_cast<cudaStream_t>(stream);
-  const int rc = fill_zero(out, nblocks * kBR * ldc * sizeof(TB), s);
+  int rc = fill_zero(out, nblocks * kBR * ldc * sizeof(TB), s);
   if (rc != 0 || nlive == 0) return rc;
+  // the non-finite census of the listed tiles (nonfinite.cuh): scratch is
+  // the flag, then the counts (cap x bn)
+  auto* flag = static_cast<int32_t*>(scratch);
+  auto* counts = flag + 1;
+  rc = nonfinite::count_tile_store<TB>(
+      static_cast<const TB*>(b_tiles), cap, block_k, bn,
+      static_cast<const int32_t*>(census), ncensus, flag, counts, s);
+  if (rc != 0) return rc;
   padded_kernel<TB><<<static_cast<unsigned>(nlive), kThreads, 0, s>>>(
       static_cast<const int32_t*>(block_ptr),
       static_cast<const int32_t*>(tile_ids),
@@ -216,31 +253,29 @@ int launch(const void* block_ptr, const void* tile_ids, const void* table,
       static_cast<const int32_t*>(live_tiles),
       static_cast<const int32_t*>(col_ptr), static_cast<const int32_t*>(col_k),
       static_cast<const float*>(col_vals), static_cast<const TB*>(b_tiles),
-      static_cast<TB*>(out), nnb, block_k, bn, static_cast<int64_t>(ldc));
+      static_cast<TB*>(out), counts, flag, nnb, block_k, bn,
+      static_cast<int64_t>(ldc));
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-extern "C" int cluster_spgemm_padded_f32(
-    const void* block_ptr, const void* tile_ids, const void* table,
-    const void* live_tiles, int nlive, const void* col_ptr, const void* col_k,
-    const void* col_vals, const void* b_tiles, void* out, int nblocks,
-    int nnb, int block_k, int bn, long long ldc, void* stream) {
-  return launch<float>(block_ptr, tile_ids, table, live_tiles, nlive,
-                       col_ptr, col_k, col_vals, b_tiles, out, nblocks, nnb,
-                       block_k, bn, ldc, stream);
-}
+#define PADDED_ENTRY(NAME, TB)                                               \
+  extern "C" int NAME(const void* block_ptr, const void* tile_ids,           \
+                      const void* table, const void* live_tiles, int nlive,  \
+                      const void* col_ptr, const void* col_k,                \
+                      const void* col_vals, const void* b_tiles, void* out,  \
+                      const void* census, int ncensus, void* scratch,        \
+                      int cap, int nblocks, int nnb, int block_k, int bn,    \
+                      long long ldc, void* stream) {                         \
+    return launch<TB>(block_ptr, tile_ids, table, live_tiles, nlive,         \
+                      col_ptr, col_k, col_vals, b_tiles, out, census,        \
+                      ncensus, scratch, cap, nblocks, nnb, block_k, bn, ldc, \
+                      stream);                                               \
+  }
 
-extern "C" int cluster_spgemm_padded_bf16(
-    const void* block_ptr, const void* tile_ids, const void* table,
-    const void* live_tiles, int nlive, const void* col_ptr, const void* col_k,
-    const void* col_vals, const void* b_tiles, void* out, int nblocks,
-    int nnb, int block_k, int bn, long long ldc, void* stream) {
-  return launch<__nv_bfloat16>(block_ptr, tile_ids, table, live_tiles, nlive,
-                               col_ptr, col_k, col_vals, b_tiles, out,
-                               nblocks, nnb, block_k, bn, ldc, stream);
-}
+PADDED_ENTRY(cluster_spgemm_padded_f32, float)
+PADDED_ENTRY(cluster_spgemm_padded_bf16, __nv_bfloat16)
 
 // The zero-fill alone, over any byte span (the padded wrappers' first
 // launch).

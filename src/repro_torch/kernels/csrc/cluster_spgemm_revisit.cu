@@ -15,7 +15,8 @@
 // with blk = the segment's first block + rows[p]. Per C element the pairs
 // come slot ascending, which is A-stream ascending, so each element's sum
 // has the order of the window kernel (csrc/cluster_spgemm.cu): identical
-// output, bit for bit.
+// output, bit for bit, NaN where B's non-finite values meet a slab's dead
+// columns included (the same census, nonfinite.cuh).
 //
 // Design:
 //  * One CTA per segment: the pairs of one window and one column strip j,
@@ -57,6 +58,7 @@
 #include <type_traits>
 
 #include "live_columns.cuh"
+#include "nonfinite.cuh"
 
 namespace {
 
@@ -94,7 +96,9 @@ segment_kernel(const int32_t* __restrict__ order,
                const int32_t* __restrict__ col_k,
                const float* __restrict__ col_vals,
                const TB* __restrict__ b_tiles, float* __restrict__ out,
-               int block_k, int bn, int64_t ldc, int groups_q, int acc_off) {
+               const int32_t* __restrict__ counts,
+               const int32_t* __restrict__ flag, int block_k, int bn,
+               int64_t ldc, int groups_q, int acc_off) {
   using namespace live_columns;
   extern __shared__ float4 smem4[];
   const Geometry g(groups_q, smem4);
@@ -122,6 +126,30 @@ segment_kernel(const int32_t* __restrict__ order,
                         add_vec<V>(a + r * bn, part[r]);
                       }
                     });
+  if (g.grp == 0 && active && *flag != 0) {
+    // B holds a non-finite value in a tile some slab with a dead column
+    // meets (nonfinite.cuh): NaN in the blocks whose dead columns meet one.
+    // This thread owns its V columns of every row, as in the adds above.
+    for (int p = seg_ptr[s]; p < seg_ptr[s + 1]; ++p) {
+      const Meta m = units.meta(p);
+      if (m.c1 - m.c0 >= block_k) continue;
+      bool hit[V];
+#pragma unroll
+      for (int v = 0; v < V; ++v) hit[v] = false;
+      nonfinite::dead_hits<TB, V>(
+          m.c0, m.c1, col_k, counts + static_cast<int64_t>(m.band) * bn + c,
+          cols + m.band * tile_elems, bn, block_k, hit);
+      float* a = acc + __ldg(rows + p) * kRows * bn + c;
+#pragma unroll
+      for (int v = 0; v < V; ++v) {
+        if (!hit[v]) continue;
+#pragma unroll
+        for (int r = 0; r < kRows; ++r) {
+          a[r * bn + v] += nonfinite::nan_value();
+        }
+      }
+    }
+  }
   __syncthreads();
   // the strip, nblk * 8 rows of bn columns, V at a time
   const int vecs = bn / V;
@@ -140,11 +168,13 @@ template <typename TB>
 int launch(const void* order, const void* seg_ptr, const void* seg_out,
            const void* seg_nblk, const void* rows, const void* slots,
            const void* a_idx, const void* col_ptr, const void* col_k,
-           const void* col_vals, const void* b_tiles, void* out, int nseg,
+           const void* col_vals, const void* b_tiles, void* out,
+           const void* census, int ncensus, void* scratch, int cap, int nseg,
            int npairs, int ntiles, int max_nblk, int block_k, int bn,
            long long ldc, void* stream) {
   if (nseg <= 0 || order == nullptr || block_k <= 0 || bn <= 0 ||
-      bn > kBNMax || max_nblk <= 0 || ntiles <= 0) {
+      bn > kBNMax || max_nblk <= 0 || ntiles <= 0 || cap <= 0 ||
+      ncensus < 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   // V-wide loads, adds and stores need V-aligned strips: bn, ldc and every
@@ -182,6 +212,14 @@ int launch(const void* order, const void* seg_ptr, const void* seg_out,
                           live_columns::kRows * bn * sizeof(float);
   if (smem > INT32_MAX) return static_cast<int>(cudaErrorInvalidValue);
   const auto s = static_cast<cudaStream_t>(stream);
+  // the non-finite census of the listed tiles (nonfinite.cuh): scratch is
+  // the flag, then the counts (cap x bn)
+  auto* flag = static_cast<int32_t*>(scratch);
+  auto* counts = flag + 1;
+  const int rc = nonfinite::count_tile_store<TB>(
+      static_cast<const TB*>(b_tiles), cap, block_k, bn,
+      static_cast<const int32_t*>(census), ncensus, flag, counts, s);
+  if (rc != 0) return rc;
   const PairUnits units{static_cast<const int32_t*>(a_idx),
                         static_cast<const int32_t*>(slots),
                         static_cast<const int32_t*>(col_ptr)};
@@ -200,7 +238,8 @@ int launch(const void* order, const void* seg_ptr, const void* seg_out,
         static_cast<const int32_t*>(rows), units,
         static_cast<const int32_t*>(col_k),
         static_cast<const float*>(col_vals), static_cast<const TB*>(b_tiles),
-        static_cast<float*>(out), block_k, bn, ldc, shape.groups_q, acc_off);
+        static_cast<float*>(out), counts, flag, block_k, bn, ldc,
+        shape.groups_q, acc_off);
   };
   if (v == 4) {
     go(std::integral_constant<int, 4>());
@@ -222,11 +261,14 @@ int launch(const void* order, const void* seg_ptr, const void* seg_out,
                       const void* slots, const void* a_idx,                  \
                       const void* col_ptr, const void* col_k,                \
                       const void* col_vals, const void* b_tiles, void* out,  \
-                      int nseg, int npairs, int ntiles, int max_nblk,        \
-                      int block_k, int bn, long long ldc, void* stream) {    \
+                      const void* census, int ncensus, void* scratch,        \
+                      int cap, int nseg, int npairs, int ntiles,             \
+                      int max_nblk, int block_k, int bn, long long ldc,      \
+                      void* stream) {                                        \
     return launch<TB>(order, seg_ptr, seg_out, seg_nblk, rows, slots, a_idx, \
-                      col_ptr, col_k, col_vals, b_tiles, out, nseg, npairs,  \
-                      ntiles, max_nblk, block_k, bn, ldc, stream);           \
+                      col_ptr, col_k, col_vals, b_tiles, out, census,        \
+                      ncensus, scratch, cap, nseg, npairs, ntiles, max_nblk, \
+                      block_k, bn, ldc, stream);                             \
   }
 
 SEGMENTS_ENTRY(cluster_spgemm_revisit_f32, float)

@@ -26,7 +26,9 @@
 // keeps the order of the padded kernels' sums -- per unit k ascending,
 // units ascending -- and equals them bit for bit on finite data, while a
 // unit-heavy block or window (a power-law hub) runs NG units at a time.
-// The host picks NG from the mean units per output tile.
+// The host picks NG from the mean units per output tile. Where B is not
+// finite, a skipped column's 0 * inf is NaN in the padded sum: each
+// kernel finds those with nonfinite.cuh's census and adds the NaN.
 //
 // Latency. A unit has few live columns, so dependent loads, not FMAs, are
 // the cost. The CTA stages the metadata of up to kMetaChunk units (column

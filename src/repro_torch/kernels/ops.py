@@ -55,7 +55,7 @@ from repro_torch.core.formats import (BCC, CompactedC, TiledCSR,
                                       revisit_window_blocks)
 from repro_torch.core.segment import rank_in_segment
 from repro_torch.kernels.cluster_spgemm import (PaddedGrid, Segments,
-                                                Windows,
+                                                Windows, census_tiles,
                                                 cluster_spgemm_padded,
                                                 cluster_spgemm_revisit,
                                                 cluster_spgemm_sharded,
@@ -64,8 +64,10 @@ from repro_torch.kernels.cluster_spgemm import (PaddedGrid, Segments,
                                                 segments_from_shards,
                                                 windows_from_pairs,
                                                 windows_from_shards)
-from repro_torch.kernels.cluster_spmm import (KERNEL_MAX_BN, cluster_spmm,
-                                              cluster_spmm_compact)
+from repro_torch.kernels.cluster_spmm import (KERNEL_MAX_BN, SpmmPanels,
+                                              cluster_spmm,
+                                              cluster_spmm_compact,
+                                              spmm_panels)
 from repro_torch.kernels.columns import SlabColumns, slab_columns
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.ssd_chunk import ssd_chunk_scan
@@ -73,7 +75,8 @@ from repro_torch.obs import metrics as obs_metrics
 from repro_torch.obs.trace import get_tracer
 from repro_torch.resilience import faults as _faults
 
-__all__ = ["pallas_shard_count", "bcc_spmm", "bcc_compact_stream",
+__all__ = ["pallas_shard_count", "bcc_spmm", "SpmmPanels", "spmm_panels",
+           "bcc_compact_stream",
            "SlabColumns", "slab_columns", "bcc_spmm_compact",
            "spmm_compact_stream", "build_live_pairs", "build_shard_pack",
            "build_sparse_c_pairs", "predict_c_window_density",
@@ -120,18 +123,22 @@ def pallas_shard_count() -> int:
     return 1
 
 
-def bcc_spmm(a: BCC, b: torch.Tensor, *, bn: int = 128) -> torch.Tensor:
+def bcc_spmm(a: BCC, b: torch.Tensor, *, bn: int = 128,
+             panels: SpmmPanels | None = None) -> torch.Tensor:
     """C = A_bcc @ B (B dense ``(a.ncols, N)``) via the padded-lattice
     kernel: every block visits all of its ``tiles_per_block`` slabs, pads
-    included. Column strips are ``min(bn, max(8, N))`` wide, as in the JAX
-    package; B's ragged rows and columns are masked in the kernel rather
-    than padded. B is fp32, bf16 or fp16; returns ``(a.nrows, N)`` in B's
-    dtype (16-bit sums rounded after every slot, as the JAX kernel's)."""
+    included, in panels of blocks that share B tiles (``panels``:
+    :func:`spmm_panels` of ``a.tile_ids``, built here when absent; a
+    caller that launches again keeps it). Column strips are ``min(bn,
+    max(8, N))`` wide, as in the JAX package; B's ragged rows and columns
+    are masked in the kernel rather than padded. B is fp32, bf16 or fp16;
+    returns ``(a.nrows, N)`` in B's dtype (16-bit sums rounded after every
+    slot, as the JAX kernel's)."""
     n0 = b.shape[1]
     bn_eff = min(bn, max(8, n0), KERNEL_MAX_BN)
     out = cluster_spmm(a.tile_ids, a.values, b, block_r=a.block_r,
                        block_k=a.block_k, tiles_per_block=a.tiles_per_block,
-                       bn=bn_eff)
+                       bn=bn_eff, panels=panels)
     return out[: a.nrows]
 
 
@@ -328,7 +335,9 @@ class SpGEMMPack:
     CompactedC table on the device. A caller that keeps the pack (the
     planner's exec cache) launches from it and B alone, without A's
     padded slab array. ``cols`` is the live-column form of the stream's
-    slabs, which every route's kernel walks."""
+    slabs, which every route's kernel walks; ``census`` lists the B tile
+    slots the launch meets through a slab with a dead column, whose
+    non-finite values every launch counts (:func:`census_tiles`)."""
 
     stream: tuple              # (block_ids, tile_ids, values)
     pairs: tuple | None        # (blocks, js, slots, a_idx) host int32
@@ -341,6 +350,7 @@ class SpGEMMPack:
     block_k: int
     shard_pack: tuple | None = None   # (ranges, shard_pairs, window_blocks)
     cols: SlabColumns | None = None
+    census: torch.Tensor | None = None
 
     @property
     def sparse_c(self) -> bool:
@@ -379,9 +389,8 @@ def pack_spgemm(a: BCC, b: TiledCSR, *, sparse_c: bool | None = None,
     if not compact:
         grid = padded_grid(stream[0], stream[1], b.table, nblocks=nblocks,
                            nnb=b.nnb, block_r=a.block_r, bn=b.bn, device=dev)
-        return SpGEMMPack(pairs=None, route="padded", launch=grid,
-                          table=None, cols=slab_columns(stream[2]),
-                          **common)
+        return _with_census(SpGEMMPack(pairs=None, route="padded",
+                                       launch=grid, table=None, **common))
     pairs = build_live_pairs(a, b, stream)
     if shard_pack is None:
         shard_pack = build_shard_pack(a, b, pairs, shards=shards,
@@ -395,10 +404,9 @@ def pack_spgemm(a: BCC, b: TiledCSR, *, sparse_c: bool | None = None,
         else:
             launch = segments_from_shards(ranges, shard_pairs,
                                           window_blocks=wb, **geometry)
-        return SpGEMMPack(
+        return _with_census(SpGEMMPack(
             pairs=pairs, route="sharded" if wb is None else "sharded_revisit",
-            launch=launch, table=None, shard_pack=shard_pack,
-            cols=slab_columns(stream[2]), **common)
+            launch=launch, table=None, shard_pack=shard_pack, **common))
     if sparse_c is None:
         sparse_c = predict_c_window_density(
             pairs, nblocks=nblocks, nnb=b.nnb) <= _SPARSE_C_DENSITY
@@ -407,9 +415,17 @@ def pack_spgemm(a: BCC, b: TiledCSR, *, sparse_c: bool | None = None,
         table = torch.from_numpy(compacted_c_table(
             pairs, nblocks=nblocks, nnb=b.nnb)[0]).to(dev)
     windows = windows_from_pairs(*pairs, table=table, **geometry)
-    return SpGEMMPack(pairs=pairs, route="sparse_c" if sparse_c else "dense",
-                      launch=windows, table=table,
-                      cols=slab_columns(stream[2]), **common)
+    return _with_census(SpGEMMPack(
+        pairs=pairs, route="sparse_c" if sparse_c else "dense",
+        launch=windows, table=table, **common))
+
+
+def _with_census(pack: SpGEMMPack) -> SpGEMMPack:
+    """The pack with its slabs' live columns and its launch's census
+    tiles, both built on the device once."""
+    cols = slab_columns(pack.stream[2])
+    return dataclasses.replace(pack, cols=cols,
+                               census=census_tiles(pack.launch, cols))
 
 
 def bcc_spgemm_sparse_c(a: BCC | None, b: TiledCSR, *,
@@ -426,7 +442,7 @@ def bcc_spgemm_sparse_c(a: BCC | None, b: TiledCSR, *,
     with get_tracer().span("kernel_variant", variant="sparse_c",
                            epilogue="kernel"):
         slabs = cluster_spgemm_windows(pack.launch, pack.stream[2],
-                                       b.tiles, pack.cols)
+                                       b.tiles, pack.cols, pack.census)
     out = CompactedC(slabs=slabs, table=pack.table, nrows=pack.nrows,
                      ncols=b.ncols, block_r=pack.block_r, bn=b.bn)
     _note_kernel_launch("sparse_c", cc=out)
@@ -465,7 +481,7 @@ def bcc_spgemm_tiled(a: BCC | None, b: TiledCSR, *,
         with tracer.span("kernel_variant", variant="padded",
                          resident=resident):
             out = cluster_spgemm_padded(pack.launch, values, b.tiles,
-                                        pack.cols)
+                                        pack.cols, pack.census)
         _note_kernel_launch("padded")
         return out[: pack.nrows, : b.ncols]
     if pack.route in ("sharded", "sharded_revisit"):
@@ -474,10 +490,10 @@ def bcc_spgemm_tiled(a: BCC | None, b: TiledCSR, *,
                          shards=nshards):
             if pack.route == "sharded_revisit" and nshards == 1:
                 out = cluster_spgemm_revisit(pack.launch, values, b.tiles,
-                                             pack.cols)
+                                             pack.cols, pack.census)
             else:
                 out = cluster_spgemm_sharded(pack.launch, values, b.tiles,
-                                             pack.cols)
+                                             pack.cols, pack.census)
         variant = pack.route
     else:
         if resident:
@@ -488,7 +504,7 @@ def bcc_spgemm_tiled(a: BCC | None, b: TiledCSR, *,
             variant = "streamed"
         with tracer.span("kernel_variant", variant=variant):
             out = cluster_spgemm_windows(pack.launch, values, b.tiles,
-                                         pack.cols)
+                                         pack.cols, pack.census)
     _note_kernel_launch(variant, pairs=pack.pairs, block_r=pack.block_r,
                         block_k=pack.block_k, bn=b.bn)
     return out[: pack.nrows, : b.ncols]

@@ -9,9 +9,10 @@ row→tile incidence by default; the permutation is undone on the way out,
 so the layer is a drop-in replacement), packs BCC tiles on the requested
 device and reports the tile statistics; ``apply`` runs the cluster-wise
 SpMM kernel — on BCC's compact stream (``compact=True``, the default),
-walked over its slabs' live columns, or on its padded lattice — or the
-exact dense product. The compact stream and its live columns are built
-once, with the layer.
+walked over its slabs' live columns, or on its padded lattice, in panels
+of blocks that share B tiles — or the exact dense product. The compact
+stream, its live columns and the lattice's panels are built once, with
+the layer.
 """
 from __future__ import annotations
 
@@ -25,6 +26,7 @@ from repro_torch.core.formats import BCC, HostCSR, bcc_from_host
 from repro_torch.core.reorder import reorder as apply_reorder
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops as kernel_ops
+from repro_torch.kernels.cluster_spmm import SpmmPanels
 from repro_torch.kernels.columns import SlabColumns
 
 __all__ = ["SparseLinear", "magnitude_prune"]
@@ -45,7 +47,8 @@ class SparseLinear:
     ``perm`` maps packed output rows → original output features; apply
     inverse-permutes the result so the layer is a drop-in replacement.
     ``stream`` and ``cols`` are BCC's compact stream and its slabs' live
-    columns, which the compact path launches from.
+    columns, which the compact path launches from; ``panels`` is the
+    padded lattice's panel schedule, which the padded path launches with.
     """
 
     bcc: BCC
@@ -55,6 +58,7 @@ class SparseLinear:
     stats: dict
     stream: tuple = dataclasses.field(repr=False)
     cols: SlabColumns = dataclasses.field(repr=False)
+    panels: SpmmPanels = dataclasses.field(repr=False)
 
     @classmethod
     def from_dense(cls, w: np.ndarray, *, density: float = 0.1,
@@ -104,7 +108,9 @@ class SparseLinear:
         stream = kernel_ops.bcc_compact_stream(bcc, cover_all_blocks=True)
         return cls(bcc=bcc, perm=np.asarray(perm), out_features=out_f,
                    in_features=in_f, stats=stats, stream=stream,
-                   cols=kernel_ops.slab_columns(stream[2]))
+                   cols=kernel_ops.slab_columns(stream[2]),
+                   panels=kernel_ops.spmm_panels(
+                       bcc.tile_ids, tiles_per_block=bcc.tiles_per_block))
 
     def apply(self, x: torch.Tensor, *, use_kernel: bool = True,
               compact: bool = True) -> torch.Tensor:
@@ -123,7 +129,7 @@ class SparseLinear:
             y_packed = kernel_ops.spmm_compact_stream(
                 self.stream, xt, nrows=self.bcc.nrows, cols=self.cols)
         elif use_kernel:
-            y_packed = kernel_ops.bcc_spmm(self.bcc, xt)
+            y_packed = kernel_ops.bcc_spmm(self.bcc, xt, panels=self.panels)
         else:
             y_packed = self.bcc.to_dense() @ xt.float()
         # un-permute packed rows back to feature order

@@ -856,3 +856,174 @@ def test_padded_zero_fill_on_spans_off_the_16_byte_grid(card):
         torch.cuda.synchronize()
         assert not buf[start:start + n].any()
         assert (buf[:start] == 7).all() and (buf[start + n:] == 7).all()
+
+
+def _non_finite_b(b, seed, count=12):
+    """``b`` with ``count`` of its values (seeded positions) made inf,
+    -inf and NaN in turn."""
+    data = b.data.copy()
+    pos = np.random.default_rng(seed).choice(b.nnz, count, replace=False)
+    data[pos] = [np.inf, -np.inf, np.nan] * (count // 3)
+    return HostCSR(b.indptr, b.indices, data, b.shape)
+
+
+NON_FINITE_ROUTES = {
+    "dense_strips": (dict(sparse_c=False), cluster_spgemm_windows,
+                     cluster_spgemm_windows_plain),
+    "sparse_c": (dict(sparse_c=True), cluster_spgemm_windows,
+                 cluster_spgemm_windows_plain),
+    "padded_grid": (dict(compact=False), cluster_spgemm_padded,
+                    lambda g, a, t, c: cluster_spgemm_padded_plain(g, a, t)),
+    "revisit": (dict(revisit=True), cluster_spgemm_revisit,
+                lambda g, a, t, c: cluster_spgemm_revisit_plain(g, a, t)),
+    "sharded": (dict(shards=5), cluster_spgemm_sharded,
+                cluster_spgemm_sharded_plain),
+    "sharded_revisit": (dict(shards=5, revisit=True),
+                        cluster_spgemm_sharded, cluster_spgemm_sharded_plain),
+}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("block_k", [128, 512])
+@pytest.mark.parametrize("route", list(NON_FINITE_ROUTES))
+def test_spgemm_kernels_non_finite_b_equal_plain(card, route, block_k,
+                                                 dtype):
+    """K1 (dense strips), K5 (CompactedC slabs), K6 (padded grid), K7
+    (revisit) and K8 (5 shards, both orders) on a B with inf, -inf and
+    NaN values: each kernel gives its plain version's NaN positions, inf
+    signs and finite values -- a dead slab column that meets a
+    non-finite value makes its block NaN there, as the whole-slab
+    product does -- and the same dense product as the dense strips."""
+    a = _host(300, 700, 0.02, 51)
+    b = _non_finite_b(_host(700, 300, 0.02, 52), 53)
+    bcc = bcc_from_host(a, block_k=block_k, device=card)
+    tiled = tiled_csr_from_host(b, block_k=block_k, dtype=dtype,
+                                device=card)
+    kw, fn, plain = NON_FINITE_ROUTES[route]
+    pack = ops.pack_spgemm(bcc, tiled, **kw)
+    args = (pack.launch, pack.stream[2], tiled.tiles, pack.cols)
+    before = fn.launches
+    got = fn(*args)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    assert _same_values(got, plain(*args))
+    dense = ops.bcc_spgemm_tiled(None, tiled, pack=pack).float()
+    flat = ops.bcc_spgemm_tiled(
+        None, tiled, pack=ops.pack_spgemm(bcc, tiled, sparse_c=False))
+    assert torch.equal(dense.isnan(), flat.isnan())
+    assert torch.equal(dense.isinf() & (dense > 0), flat.isinf() & (flat > 0))
+    if route != "padded_grid" or dtype == torch.float32:
+        # (the padded grid rounds its bf16 output after every step)
+        assert _same_values(dense, flat)
+    assert dense.isnan().any() and dense.isfinite().any()
+
+
+def test_spgemm_census_leaves_finite_b_bit_identical(card):
+    """On finite B the census raises no flag: every route equals the
+    dense strips bit for bit, and the exact product."""
+    a = _host(300, 700, 0.02, 54)
+    b = _host(700, 300, 0.02, 55)
+    bcc = bcc_from_host(a, device=card)
+    tiled = tiled_csr_from_host(b, device=card)
+    want = a.to_dense() @ b.to_dense()
+    for kw, _, _ in NON_FINITE_ROUTES.values():
+        pack = ops.pack_spgemm(bcc, tiled, **kw)
+        got = ops.bcc_spgemm_tiled(None, tiled, pack=pack)
+        assert np.array_equal(got.float().cpu().numpy(), want)
+
+
+def _lattice(card, case, *, block_k=128, k=None, seed=0):
+    """Padded-lattice operands for K9: per-block tile lists by ``case``,
+    integer slabs with about half their columns dead, ``k`` rows of B."""
+    rng = np.random.default_rng(seed)
+    if case == "interleaved":          # 4 tile sets, block b names b % 4
+        sets = [np.sort(rng.choice(12, 4, replace=False)) for _ in range(4)]
+        ids = np.stack([sets[b % 4] for b in range(37)])
+    elif case == "all_equal":          # 19 blocks: panels of 8, 8 and 3
+        ids = np.tile(np.array([1, 4, 6, 9]), (19, 1))
+    elif case == "all_different":      # panels of one
+        ids = np.stack([np.sort(rng.choice(12, 4, replace=False))
+                        for _ in range(21)])
+    elif case == "pads":               # pad slots name tile 0, zero slabs
+        ids = np.tile(np.array([2, 5, 7, 10, 11]), (26, 1))
+        ids[::3, 3:] = 0
+    else:
+        raise ValueError(case)
+    nblocks, tpb = ids.shape
+    vals = rng.integers(-3, 4, (nblocks * tpb, 8, block_k)).astype(
+        np.float32)
+    vals *= rng.random((nblocks * tpb, 1, block_k)) < 0.5
+    if case == "pads":
+        vals.reshape(nblocks, tpb, 8, block_k)[::3, 3:] = 0.0
+    k = 12 * block_k if k is None else k
+    return (torch.from_numpy(ids.reshape(-1).astype(np.int32)).to(card),
+            torch.from_numpy(vals).to(card), tpb, k)
+
+
+@pytest.mark.parametrize("case,k,n_cols,bn", [
+    ("interleaved", 12 * 128, 256, 128),
+    ("all_equal", 12 * 128, 300, 128),        # ragged last strip
+    ("all_different", 12 * 128 - 37, 64, 64),  # ragged K, bn < 128
+    ("pads", 12 * 128, 77, 32),               # ragged N, narrow strips
+    ("interleaved", 11 * 128 + 5, 5, 8),      # ragged K in a live tile
+])
+def test_panel_spmm_kernel_exact_on_integers(card, case, k, n_cols, bn):
+    """K9's panel kernel against its plain version, exactly, on integer
+    operands: panels of 1 to 8 blocks (a block count that is not a
+    multiple of 8, blocks that all agree or all differ), pad slabs,
+    ragged K and N, strips narrower than 128."""
+    tile_ids, vals, tpb, _ = _lattice(card, case)
+    rng = np.random.default_rng(n_cols)
+    b = torch.from_numpy(rng.integers(-2, 3, (k, n_cols)).astype(
+        np.float32)).to(card)
+    kw = dict(block_r=8, block_k=128, tiles_per_block=tpb)
+    before = cluster_spmm.launches
+    got = cluster_spmm(tile_ids, vals, b, bn=bn, **kw)
+    torch.cuda.synchronize()
+    assert cluster_spmm.launches == before + 1
+    assert torch.equal(got, cluster_spmm_plain(tile_ids, vals, b, **kw))
+    panels = ops.spmm_panels(tile_ids, tiles_per_block=tpb)
+    assert torch.equal(cluster_spmm(tile_ids, vals, b, bn=bn, panels=panels,
+                                    **kw), got)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("case", ["interleaved", "pads"])
+def test_panel_spmm_kernel_rounds_16_bits_like_plain(card, case, dtype):
+    """16-bit B: each slot's fp32 part rounded to B's dtype and added in
+    it, slot by slot, as the plain version does; sums large enough to
+    round (values 1..15)."""
+    tile_ids, vals, tpb, k = _lattice(card, case, seed=5)
+    rng = np.random.default_rng(6)
+    vals = vals.abs() * 4
+    b = torch.from_numpy(rng.integers(1, 16, (k, 96)).astype(
+        np.float32)).to(card).to(dtype)
+    kw = dict(block_r=8, block_k=128, tiles_per_block=tpb)
+    got = cluster_spmm(tile_ids, vals, b, **kw)
+    want = cluster_spmm_plain(tile_ids, vals, b, **kw)
+    assert got.dtype == dtype and torch.equal(got, want)
+    once = cluster_spmm(tile_ids, vals, b.float(), **kw).to(dtype)
+    if dtype == torch.bfloat16:
+        assert not torch.equal(got, once)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_panel_spmm_kernel_non_finite_b_in_tile_0_and_dead_columns(card,
+                                                                   dtype):
+    """Nothing is skipped: an inf in B's tile 0 reaches the pad slabs
+    (zero values naming tile 0) as NaN, and a NaN under a dead column
+    reaches its blocks, as in the whole-slab product."""
+    tile_ids, vals, tpb, k = _lattice(card, "pads", seed=7)
+    b = torch.from_numpy(np.random.default_rng(8).integers(
+        -2, 3, (k, 64)).astype(np.float32)).to(card)
+    b[3, 5] = float("inf")                      # tile 0
+    vals.view(-1, tpb, 8, 128)[:, 1, :, 17] = 0.0   # dead in every slot-1
+    b[5 * 128 + 17, 9] = float("nan")           # slab; slot 1 is tile 5
+    b = b.to(dtype)
+    kw = dict(block_r=8, block_k=128, tiles_per_block=tpb)
+    got = cluster_spmm(tile_ids, vals, b, **kw)
+    want = cluster_spmm_plain(tile_ids, vals, b, **kw)
+    assert _same_values(got, want)
+    assert got[:, 9].isnan().all()
+    pad_rows = torch.arange(0, got.shape[0] // 8, 3, device=card)
+    assert got.view(-1, 8, 64)[pad_rows, :, 5].isnan().all()

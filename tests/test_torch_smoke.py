@@ -74,6 +74,17 @@ def test_rehearsal_runs_every_phase(capsys):
     for k in summary["kernels"][:2]:
         assert k["work_bound_ms"] is not None
         assert all(c["live_column_visits"] > 0 for c in k["cases"])
+    # every Sp x Sp kernel on a B with inf, -inf and NaN: position for
+    # position its plain version's, and the dense strips' product
+    non_finite_b = [c for k in summary["kernels"] for c in k["cases"]
+                    if c["case"].startswith("non-finite B")]
+    assert len(non_finite_b) == 6
+    assert all(c["matched"] and c["nan"] > 0 for c in non_finite_b)
+    # K9 by panels, on the clustered layer and on the same weight packed
+    # without the reorder
+    k9 = [c for c in summary["kernels"][5]["cases"] if "panels" in c]
+    assert len(k9) == 4 and all(c["panels"] >= 1 for c in k9)
+    assert all(0 < c["b_bytes_ratio"] <= 1 for c in k9)
     # K4 and K9 each with bf16 and fp16 activations on SparseLinear's
     # layer beside fp32, equal to their plain versions in B's dtype
     assert len(summary["kernels"][1]["cases"]) == 7
