@@ -75,6 +75,28 @@ a run without a card, or from a directory that does not hold the port):
    pruned product; then ``apply`` on the activations with an inf at a
    dead slab column's feature, a -inf and a NaN, equal to the plain
    version position for position, the dead column's block NaN;
+3e. the async front-end — ``AsyncSpGEMMServer`` (``workers=0``, the
+   script pumps) serving a burst of 32 distinct, seeded, integer-valued
+   square members of 256 rows (kron, caveman, powerlaw and 2-D mesh
+   patterns, eight seeds each, interleaved), pallas plans seeded for
+   every pack (``workload="batch"``) and every member: (a) batched — four
+   block-diagonal batches of eight, one window-kernel launch per batch,
+   every response ``batched`` with ``batch_size`` 8, none degraded (then
+   again with fresh values, profiled), and the window kernel on the first
+   pack against its plain version; (b) unbatched — one launch per
+   request; (c) eight sparse A·B pairs (B of twice the columns) as one
+   batch; (d) a ``kernel_launch`` fault on the batched launch: the batch
+   disbands once and its members are re-served one by one, the first on
+   the ladder's ``fixed`` rung; (e) four worker threads on the same
+   members with fresh values; (f) no seeded plans, the cold packs' scheme
+   printed, not asserted; (g) the first batch's members with non-integer
+   values, batched and unbatched, within 1e-5 of the largest value (bit
+   identity printed). Every launch counter is zeroed just before each
+   run and read just after, every ticket must equal scipy's product, and
+   each run prints its wall time, summed ``plan_s`` and ``execute_s``,
+   launches, routes and launch amortization (profiled runs: device time
+   and the window kernel's own; run (a): the pack's dense-C copy and
+   float64 guard);
 3d. LM serving, after the SpGEMM phases' memory is released —
    ``run_serving("zamba2-2.7b", smoke=False, batch=4, prompt_len=1024,
    gen=32)``: 54 Mamba2 layers, d_model 2560, 2.42 B random fp32
@@ -1606,6 +1628,340 @@ def non_finite_check(layer, x, device):
                          "differs from the plain version")
 
 
+# ---------------------------------------------------------------------------
+# phase 3e: the async front-end, a burst of small distinct requests
+# ---------------------------------------------------------------------------
+
+
+def burst_members(rehearse: bool) -> list:
+    """The burst's square members, interleaved by family (one of each
+    family in every run of four): kron, caveman, powerlaw and 2-D mesh
+    patterns of 256 rows, eight seeds each (64 rows, one seed each in the
+    rehearsal). ``BatchPolicy``'s sub-threshold bar is 256 rows, and
+    eight members fill its 2,048-row pack exactly."""
+    from repro_torch.core import suite
+    if rehearse:
+        rows, seeds = 64, (0,)
+        kron_scale, side = 6, 8
+    else:
+        rows, seeds = 256, range(8)
+        kron_scale, side = 8, 16
+    families = (lambda s: suite.gen_kron(kron_scale, 16, seed=s),
+                lambda s: suite.gen_caveman(rows, 24, seed=s),
+                lambda s: suite.gen_powerlaw(rows, 12, seed=s),
+                lambda s: suite.gen_mesh2d(side, seed=s))
+    return [gen(s) for s in seeds for gen in families]
+
+
+def burst_pairs(members, rng, density: float = 0.03) -> list:
+    """A·B pairs: each member as A times a seeded sparse B of the same
+    rows and twice the columns, integer-valued."""
+    from repro_torch.core.formats import HostCSR
+    out = []
+    for a in members:
+        n = a.nrows
+        dense = ((rng.random((n, 2 * n)) < density)
+                 * rng.integers(1, 4, (n, 2 * n))).astype(np.float32)
+        out.append((integer_valued(a, rng), HostCSR.from_dense(dense)))
+    return out
+
+
+def burst_phase(members, device, rng, smi):
+    """The async front-end on the card: ``AsyncSpGEMMServer`` serving a
+    burst of small distinct requests, batched into block-diagonal
+    launches of the window kernel, then unbatched, as A·B pairs, under a
+    fault on the batched launch, through four worker threads, and with
+    no seeded plans. Every launch counter is zeroed just before each run
+    and read just after; every ticket must equal scipy's product."""
+    import torch
+    from repro_torch.core.formats import HostCSR, block_diag_csr
+    from repro_torch.kernels.cluster_spgemm import cluster_spgemm_windows
+    from repro_torch.obs import metrics as obs_metrics
+    from repro_torch.obs.trace import get_tracer
+    from repro_torch.planner.features import fingerprint
+    from repro_torch.planner.plan_cache import Plan, PlanCache
+    from repro_torch.planner.service import Planner
+    from repro_torch.resilience import ResiliencePolicy, faults
+    from repro_torch.serve.batcher import BatchPolicy
+    from repro_torch.serve.engine import SpGEMMServer
+    from repro_torch.serve.frontend import AsyncSpGEMMServer
+
+    reg = obs_metrics.get_registry()
+    variants = ("resident", "streamed", "streamed_db", "sparse_c")
+    group = min(BatchPolicy().max_members, len(members))
+    nbatch = len(members) // group
+
+    def routes():
+        return {v: reg.counter("kernel_launches", variant=v).value
+                for v in variants}
+
+    def outcomes():
+        return {o: reg.counter("serve_batches", outcome=o).value
+                for o in ("served", "disbanded")}
+
+    def seeded_cache(a_list):
+        """Pallas plans for each group's pack (``workload="batch"``, the
+        pack's fingerprint in FIFO order) and each member's own A²."""
+        cache = PlanCache()
+        for g in range(0, len(a_list), group):
+            pack = block_diag_csr(a_list[g:g + group])
+            cache.put(Plan(fingerprint=fingerprint(pack.host),
+                           reorder="original", scheme="pallas",
+                           reuse_hint=20, workload="batch"))
+        for a in a_list:
+            cache.put(Plan(fingerprint=fingerprint(a), reorder="original",
+                           scheme="pallas", reuse_hint=20))
+        return cache
+
+    def front_end(cache, policy=None, **kw):
+        planner = Planner(cache=cache, device=device,
+                          resilience=policy or ResiliencePolicy())
+        return AsyncSpGEMMServer(SpGEMMServer(planner, default_reuse_hint=20),
+                                 capacity=128, **kw)
+
+    def serve(fe, reqs, *, profile=False, trace=False, fault=None,
+              pump=True):
+        """Submit ``reqs`` ((a, b) pairs) and drain them (``pump``: on
+        this thread; else the front-end's workers do); the responses, the
+        wall time, the launch, route and batch-outcome deltas, the profile
+        and the spans."""
+        tracer = get_tracer()
+        if trace:
+            tracer.clear()
+            tracer.enable()
+        ctx = (torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA])
+            if profile and device.type == "cuda"
+            else contextlib.nullcontext())
+        r0, o0 = routes(), outcomes()
+        cluster_spgemm_windows.launches = 0
+        with ctx as prof, (fault or contextlib.nullcontext()):
+            t0 = time.perf_counter()
+            tickets = [fe.submit(a, b, reuse_hint=20) for a, b in reqs]
+            if pump:
+                fe.pump()
+            resps = [t.result(600) for t in tickets]
+            wall = time.perf_counter() - t0
+        launches = cluster_spgemm_windows.launches
+        spans = list(tracer.spans()) if trace else []
+        tracer.disable()
+        tracer.clear()
+        d_route = {k: v - r0[k] for k, v in routes().items() if v - r0[k]}
+        d_out = {k: v - o0[k] for k, v in outcomes().items()}
+        return resps, wall, launches, d_route, d_out, prof, spans
+
+    def check(label, reqs, resps):
+        exact = [same_result(r, scipy_result(a, b, None), None)
+                 for (a, b), r in zip(reqs, resps)]
+        if not all(exact):
+            raise SystemExit(f"burst {label}: tickets "
+                             f"{[i for i, e in enumerate(exact) if not e]} "
+                             "differ from scipy")
+
+    def row(label, resps, wall, launches, d_route, d_out, fe, prof=None,
+            **extra):
+        busy, top = device_time(prof) if prof is not None else (None, None)
+        kernel_ms = None
+        if prof is not None:
+            from torch.autograd import DeviceType
+            kernel_ms = sum(ev.time_range.elapsed_us() / 1e3
+                            for ev in prof.events()
+                            if ev.device_type == DeviceType.CUDA
+                            and "window_kernel" in ev.name)
+        out = {"run": label, "gpu": smi, "requests": len(resps),
+               "wall_s": wall,
+               "sum_plan_s": sum(r.plan_s for r in resps),
+               "sum_execute_s": sum(r.execute_s for r in resps),
+               "window_launches": (launches if device.type == "cuda"
+                                   else None),
+               "routes": d_route, "serve_batches": d_out,
+               "batched": sum(r.batched for r in resps),
+               "batch_sizes": sorted({r.batch_size for r in resps}),
+               "schemes": sorted({r.scheme for r in resps}),
+               "degraded": sum(r.degraded for r in resps),
+               "launch_amortization":
+                   fe.stats()["batching"]["launch_amortization"],
+               "device_busy_s": busy, "window_kernel_device_ms": kernel_ms,
+               "device_top_ms": top, **extra}
+        log("  burst", json.dumps(out))
+        return out
+
+    def fresh(mats):
+        return [(integer_valued(a, rng), None) for a in mats]
+
+    rows = []
+    launches = {}
+    on_card = device.type == "cuda"
+    # (a) batched: the main path, unprofiled (wall time, spans), then a
+    # profiled burst with fresh values (device time)
+    fe = front_end(seeded_cache(members), workers=0,
+                   batch_policy=BatchPolicy())
+    reqs = fresh(members)
+    resps, wall, n, d_route, d_out, _, spans = serve(fe, reqs, trace=True)
+    check("a", reqs, resps)
+    launches["batched"] = n
+    # the batches' execute windows (the members' execute_s summed) hold
+    # the launches, the syncs, the copies of the packs' dense C and the
+    # float64 output guard; the guard is the windows less the execute
+    # spans. The copy and the guard are also timed alone on a C of the
+    # pack's shape
+    span_s = {}
+    for sp_ in spans:
+        span_s[sp_.name] = span_s.get(sp_.name, 0.0) + sp_.duration
+    c_shape = (group * members[0].nrows,) * 2
+    c_host = np.zeros(c_shape, np.float32)
+    c_dev = torch.zeros(c_shape, device=device)
+    copy_ms = timed_ms(lambda: c_dev.cpu(), device)
+    guard_ms = timed_ms(
+        lambda: np.isfinite(np.sum(c_host, dtype=np.float64)), device)
+    row_a = row("a: batched", resps, wall, n, d_route, d_out, fe,
+                pack_c_shape=list(c_shape),
+                pack_c_bytes=4 * c_shape[0] * c_shape[1],
+                kept_fraction=1.0 / group,
+                sum_batch_pack_s=span_s.get("batch_pack", 0.0),
+                sum_operand_pack_s=span_s.get("pack", 0.0),
+                sum_kernel_span_s=span_s.get("kernel", 0.0),
+                sum_guard_s=(sum(r.execute_s for r in resps)
+                             - span_s.get("execute", 0.0)),
+                dense_c_copy_ms=copy_ms, float64_guard_ms=guard_ms)
+    del c_host, c_dev
+    ok = (d_out == {"served": nbatch, "disbanded": 0}
+          and sum(d_route.values()) == nbatch
+          and all(r.batched and r.batch_size == group for r in resps)
+          and row_a["degraded"] == 0 and row_a["schemes"] == ["pallas"]
+          and (n == nbatch or not on_card))
+    rows.append(row_a)
+    if not ok:
+        raise SystemExit(f"burst a (batched) failed its checks: {row_a}")
+    # the window kernel on the first batch's pack against its plain
+    # version, on the route the served batches took
+    pack = block_diag_csr([a for a, _ in reqs[:group]]).host
+    pack_case, _, _ = window_case(
+        f"window kernel, block-diagonal pack of {group} (burst)", pack,
+        device, sparse_c="sparse_c" in d_route, timing=on_card)
+    reqs = fresh(members)
+    resps, wall, n, d_route, d_out, prof, _ = serve(
+        fe, reqs, profile=True)
+    check("a, profiled", reqs, resps)
+    rows.append(row("a: batched, profiled", resps, wall, n, d_route, d_out,
+                    fe, prof))
+    if n != nbatch and on_card:
+        raise SystemExit(f"burst a (profiled): {n} window launches")
+
+    # (b) unbatched: one launch per request
+    fe = front_end(seeded_cache(members), workers=0,
+                   batch_policy=BatchPolicy(enabled=False))
+    for label, profile in (("b: unbatched", False),
+                           ("b: unbatched, profiled", True)):
+        reqs = fresh(members)
+        resps, wall, n, d_route, d_out, prof, _ = serve(fe, reqs,
+                                                        profile=profile)
+        check(label, reqs, resps)
+        r = row(label, resps, wall, n, d_route, d_out, fe, prof)
+        rows.append(r)
+        if not (sum(d_route.values()) == len(members) and r["batched"] == 0
+                and r["degraded"] == 0 and r["schemes"] == ["pallas"]
+                and (n == len(members) or not on_card)):
+            raise SystemExit(f"burst {label} failed its checks: {r}")
+        launches.setdefault("unbatched", n)
+
+    # (c) A·B pairs, one batch
+    pairs = burst_pairs(members[:group], rng)
+    cache = PlanCache()
+    pack = block_diag_csr([a for a, _ in pairs])
+    cache.put(Plan(fingerprint=fingerprint(pack.host), reorder="original",
+                   scheme="pallas", reuse_hint=20, workload="batch"))
+    fe = front_end(cache, workers=0, batch_policy=BatchPolicy())
+    resps, wall, n, d_route, d_out, _, _ = serve(fe, pairs)
+    check("c", pairs, resps)
+    r = row("c: A·B pairs, batched", resps, wall, n, d_route, d_out, fe,
+            b_shape=list(pairs[0][1].shape))
+    rows.append(r)
+    launches["pairs"] = n
+    if not (d_out == {"served": 1, "disbanded": 0}
+            and all(x.batched and x.batch_size == group for x in resps)
+            and r["degraded"] == 0 and (n == 1 or not on_card)):
+        raise SystemExit(f"burst c (A·B) failed its checks: {r}")
+
+    # (d) chaos: a kernel_launch fault on the batched launch (two fires:
+    # the batch, then the first member's own pallas run, which the ladder
+    # recovers on the fixed rung); the batch disbands into singles
+    policy = ResiliencePolicy()
+    chaos_members = members[:group]
+    fe = front_end(seeded_cache(chaos_members), policy, workers=0,
+                   batch_policy=BatchPolicy())
+    reqs = fresh(chaos_members)
+    fault = faults.injected(faults.FaultPlan(
+        0, sites=["kernel_launch"], rate=1.0, max_fires=2))
+    resps, wall, n, d_route, d_out, _, _ = serve(fe, reqs, fault=fault)
+    check("d", reqs, resps)
+    fallbacks = [i.fallback for i in policy.incidents]
+    r = row("d: chaos, faulted batch", resps, wall, n, d_route, d_out, fe,
+            incidents=fallbacks, fallback_schemes=sorted(
+                {x.fallback_scheme for x in resps} - {""}))
+    rows.append(r)
+    if not (d_out == {"served": 0, "disbanded": 1} and r["batched"] == 0
+            and fallbacks == ["unbatch", "fixed"] and r["degraded"] == 1):
+        raise SystemExit(f"burst d (chaos) failed its checks: {r}")
+
+    # (e) four worker threads on the same members, fresh values: every
+    # ticket resolves, equal to scipy (groups form as the workers drain,
+    # so a pack may be unseeded and planned cold)
+    fe = front_end(seeded_cache(members), workers=4,
+                   batch_policy=BatchPolicy())
+    try:
+        reqs = fresh(members)
+        resps, wall, n, d_route, d_out, _, _ = serve(fe, reqs, pump=False)
+    finally:
+        fe.close()
+    check("e", reqs, resps)
+    r = row("e: four worker threads", resps, wall, n, d_route, d_out, fe)
+    rows.append(r)
+    if len(resps) != len(members) or r["degraded"] != 0:
+        raise SystemExit(f"burst e (threads) failed its checks: {r}")
+
+    # (f) no seeded plans: the cold packs' scheme is printed, not asserted
+    fe = front_end(PlanCache(), workers=0, batch_policy=BatchPolicy())
+    reqs = fresh(members)
+    resps, wall, n, d_route, d_out, _, _ = serve(fe, reqs)
+    check("f", reqs, resps)
+    rows.append(row("f: unseeded plans", resps, wall, n, d_route, d_out,
+                    fe))
+
+    # (g) non-integer values on the first batch's members, batched and
+    # unbatched: a member's sums in the pack may run in another order
+    # (the launch's unit groups follow the whole pack), so the two agree
+    # within 1e-5 of the largest value; whether bit for bit is printed
+    floats = [(HostCSR(a.indptr, a.indices, rng.uniform(
+        0.5, 2.0, a.nnz).astype(np.float32), a.shape), None)
+        for a in members[:group]]
+    got, route = {}, {}
+    for batching in (True, False):
+        fe = front_end(seeded_cache([a for a, _ in floats]), workers=0,
+                       batch_policy=BatchPolicy(enabled=batching))
+        resps, wall, n, d_route, d_out, _, _ = serve(fe, floats)
+        got[batching], route[batching] = resps, sorted(d_route)
+        rows.append(row(f"g: float values, "
+                        f"{'batched' if batching else 'unbatched'}", resps,
+                        wall, n, d_route, d_out, fe))
+    scale = max(float(np.abs(r.result).max()) for r in got[False])
+    err = max(float(np.abs(b.result - u.result).max())
+              for b, u in zip(got[True], got[False]))
+    same = all(np.array_equal(b.result, u.result)
+               for b, u in zip(got[True], got[False]))
+    log("  float values", json.dumps({
+        "gpu": smi, "members": len(floats), "routes": {
+            "batched": route[True], "unbatched": route[False]},
+        "max_abs_batched_vs_unbatched": err, "max_abs_value": scale,
+        "tolerance": "<= 1e-5 x max|unbatched|", "bit_identical": same}))
+    if not (err <= 1e-5 * scale and all(r.batched for r in got[True])):
+        raise SystemExit(f"burst g: batched float values off by {err} "
+                         f"(max value {scale})")
+    log("  burst launches", json.dumps(launches))
+    return launches, rows, pack_case
+
+
 LOGIT_TOL = 2e-3
 
 
@@ -1854,10 +2210,12 @@ def main(argv=None) -> int:
                      mesh.data[: mesh.indptr[wide_rows]],
                      (wide_rows, mesh.ncols))
     mats = {"kron": kron, "cave": cave, "wide_a": wide_a, "wide_b": wide_b}
+    members = burst_members(args.rehearse)
     log(f"  matrices: kron {kron.shape} nnz {kron.nnz}, caveman "
         f"{cave.shape} nnz {cave.nnz}, powerlaw {plaw.shape} nnz "
         f"{plaw.nnz}, wide A {wide_a.shape} nnz {wide_a.nnz} x mesh "
-        f"{wide_b.shape} nnz {wide_b.nnz} "
+        f"{wide_b.shape} nnz {wide_b.nnz}, burst: {len(members)} members "
+        f"of {members[0].nrows} rows, nnz {sum(m.nnz for m in members)} "
         f"({time.perf_counter() - t0:.1f} s)")
 
     # -- phase 2: kernels vs plain versions ------------------------------------
@@ -1969,6 +2327,12 @@ def main(argv=None) -> int:
         "on non-finite activations")
     launches.update(sparse_linear_phase(lin_layer, lin_x, device))
     del lin_layer, lin_x
+    phase("phase 3e: async front-end, a burst of small distinct requests "
+          "(AsyncSpGEMMServer, block-diagonal batches)")
+    burst_launches, _, burst_pack = burst_phase(members, device, rng, smi)
+    # the batch path's launches of the window kernel join the main path's
+    launches["cluster_spgemm_windows"] += (burst_launches["batched"]
+                                           + burst_launches["pairs"])
     # the SpGEMM phases' device memory is released before the LM phase
     gc.collect()
     if device.type == "cuda":
@@ -1980,7 +2344,7 @@ def main(argv=None) -> int:
     launches.update(lm_launches)
 
     # -- phase 4: summary ------------------------------------------------------
-    win_cases = [dense, slab, tall, bf16] + nonfinite[:2]
+    win_cases = [dense, slab, tall, bf16, burst_pack] + nonfinite[:2]
     spmm_cases = [spmm, ragged, spmm_cave, spmm_plaw, linear_compact,
                   linear_16[1], linear_16[3]]
     revisit_cases = [c for c in stream_all
@@ -2006,12 +2370,17 @@ def main(argv=None) -> int:
                 "matched": all(c["matched"] for c in cases),
                 "cases": cases}
 
+    windows_entry = entry(
+        "cluster_spgemm_windows",
+        "src/repro_torch/kernels/csrc/cluster_spgemm.cu",
+        "src/repro/kernels/cluster_spgemm.py:336 (K1 "
+        "cluster_spgemm_pairs; also :389 K2, :462 K3, :746 K5a, "
+        ":816 K5b)", win_cases, dense)
+    # phase 3e's launches: one per batch of the batched and A·B bursts
+    # (in "launches" too), one per request unbatched
+    windows_entry["batch_launches"] = burst_launches
     kernels = {"kernels": [
-        entry("cluster_spgemm_windows",
-              "src/repro_torch/kernels/csrc/cluster_spgemm.cu",
-              "src/repro/kernels/cluster_spgemm.py:336 (K1 "
-              "cluster_spgemm_pairs; also :389 K2, :462 K3, :746 K5a, "
-              ":816 K5b)", win_cases, dense),
+        windows_entry,
         entry("cluster_spmm_compact",
               "src/repro_torch/kernels/csrc/cluster_spmm.cu",
               "src/repro/kernels/cluster_spmm.py:168 (K4 "

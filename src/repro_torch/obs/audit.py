@@ -32,11 +32,16 @@ recalibration becomes a cron job over serving traffic instead of a
 benchmark run. ``spec`` is ``serve:<fingerprint>`` — not a suite spec
 name, so the fit's feature-conditional kernel-scale stage skips these
 rows while the preprocess-constant stage consumes them.
+
+The auditor is thread-safe (one re-entrant lock around its state): the
+serving front-end's worker threads record into one auditor while its
+scheduled recalibration reads the samples.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
+import threading
 from collections import deque
 from typing import Optional
 
@@ -80,6 +85,7 @@ class DriftAuditor:
         self._fp_scheme: dict[str, str] = {}
         self._scheme_residuals: dict[str, deque] = {}
         self._window = int(window)
+        self._lock = threading.RLock()
 
     # -- recording -----------------------------------------------------------
 
@@ -94,6 +100,16 @@ class DriftAuditor:
         measured_s = float(measured_s)
         if not (measured_s > 0.0 and math.isfinite(measured_s)):
             return None
+        with self._lock:
+            rec = self._record_locked(plan, measured_s)
+            flagged = len(self.flagged())
+        from repro_torch.obs.metrics import get_registry
+        reg = get_registry()
+        reg.counter("audit_records").inc()
+        reg.gauge("audit_flagged").set(flagged)
+        return rec
+
+    def _record_locked(self, plan, measured_s: float) -> AuditRecord:
         pred = float((plan.predicted or {}).get("kernel_rel", 1.0))
         if not (pred > 0.0 and math.isfinite(pred)):
             pred = 1.0
@@ -122,14 +138,7 @@ class DriftAuditor:
         self._fp_scheme[plan.fingerprint] = plan.scheme
         self._scheme_residuals.setdefault(
             plan.scheme, deque(maxlen=self._window)).append(residual)
-        self._update_metrics()
         return rec
-
-    def _update_metrics(self) -> None:
-        from repro_torch.obs.metrics import get_registry
-        reg = get_registry()
-        reg.counter("audit_records").inc()
-        reg.gauge("audit_flagged").set(len(self.flagged()))
 
     # -- views ---------------------------------------------------------------
 
@@ -139,8 +148,10 @@ class DriftAuditor:
         whose plans rest on a drifted prediction and should be
         re-measured (or the model recalibrated)."""
         th = self.threshold if threshold is None else float(threshold)
-        return {fp: {"residual": r, "scheme": self._fp_scheme.get(fp, "")}
-                for fp, r in self._fp_residual.items() if abs(r) > th}
+        with self._lock:
+            return {fp: {"residual": r,
+                         "scheme": self._fp_scheme.get(fp, "")}
+                    for fp, r in self._fp_residual.items() if abs(r) > th}
 
     def summary(self) -> dict:
         """Per-scheme rolling drift table (the ``stats()`` /
@@ -148,18 +159,19 @@ class DriftAuditor:
         regret (mean positive residual — "slower than predicted"), plus
         totals and the flagged set."""
         per_scheme = {}
-        for scheme, resid in sorted(self._scheme_residuals.items()):
-            rs = list(resid)
-            per_scheme[scheme] = {
-                "n": len(rs),
-                "mean_abs_residual": sum(abs(r) for r in rs) / len(rs),
-                "regret": sum(max(r, 0.0) for r in rs) / len(rs),
-            }
-        return {"records": len(self.records),
-                "fingerprints": len(self._fp_residual),
-                "threshold": self.threshold,
-                "per_scheme": per_scheme,
-                "flagged": self.flagged()}
+        with self._lock:
+            for scheme, resid in sorted(self._scheme_residuals.items()):
+                rs = list(resid)
+                per_scheme[scheme] = {
+                    "n": len(rs),
+                    "mean_abs_residual": sum(abs(r) for r in rs) / len(rs),
+                    "regret": sum(max(r, 0.0) for r in rs) / len(rs),
+                }
+            return {"records": len(self.records),
+                    "fingerprints": len(self._fp_residual),
+                    "threshold": self.threshold,
+                    "per_scheme": per_scheme,
+                    "flagged": self.flagged()}
 
     def samples(self) -> list[dict]:
         """Accumulated records in ``fit_calibration``'s row format.
@@ -169,8 +181,10 @@ class DriftAuditor:
         same scale (0 for cache-hit executions). Feed via
         ``fit_calibration(samples=auditor.samples())``.
         """
+        with self._lock:
+            records = list(self.records)
         out = []
-        for r in self.records:
+        for r in records:
             pre_rel = (r.preprocess_s / r.baseline_s
                        if r.baseline_s > 0 else 0.0)
             out.append({"spec": f"serve:{r.fingerprint}",
@@ -180,11 +194,12 @@ class DriftAuditor:
         return out
 
     def reset(self) -> None:
-        self.records.clear()
-        self._baseline.clear()
-        self._fp_residual.clear()
-        self._fp_scheme.clear()
-        self._scheme_residuals.clear()
+        with self._lock:
+            self.records.clear()
+            self._baseline.clear()
+            self._fp_residual.clear()
+            self._fp_scheme.clear()
+            self._scheme_residuals.clear()
 
 
 _AUDITOR = DriftAuditor()

@@ -149,15 +149,18 @@ for _name, _unit in COUNTER_UNITS.items():
 
 
 class Counter:
-    """Monotonically increasing count."""
+    """Monotonically increasing count (an increment is atomic: the
+    serving front-end's worker threads share the registry)."""
 
-    __slots__ = ("value",)
+    __slots__ = ("value", "_lock")
 
     def __init__(self):
         self.value = 0.0
+        self._lock = threading.Lock()
 
     def inc(self, amount: float = 1.0) -> None:
-        self.value += amount
+        with self._lock:
+            self.value += amount
 
     def snapshot(self):
         v = self.value
@@ -183,7 +186,7 @@ class Gauge:
 class Histogram:
     """count/sum/min/max + a bounded reservoir for percentiles."""
 
-    __slots__ = ("count", "total", "min", "max", "_recent")
+    __slots__ = ("count", "total", "min", "max", "_recent", "_lock")
 
     def __init__(self, reservoir: int = 1024):
         self.count = 0
@@ -191,22 +194,25 @@ class Histogram:
         self.min = float("inf")
         self.max = float("-inf")
         self._recent: deque[float] = deque(maxlen=reservoir)
+        self._lock = threading.Lock()
 
     def observe(self, value: float) -> None:
         v = float(value)
-        self.count += 1
-        self.total += v
-        self.min = min(self.min, v)
-        self.max = max(self.max, v)
-        self._recent.append(v)
+        with self._lock:
+            self.count += 1
+            self.total += v
+            self.min = min(self.min, v)
+            self.max = max(self.max, v)
+            self._recent.append(v)
 
     def snapshot(self) -> dict:
-        if not self.count:
-            return {"count": 0}
-        recent = np.asarray(self._recent, dtype=np.float64)
-        return {"count": self.count, "sum": self.total,
-                "mean": self.total / self.count,
-                "min": self.min, "max": self.max,
+        with self._lock:
+            if not self.count:
+                return {"count": 0}
+            count, total, lo, hi = self.count, self.total, self.min, self.max
+            recent = np.asarray(self._recent, dtype=np.float64)
+        return {"count": count, "sum": total, "mean": total / count,
+                "min": lo, "max": hi,
                 "p50": float(np.percentile(recent, 50)),
                 "p95": float(np.percentile(recent, 95))}
 
@@ -283,11 +289,13 @@ class MetricsRegistry:
 
     def snapshot(self) -> dict:
         """Point-in-time view: {instrument key: value or histogram dict}."""
-        return {key: inst.snapshot()
-                for key, inst in sorted(self._instruments.items())}
+        with self._lock:
+            items = sorted(self._instruments.items())
+        return {key: inst.snapshot() for key, inst in items}
 
     def reset(self) -> None:
-        self._instruments.clear()
+        with self._lock:
+            self._instruments.clear()
 
 
 _REGISTRY = MetricsRegistry()

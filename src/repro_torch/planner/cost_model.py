@@ -34,7 +34,8 @@ from repro_torch.planner.features import MatrixFeatures
 
 __all__ = ["Candidate", "ScoredCandidate", "Measurement", "CostModel",
            "DEFAULT_CANDIDATES", "IDENTITY", "break_even_reuse",
-           "amortizes", "SCHEMES"]
+           "amortizes", "SCHEMES", "batch_break_even",
+           "BATCH_DISPATCH_REL", "BATCH_PACK_REL"]
 
 SCHEMES = ("rowwise", "fixed", "variable", "hierarchical", "pallas")
 
@@ -49,6 +50,35 @@ PALLAS_INTERPRET_REL = 50.0
 
 # an unmeasured kernel-tier candidate on the card: no prior, no gain
 PALLAS_UNMEASURED_REL = 1.0
+
+# -- cross-request batching break-even (the JAX package's constants, in
+# units of one identity-order row-wise SpGEMM on one member) ---------------
+# the fixed per-launch cost of a sub-threshold request (dispatch, argument
+# staging, result readback)
+BATCH_DISPATCH_REL = 1.0
+# per-member block-diagonal packing: one concatenate per CSR array plus
+# the column-offset shift
+BATCH_PACK_REL = 0.15
+
+
+def batch_break_even(members: int, *,
+                     dispatch_rel: float = BATCH_DISPATCH_REL,
+                     pack_rel: float = BATCH_PACK_REL) -> bool:
+    """Whether one block-diagonal launch beats ``members`` single launches.
+
+    ``members`` singles pay ``members × dispatch``; the batch pays one
+    dispatch plus per-member packing (the kernel work is the same — the
+    packed product's diagonal blocks are the member products), so
+    batching amortizes iff ``dispatch × (members − 1) > members × pack``.
+
+    >>> batch_break_even(1)
+    False
+    >>> batch_break_even(2)
+    True
+    """
+    if members < 2:
+        return False
+    return dispatch_rel * (members - 1) > members * pack_rel
 
 
 def _pallas_core_count() -> int:
@@ -219,10 +249,16 @@ class CostModel:
     ``device`` is where the planned products run: it decides what an
     unmeasured ``pallas`` candidate scores (it is not touched otherwise,
     so a model for ``"cuda"`` can be built without a card).
+
+    ``calibration`` — an optional
+    :class:`~repro_torch.planner.calibration.Calibration`: least-squares
+    fitted corrections applied on top of the heuristic constants. ``None``
+    keeps the hand-tuned values; measured overrides always win either way.
     """
 
-    def __init__(self, device="cuda"):
+    def __init__(self, device="cuda", calibration=None):
         self.device_type = torch.device(device).type
+        self.calibration = calibration
         # (fingerprint, candidate.key) -> Measurement
         self._measured: dict[tuple[str, str], Measurement] = {}
 
@@ -259,10 +295,11 @@ class CostModel:
         """(kernel_rel, preprocess_rel) from structural features alone.
 
         ``workload`` matters only to an unmeasured ``pallas`` candidate on
-        the card: a product the serving path would shard (``a2`` or
-        ``chain`` on the live-pair grid) divides its kernel term by the
-        shard count, as the JAX package's per-core term does (without
-        that package's TPU shard-efficiency constant). With one shard —
+        the card: a product the serving path would shard (``a2``,
+        ``chain`` or a block-diagonal ``batch`` pack on the live-pair
+        grid) divides its kernel term by the shard count, as the JAX
+        package's per-core term does (without that package's TPU
+        shard-efficiency constant). With one shard —
         :func:`~repro_torch.kernels.ops.pallas_shard_count` — nothing
         changes."""
         # disorder: how far the current order is from a banded layout —
@@ -303,7 +340,7 @@ class CostModel:
                 kernel_rel = PALLAS_INTERPRET_REL
             else:
                 cores = (max(_pallas_core_count(), 1)
-                         if workload in ("a2", "chain")
+                         if workload in ("a2", "chain", "batch")
                          and _pallas_compact_ok(f.ncols) else 1)
                 kernel_rel = PALLAS_UNMEASURED_REL / cores
 
@@ -327,6 +364,22 @@ class CostModel:
                 preprocess_rel=m.preprocess_s / base, reuse=reuse,
                 measured=True)
         kernel_rel, pre = self._heuristic(features, candidate, workload)
+        cal = self.calibration
+        if cal is not None:
+            # fitted slope per scheme (rowwise-normalized so identity
+            # keeps kernel_rel == 1); the kernel tier's CPU penalty is a
+            # routing gate, not a prediction — never rescaled
+            if kernel_rel < PALLAS_INTERPRET_REL:
+                kernel_rel *= cal.kernel_scale.get(candidate.scheme, 1.0)
+            pre_r = cal.preprocess_reorder.get(candidate.reorder)
+            pre_s = cal.preprocess_scheme.get(candidate.scheme)
+            if pre_r is not None or pre_s is not None:
+                pre = ((pre_r if pre_r is not None
+                        else _REORDER_PRE.get(candidate.reorder, 1.0))
+                       + (pre_s if pre_s is not None
+                          else _SCHEME_PRE[candidate.scheme]))
+                if candidate.scheme == "hierarchical":
+                    pre += features.similar_frac
         return ScoredCandidate(candidate=candidate, kernel_rel=kernel_rel,
                                preprocess_rel=pre, reuse=reuse,
                                measured=False)

@@ -11,10 +11,12 @@ timings that justified the choice. The cache keys plans by
 * the *reuse bucket* (log-decade of the caller's ``reuse_hint``) keeps
   single-shot plans (identity) from shadowing high-reuse plans (clustered)
   for the same matrix;
-* the *workload* (``a2`` sparse×sparse vs ``spmm`` tall-skinny) keeps a
-  plan measured on one kernel family from serving the other — the SpMM
-  menu (``spmm_*``, ``cluster_spmm_compact``) has different economics
-  than the A² menu;
+* the *workload* (``a2`` sparse×sparse, ``spmm`` tall-skinny, ``chain``
+  one hop of A^k, ``batch`` a block-diagonal pack of several requests)
+  keeps a plan measured on one kernel family from serving the other — the
+  SpMM menu (``spmm_*``, ``cluster_spmm_compact``) has different
+  economics than the A² menu, and a pack whose pattern collides with a
+  single request's fingerprint still plans apart;
 * the *version* is bumped whenever plan semantics change, like
   ``benchlib``'s kernel-generation cache key — a stale on-disk plan from
   an older planner can never be served.
@@ -55,6 +57,7 @@ import json
 import math
 import os
 import tempfile
+import threading
 from collections import OrderedDict
 
 import numpy as np
@@ -93,7 +96,9 @@ class Plan:
     #                                   hierarchical | pallas
     reuse_hint: int
     max_cluster: int = 8
-    workload: str = "a2"              # a2 | spmm — kernel family planned for
+    workload: str = "a2"              # a2 | spmm | chain | batch — the
+    #                                   kernel family planned for (batch:
+    #                                   a block-diagonal pack of requests)
     perm: np.ndarray | None = None        # new row -> old row (None: identity)
     boundaries: np.ndarray | None = None  # cluster starts (None: rowwise)
     preprocess_s: float = 0.0             # wall time spent materializing
@@ -203,7 +208,11 @@ class PlanCache:
     construction the directory is scanned and pre-existing ``.npz`` files
     count as the coldest tier (evicted oldest-mtime-first before any live
     entry), so a periodically-restarted server cannot grow the store by
-    ~budget per restart."""
+    ~budget per restart.
+
+    Thread-safe: one re-entrant lock guards the LRU, the byte accounting
+    and the counters, so the serving front-end's worker threads can share
+    a cache."""
 
     def __init__(self, path: str | None = None,
                  max_bytes: int | None = None,
@@ -227,6 +236,7 @@ class PlanCache:
         self.misses = 0
         self.evictions = 0
         self.corrupt_evictions = 0    # damaged disk entries deleted
+        self._lock = threading.RLock()
         self._scan_disk()
         self._enforce_budget()
 
@@ -309,6 +319,11 @@ class PlanCache:
 
     def get(self, fingerprint: str, reuse_hint: int,
             workload: str = "a2") -> Plan | None:
+        with self._lock:
+            return self._get_locked(fingerprint, reuse_hint, workload)
+
+    def _get_locked(self, fingerprint: str, reuse_hint: int,
+                    workload: str) -> Plan | None:
         key = self._key(fingerprint, reuse_hint, workload)
         plan = self._mem.get(key)
         if plan is None:
@@ -345,6 +360,10 @@ class PlanCache:
         return hit
 
     def put(self, plan: Plan) -> None:
+        with self._lock:
+            self._put_locked(plan)
+
+    def _put_locked(self, plan: Plan) -> None:
         key = self._key(plan.fingerprint, plan.reuse_hint, plan.workload)
         f = self._file(key)
         if f is not None:
@@ -401,18 +420,22 @@ class PlanCache:
 
     @property
     def total_bytes(self) -> int:
-        return sum(self._bytes.values()) + sum(self._inherited.values())
+        with self._lock:
+            return (sum(self._bytes.values())
+                    + sum(self._inherited.values()))
 
     def clear_memory(self) -> None:
         """Drop the in-memory layer (keeps disk) — used by tests to force
         an on-disk round-trip."""
-        self._mem.clear()
-        self._bytes.clear()
+        with self._lock:
+            self._mem.clear()
+            self._bytes.clear()
 
     @property
     def stats(self) -> dict:
-        return {"hits": self.hits, "misses": self.misses,
-                "entries": len(self._mem), "bytes": self.total_bytes,
-                "evictions": self.evictions,
-                "corrupt_evictions": self.corrupt_evictions,
-                "namespace": self.namespace}
+        with self._lock:
+            return {"hits": self.hits, "misses": self.misses,
+                    "entries": len(self._mem), "bytes": self.total_bytes,
+                    "evictions": self.evictions,
+                    "corrupt_evictions": self.corrupt_evictions,
+                    "namespace": self.namespace}

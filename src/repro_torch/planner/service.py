@@ -211,6 +211,10 @@ class Planner:
       measure_top / measure_budget: how many shortlisted candidates
         measured mode probes, and the cap on their summed predicted
         preprocessing (in SpGEMM-equivalents).
+      calibration: optional fitted
+        :class:`~repro_torch.planner.calibration.Calibration` forwarded
+        into a default-constructed cost model (ignored when
+        ``cost_model`` is given — configure that instance directly).
       pallas_b_dtype: dtype the pallas scheme packs B's live tiles in
         (``None``: float32; ``torch.bfloat16`` halves B's bytes at the
         documented 2e-2 relative bound, fp32 accumulation either way).
@@ -232,6 +236,7 @@ class Planner:
                  measure_top: int = 4,
                  measure_budget: float = 1.3,
                  candidates: Sequence[Candidate] = DEFAULT_CANDIDATES,
+                 calibration=None,
                  pallas_b_dtype: Optional[torch.dtype] = None,
                  auditor: Optional[obs_audit.DriftAuditor] = None,
                  probe_timeout_s: Optional[float] = 30.0,
@@ -243,7 +248,8 @@ class Planner:
         self.auditor = (auditor if auditor is not None
                         else obs_audit.get_auditor())
         self.cost_model = (cost_model if cost_model is not None
-                           else CostModel(device=self.device))
+                           else CostModel(device=self.device,
+                                          calibration=calibration))
         self.pallas_b_dtype = (pallas_b_dtype if pallas_b_dtype is not None
                                else torch.float32)
         self.measurer = measurer if measurer is not None else self._measure
@@ -267,6 +273,10 @@ class Planner:
         self._exec_cache: dict[str, tuple[tuple, int]] = {}
         self._exec_cache_cap = 64
         self._exec_cache_bytes_cap = _default_exec_cache_bytes(self.device)
+        # the front-end's worker threads share one planner: this lock
+        # guards the exec cache and the measured-mode artifacts (the plan
+        # cache and the drift auditor guard themselves)
+        self._state_lock = threading.Lock()
         self._plan_flight = _SingleFlight()
 
     @property
@@ -285,10 +295,13 @@ class Planner:
 
         The identity plan (original order, row-wise) is the implicit
         fallback whenever no candidate amortizes. ``workload`` is ``"a2"``
-        (sparse × sparse), ``"spmm"`` (dense tall-skinny B) or ``"chain"``
-        (one hop of :meth:`execute_chain`, A²-shaped); cache entries are
-        workload-keyed. Concurrent calls on one (fingerprint, workload)
-        single-flight. A cached plan whose (fingerprint, scheme, reorder)
+        (sparse × sparse), ``"spmm"`` (dense tall-skinny B), ``"chain"``
+        (one hop of :meth:`execute_chain`, A²-shaped) or ``"batch"`` (a
+        block-diagonal pack of several requests' operands, A²-shaped,
+        executed once through :meth:`execute_batch`); cache entries are
+        workload-keyed, so a pack whose pattern collides with a single
+        request's fingerprint still plans apart. Concurrent calls on one
+        (fingerprint, workload) single-flight. A cached plan whose (fingerprint, scheme, reorder)
         the circuit breaker has quarantined is planned around, not
         evicted.
         """
@@ -322,7 +335,7 @@ class Planner:
                    use_cache: bool, workload: str) -> Plan:
         """:meth:`plan` minus the span/metric/single-flight bookkeeping."""
         reuse_hint = max(int(reuse_hint), 1)
-        if workload not in ("a2", "spmm", "chain"):
+        if workload not in ("a2", "spmm", "chain", "batch"):
             raise ValueError(f"unknown workload '{workload}'")
         # workload-qualified key for cost-model measurements: an identity
         # baseline timed on SpMM must only normalize SpMM probes
@@ -387,7 +400,8 @@ class Planner:
                                             fp_w, workload))
 
         cand = chosen.candidate
-        art = self._artifacts.pop((fp_w, cand.key), None)
+        with self._state_lock:
+            art = self._artifacts.pop((fp_w, cand.key), None)
         if art is None:
             art = _materialize(a, cand,
                                reorder_cache=self._reorders.get(fp))
@@ -410,9 +424,10 @@ class Planner:
                                   "preprocess_rel": s.preprocess_rel}
                 for s in ranked if s.measured
             })
-        self._artifacts = {k: v for k, v in self._artifacts.items()
-                           if k[0] != fp_w}        # drop losers' artifacts
-        self._reorders.pop(fp, None)
+        with self._state_lock:                     # drop losers' artifacts
+            self._artifacts = {k: v for k, v in self._artifacts.items()
+                               if k[0] != fp_w}
+            self._reorders.pop(fp, None)
         if use_cache:
             self.cache.put(plan)
         return plan
@@ -482,11 +497,13 @@ class Planner:
 
         fp = fingerprint(a)
         fp_w = fp if workload == "a2" else f"{fp}|{workload}"
-        rcache = self._reorders.setdefault(fp, {})
+        with self._state_lock:
+            rcache = self._reorders.setdefault(fp, {})
         perm, boundaries, max_cluster, t_pre = _materialize(
             a, cand, reorder_cache=rcache)
-        self._artifacts[(fp_w, cand.key)] = (perm, boundaries, max_cluster,
-                                             t_pre)
+        with self._state_lock:
+            self._artifacts[(fp_w, cand.key)] = (perm, boundaries,
+                                                 max_cluster, t_pre)
         el = _over()
         if el is not None:
             raise ProbeTimeoutError(cand.key, el, cap)
@@ -551,6 +568,40 @@ class Planner:
             policy.breaker.record_success(key)
             return out
         return self._run_ladder(plan, a, b, primary)
+
+    def execute_batch(self, plan: Plan, a: HostCSR,
+                      b: HostCSR | None = None) -> np.ndarray:
+        """One block-diagonal batched launch — guarded, but **without**
+        the fallback ladder.
+
+        The ladder degrades a *single* request in place; re-running a
+        whole batch down the rungs would make every co-batched tenant pay
+        for one member's fault, and the identity rung's fault suppression
+        would mask which member carried it. So a failing batched launch is
+        resolved one level up: the circuit breaker records the failing
+        triple, the incident is recorded with ``fallback="unbatch"``, and
+        the error propagates so the batcher disbands the group — each
+        member then re-runs individually through :meth:`execute`'s full
+        ladder. Returns host numpy like :meth:`execute` (device-synced
+        before the copy)."""
+        policy = self.resilience
+        if not policy.ladder:
+            return self._execute_impl(plan, a, b)
+        key = policy.triple(plan.fingerprint, plan.scheme, plan.reorder)
+        try:
+            out = self._guarded_execute(plan, a, b)
+        except Exception as e:           # noqa: BLE001 — batcher disbands
+            policy.breaker.record_failure(key)
+            policy.record_incident(
+                fingerprint=plan.fingerprint, workload=plan.workload,
+                scheme=plan.scheme, reorder=plan.reorder,
+                site=self._classify_failure(e), error=e,
+                fallback="unbatch")
+            obs_metrics.get_registry().counter(
+                "serve_fallbacks", scheme=plan.scheme).inc()
+            raise
+        policy.breaker.record_success(key)
+        return out
 
     def _run_ladder(self, plan: Plan, a: HostCSR,
                     b: HostCSR | np.ndarray | None,
@@ -737,7 +788,7 @@ class Planner:
         ck = (f"{plan.fingerprint}|{_plan_digest(plan)}|chain"
               f"|{'sq' if b is None else 'ab'}|{vk}")
         tracer = get_tracer()
-        cached = self._exec_cache.get(ck, (None, 0))[0]
+        cached = self._exec_get(ck)
         if cached is None:
             with tracer.span("pack", fingerprint=plan.fingerprint,
                              scheme=plan.scheme, kind="sparse_c"):
@@ -785,7 +836,7 @@ class Planner:
         ck = f"{plan.fingerprint}|{_plan_digest(plan)}" \
              f"|{'sq' if squared else 'ab'}" \
              f"|{'dense' if dense_b else 'csr'}|{vk}"
-        cached = self._exec_cache.get(ck, (None, 0))[0]
+        cached = self._exec_get(ck)
         perm = plan.perm
 
         if dense_b:
@@ -898,29 +949,42 @@ class Planner:
                 op_a, op_b, bins, sclust)
         return self._unpermuted(out, perm, rows_only=not squared)
 
+    def _exec_get(self, key: str):
+        """The packed operands kept under ``key``, or ``None``."""
+        with self._state_lock:
+            return self._exec_cache.get(key, (None, 0))[0]
+
     def _exec_put(self, key: str, packed: tuple) -> None:
         """Keep ``packed`` under ``key``, evicting the oldest entries until
         both caps hold; an entry over the byte cap alone is not kept."""
         nbytes = _tensor_nbytes(packed)
         if nbytes > self._exec_cache_bytes_cap:
             return
-        while self._exec_cache and (
-                len(self._exec_cache) >= self._exec_cache_cap
-                or self._exec_cache_nbytes() + nbytes
-                > self._exec_cache_bytes_cap):
-            self._exec_cache.pop(next(iter(self._exec_cache)))
-        self._exec_cache[key] = (packed, nbytes)
+        with self._state_lock:
+            while self._exec_cache and (
+                    len(self._exec_cache) >= self._exec_cache_cap
+                    or self._exec_nbytes_locked() + nbytes
+                    > self._exec_cache_bytes_cap):
+                self._exec_cache.pop(next(iter(self._exec_cache)))
+            self._exec_cache[key] = (packed, nbytes)
+
+    def _exec_nbytes_locked(self) -> int:
+        return sum(n for _, n in self._exec_cache.values())
 
     def _exec_cache_nbytes(self) -> int:
         """Tensor bytes the exec cache holds now."""
-        return sum(n for _, n in self._exec_cache.values())
+        with self._state_lock:
+            return self._exec_nbytes_locked()
 
     def _note_pack(self) -> None:
         """Account one exec-cache packing miss in the metrics registry."""
         reg = obs_metrics.get_registry()
         reg.counter("exec_cache_packs").inc()
-        reg.gauge("exec_cache_entries").set(len(self._exec_cache))
-        reg.gauge("exec_cache_bytes").set(self._exec_cache_nbytes())
+        with self._state_lock:
+            entries, nbytes = (len(self._exec_cache),
+                               self._exec_nbytes_locked())
+        reg.gauge("exec_cache_entries").set(entries)
+        reg.gauge("exec_cache_bytes").set(nbytes)
 
     def _note_probe_skip(self) -> None:
         """Account one wall-clock-capped probe skip."""
@@ -964,8 +1028,11 @@ class Planner:
 
     @property
     def stats(self) -> dict:
-        return {**self.cache.stats, "exec_entries": len(self._exec_cache),
-                "exec_bytes": self._exec_cache_nbytes(),
+        with self._state_lock:
+            entries, nbytes = (len(self._exec_cache),
+                               self._exec_nbytes_locked())
+        return {**self.cache.stats, "exec_entries": entries,
+                "exec_bytes": nbytes,
                 "probe_skips": self.probe_skips,
                 "resilience": self.resilience.stats}
 

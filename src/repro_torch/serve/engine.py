@@ -72,6 +72,11 @@ class SpGEMMResponse:
     trace_id: str = ""         # root span's trace id ("" when tracing is off)
     degraded: bool = False     # served by a degradation-ladder rung
     fallback_scheme: str = ""  # the rung that recovered it ("" when not)
+    coalesced: bool = False    # shared an identical in-flight execution
+    downgraded: bool = False   # the front-end forced the identity rung
+    deadline_missed: bool = False  # completed past its deadline (counted)
+    batched: bool = False      # served as one member of a block-diagonal
+    batch_size: int = 0        # launch of this many distinct requests
 
 
 class SpGEMMServer:

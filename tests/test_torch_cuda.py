@@ -19,7 +19,7 @@ import pytest
 import torch
 
 from repro_torch.core.formats import (HostCSR, bcc_from_host,
-                                      tiled_csr_from_host)
+                                      block_diag_csr, tiled_csr_from_host)
 from repro_torch.kernels import ops
 from repro_torch.kernels.cluster_spgemm import (
     cluster_spgemm_padded, cluster_spgemm_padded_plain,
@@ -40,7 +40,9 @@ from repro_torch.planner.features import fingerprint
 from repro_torch.planner.plan_cache import Plan, PlanCache
 from repro_torch.planner.service import Planner
 from repro_torch.resilience import ResiliencePolicy, faults
+from repro_torch.serve.batcher import BatchPolicy
 from repro_torch.serve.engine import SpGEMMServer
+from repro_torch.serve.frontend import AsyncSpGEMMServer
 
 pytestmark = pytest.mark.cuda
 
@@ -1027,3 +1029,105 @@ def test_panel_spmm_kernel_non_finite_b_in_tile_0_and_dead_columns(card,
     assert got[:, 9].isnan().all()
     pad_rows = torch.arange(0, got.shape[0] // 8, 3, device=card)
     assert got.view(-1, 8, 64)[pad_rows, :, 5].isnan().all()
+
+
+# ---------------------------------------------------------------------------
+# the async front-end: block-diagonal batches on the window kernel
+# ---------------------------------------------------------------------------
+
+
+def _burst_server(device, mats, group, *, batching=True):
+    """A front-end (``workers=0``) over a planner on ``device`` with
+    pallas plans seeded for each group's pack and each member."""
+    cache = PlanCache()
+    for g in range(0, len(mats), group):
+        pack = block_diag_csr(mats[g:g + group])
+        cache.put(Plan(fingerprint=fingerprint(pack.host),
+                       reorder="original", scheme="pallas", reuse_hint=20,
+                       workload="batch"))
+    for m in mats:
+        cache.put(Plan(fingerprint=fingerprint(m), reorder="original",
+                       scheme="pallas", reuse_hint=20))
+    planner = Planner(cache=cache, device=device,
+                      resilience=ResiliencePolicy())
+    return AsyncSpGEMMServer(SpGEMMServer(planner), workers=0, capacity=64,
+                             batch_policy=BatchPolicy(enabled=batching))
+
+
+def _serve_burst(fe, mats):
+    tickets = [fe.submit(m, reuse_hint=20) for m in mats]
+    fe.pump()
+    return [t.result(0) for t in tickets]
+
+
+def test_batched_burst_one_window_launch_per_batch(card):
+    """16 distinct integer-valued members (32 to 64 rows) in two batches
+    of eight: one window-kernel launch per batch, every ticket batched and
+    equal to the dense product."""
+    mats = [_host(32 + 8 * (i % 5), 32 + 8 * (i % 5), 0.1, 300 + i)
+            for i in range(16)]
+    fe = _burst_server(card, mats, 8)
+    before = cluster_spgemm_windows.launches
+    resps = _serve_burst(fe, mats)
+    assert cluster_spgemm_windows.launches == before + 2
+    for r, m in zip(resps, mats):
+        assert r.batched and r.batch_size == 8 and not r.degraded
+        assert r.scheme == "pallas"
+        assert np.array_equal(r.result, m.to_dense() @ m.to_dense())
+    assert fe.stats()["batching"]["launch_amortization"] == 8.0
+
+
+def _named_members():
+    hub = np.zeros((24, 24), np.float32)
+    hub[0, :] = 3.0
+    hub[:, 5] = 2.0
+    hub[3, 3] = 1.0
+    return {"ragged": [_host(n, n, 0.08, 40 + i)
+                       for i, n in enumerate((16, 40, 8, 64))],
+            "hub": [HostCSR.from_dense(hub), _host(24, 24, 0.08, 46),
+                    _host(12, 12, 0.3, 47)],
+            "wide_ragged": [_host(n, n, 0.05, 60 + i)
+                            for i, n in enumerate((200, 56, 130, 8))]}
+
+
+@pytest.mark.parametrize("sparse_c", [False, True])
+@pytest.mark.parametrize("shape", ["ragged", "hub", "wide_ragged"])
+def test_ragged_named_shapes_on_the_card_equal_the_plain_path(card, shape,
+                                                              sparse_c):
+    """Members whose rows are not multiples of 8 straddle 8-row blocks and
+    128-column k-tiles in the pack: the window kernel on both output
+    routes equals its plain version on the CPU, and the served batch
+    equals the CPU front-end's, per ticket."""
+    mats = _named_members()[shape]
+    pack = block_diag_csr(mats).host
+    want = pack.to_dense() @ pack.to_dense()
+    outs = []
+    for dev in (card, torch.device("cpu")):
+        bcc = bcc_from_host(pack, device=dev)
+        tiled = tiled_csr_from_host(pack, device=dev)
+        p = ops.pack_spgemm(bcc, tiled, sparse_c=sparse_c)
+        outs.append(ops.bcc_spgemm_tiled(None, tiled, pack=p).cpu())
+    assert torch.equal(outs[0], outs[1])
+    assert np.array_equal(outs[0].numpy(), want)
+    served = [_serve_burst(_burst_server(dev, mats, len(mats)), mats)
+              for dev in (card, "cpu")]
+    for on_card, on_cpu, m in zip(*served, mats):
+        assert on_card.batched and on_cpu.batched
+        assert np.array_equal(on_card.result, on_cpu.result)
+        assert np.array_equal(on_card.result, m.to_dense() @ m.to_dense())
+
+
+def test_batched_float_values_within_fp32_reassociation(card):
+    """Non-integer values: a member's sums in the pack may be formed in
+    another order than alone (the launch's unit groups follow the whole
+    pack), so batched and unbatched agree within 1e-5 of the largest
+    value; each diagonal block is the member's product."""
+    mats = [_host(64, 64, 0.1, 400 + i, integer=False) for i in range(8)]
+    got = _serve_burst(_burst_server(card, mats, 8), mats)
+    alone = _serve_burst(_burst_server(card, mats, 8, batching=False), mats)
+    for b, u, m in zip(got, alone, mats):
+        assert b.batched and not u.batched
+        scale = float(np.abs(u.result).max())
+        assert float(np.abs(b.result - u.result).max()) <= 1e-5 * scale
+        exact = m.to_dense().astype(np.float64) @ m.to_dense()
+        assert float(np.abs(b.result - exact).max()) <= 1e-5 * scale

@@ -55,7 +55,8 @@ def test_port_file_imports_nothing_of_jax_or_the_reference(path):
 def test_port_tree_is_scanned():
     names = {p.name for p in PORT_FILES}
     assert {"formats.py", "ops.py", "service.py", "engine.py",
-            "chip_smoke.py"} <= names
+            "calibration.py", "queue.py", "estimator.py", "batcher.py",
+            "frontend.py", "chip_smoke.py"} <= names
 
 
 def test_entry_points_default_to_cuda_and_raise_without_a_card():

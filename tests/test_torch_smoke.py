@@ -69,6 +69,41 @@ def test_rehearsal_runs_every_phase(capsys):
     assert non_finite["equal_to_plain"]
     assert non_finite["dead_column_reaches_its_block"]
     assert non_finite["nan"] > 0 and non_finite["inf"] > 0
+    # phase 3e: the async front-end's burst (4 members of 64 rows here)
+    bursts = {b["run"]: b for b in (
+        json.loads(line.split("burst ", 1)[1]) for line in lines
+        if line.startswith("  burst {"))}
+    assert sorted(bursts) == sorted([
+        "a: batched", "a: batched, profiled", "b: unbatched",
+        "b: unbatched, profiled", "c: A·B pairs, batched",
+        "d: chaos, faulted batch",
+        "e: four worker threads", "f: unseeded plans",
+        "g: float values, batched", "g: float values, unbatched"])
+    for run in ("a: batched", "a: batched, profiled"):
+        a = bursts[run]
+        assert a["batched"] == a["requests"] == 4
+        assert a["batch_sizes"] == [4] and a["schemes"] == ["pallas"]
+        assert a["serve_batches"] == {"served": 1, "disbanded": 0}
+        assert a["degraded"] == 0 and a["launch_amortization"] == 4.0
+    assert bursts["a: batched"]["pack_c_shape"] == [256, 256]
+    for run in ("b: unbatched", "b: unbatched, profiled"):
+        assert bursts[run]["batched"] == 0
+        assert sum(bursts[run]["routes"].values()) == 4
+    assert bursts["c: A·B pairs, batched"]["batched"] == 4
+    chaos = bursts["d: chaos, faulted batch"]
+    assert chaos["serve_batches"] == {"served": 0, "disbanded": 1}
+    assert chaos["incidents"] == ["unbatch", "fixed"]
+    assert chaos["degraded"] == 1 and chaos["batched"] == 0
+    assert bursts["e: four worker threads"]["degraded"] == 0
+    floats = json.loads(next(line for line in lines if line.startswith(
+        "  float values ")).split("values ", 1)[1])
+    assert floats["max_abs_batched_vs_unbatched"] <= (
+        1e-5 * floats["max_abs_value"])
+    windows = summary["kernels"][0]
+    assert any("block-diagonal pack" in c["case"] and c["matched"]
+               for c in windows["cases"])
+    assert set(windows["batch_launches"]) == {"batched", "unbatched",
+                                              "pairs"}
     # the live-column kernels report their own work bound beside the
     # product's bound and the tile bound
     for k in summary["kernels"][:2]:
