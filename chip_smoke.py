@@ -97,6 +97,25 @@ a run without a card, or from a directory that does not hold the port):
    launches, routes and launch amortization (profiled runs: device time
    and the window kernel's own; run (a): the pack's dense-C copy and
    float64 guard);
+3f. the measurement tier and the kernel tier's prior — (a)
+   ``benchlib``'s sweep on the card over the JAX quick tier's shape
+   (``representative_subset(8)``, 576–1,024 rows; original, random, rcm,
+   gp, degree and gray × rowwise, fixed, variable and hierarchical;
+   integer values, every timed product equal to scipy's square of the
+   reordered operand), written to the port's cache, then per scheme the
+   geomean speedup over identity row-wise, the share of matrices above 1
+   and the share whose preprocessing costs under 20 identity SpGEMMs;
+   (b) ``fit_calibration()`` from that cache, its ``describe()``
+   printed; (c) for each spec and ``original``/``rcm`` × ``pallas``,
+   the prior's ``kernel_rel`` beside the planner's measured one
+   (``Planner._measure`` against the identity baseline); (d) one cold
+   request on caveman-16384 and one on kron-14 through
+   ``SpGEMMServer.submit``, each planned as the prior ranks first and
+   equal to scipy's product; (e) ``plan_pipeline_stages`` /
+   ``pipeline_spmm_apply`` on two kron-14-pattern stages, 8
+   microbatches of 64 rows, every sum below 2^24, planned cold and in
+   measured mode, each equal to scipy's chained product, K4 launched
+   once per stage planned ``pallas``;
 3d. LM serving, after the SpGEMM phases' memory is released —
    ``run_serving("zamba2-2.7b", smoke=False, batch=4, prompt_len=1024,
    gen=32)``: 54 Mamba2 layers, d_model 2560, 2.42 B random fp32
@@ -1962,6 +1981,305 @@ def burst_phase(members, device, rng, smi):
     return launches, rows, pack_case
 
 
+# ---------------------------------------------------------------------------
+# phase 3f: the measurement tier and the card's prior
+# ---------------------------------------------------------------------------
+
+# the JAX quick tier's sweep: its matrices (representative_subset(8)),
+# its reorderings beside the identity, and every clustering scheme
+SWEEP_REORDERS = ("original", "random", "rcm", "gp", "degree", "gray")
+SWEEP_SCHEMES = ("rowwise", "fixed", "variable", "hierarchical")
+# the paper's preprocessing yardstick: inputs whose reordering and
+# clustering cost less than 20 identity SpGEMMs
+PRE_BUDGET_X = 20.0
+
+
+def geomean(xs) -> float:
+    return float(np.exp(np.log(np.asarray(xs, dtype=np.float64)).mean()))
+
+
+def sweep_table(res, names, reorders, smi) -> list:
+    """Per scheme and reordering (and per scheme over all of them): the
+    geomean speedup over identity row-wise, the share of matrices above
+    1, and the share whose preprocessing costs under ``PRE_BUDGET_X``
+    identity SpGEMMs."""
+    rows = []
+    for scheme in SWEEP_SCHEMES:
+        for algo in reorders + ("all",):
+            algos = reorders if algo == "all" else (algo,)
+            pairs = [(n, al) for n in names for al in algos
+                     if (al, scheme) != ("original", "rowwise")]
+            if not pairs:
+                continue
+            base = {n: res[(n, "original", "rowwise")].kernel_s
+                    for n in names}
+            speed = [base[n] / res[(n, al, scheme)].kernel_s
+                     for n, al in pairs]
+            pre = [res[(n, al, scheme)].preprocess_s / base[n]
+                   for n, al in pairs]
+            rows.append({
+                "scheme": scheme, "reorder": algo, "n": len(pairs),
+                "geomean_speedup": geomean(speed),
+                "share_above_1": float(np.mean([s > 1.0 for s in speed])),
+                "share_preprocess_under_20x": float(np.mean(
+                    [p < PRE_BUDGET_X for p in pre])),
+                "preprocess_median_x": float(np.median(pre)),
+                "gpu": smi})
+    return rows
+
+
+def sweep_and_fit(mats, reorders, device, smi, *, rehearse):
+    """Phase 3f (a) and (b): ``benchlib``'s sweep of ``mats`` on
+    ``device`` — every timed product equal to scipy's square of the
+    reordered operand — written to ``benchlib.CACHE_PATH``, its table
+    printed, then ``fit_calibration()`` from that cache (a rehearsal
+    fits its own device's rows)."""
+    from repro_torch import benchlib
+    from repro_torch.planner.calibration import (_load_cache_samples,
+                                                 fit_calibration)
+
+    names = list(mats)
+    wrong = []
+
+    def check(key):
+        def run(b, c):
+            want = (scipy_csr(b) @ scipy_csr(b)).toarray()
+            got = c[: b.nrows, : b.ncols].cpu().numpy()
+            if not np.array_equal(got, want.astype(np.float32)):
+                wrong.append(key)
+        return run
+
+    res = {}
+    t0 = time.perf_counter()
+    for n in names:
+        for algo in reorders:
+            for scheme in SWEEP_SCHEMES:
+                key = (n, algo, scheme)
+                if scheme == "rowwise":
+                    res[key] = benchlib.bench_rowwise_on(
+                        mats[n], algo, name=n, device=device,
+                        check=check(key))
+                else:
+                    res[key] = benchlib.bench_clusterwise_on(
+                        mats[n], algo, scheme, name=n, device=device,
+                        check=check(key))
+    sweep_s = time.perf_counter() - t0
+    if wrong or len(res) != len(names) * len(reorders) * len(SWEEP_SCHEMES):
+        raise SystemExit(f"sweep products differ from scipy's: {wrong}")
+    benchlib.save_cache()
+    for n in names:
+        base = res[(n, "original", "rowwise")]
+        log("  sweep matrix", json.dumps({
+            "spec": n, "identity_kernel_s": base.kernel_s,
+            "flops": base.flops, "csr_bytes": base.mem_bytes,
+            "speedup": {f"{al}+{sc}": base.kernel_s / res[(n, al, sc)].kernel_s
+                        for al in reorders for sc in SWEEP_SCHEMES},
+            "gpu": smi}))
+    for row in sweep_table(res, names, reorders, smi):
+        log("  sweep", json.dumps(row))
+    log("  sweep run", json.dumps({
+        "products": len(res), "all_equal_scipy": True, "wall_s": sweep_s,
+        "cache": os.path.relpath(benchlib.CACHE_PATH, ROOT),
+        "generation": benchlib.kernel_gen(device), "gpu": smi}))
+
+    # (b) the fit, from that cache (the card's rows; a rehearsal reads
+    # its own device's)
+    if rehearse:
+        cal = fit_calibration(samples=_load_cache_samples(
+            benchlib.CACHE_PATH, benchlib.kernel_gen(device)))
+    else:
+        cal = fit_calibration()
+    if cal is None:
+        raise SystemExit("the sweep's cache gave the fit too few samples")
+    log("  calibration", json.dumps({**cal.describe(), "gpu": smi}))
+
+
+def measurement_phase(big, device, rng, smi, *, rehearse):
+    """The measurement tier and the kernel tier's prior on the card:
+    (a) benchlib's sweep on the binned gather passes, each timed product
+    equal to the reordered operand's square by scipy (P·A²·Pᵀ, the
+    identity product in the reordered order); (b) the calibration fitted
+    from the sweep's cache; (c) the prior's ``kernel_rel`` for the kernel
+    tier against the planner's own measurement; (d) one cold request on
+    caveman and one on kron through ``SpGEMMServer.submit``; (e) the
+    planner-driven pipeline of two kron-pattern stages, planned cold and
+    in measured mode. Returns the kernels' launches of (c), (d) and (e)."""
+    import tempfile
+
+    from repro_torch import benchlib
+    from repro_torch.core.suite import generate
+    from repro_torch.distributed.pipeline import (bubble_fraction,
+                                                  pipeline_spmm_apply,
+                                                  plan_pipeline_stages)
+    from repro_torch.kernels.cluster_spgemm import (cluster_spgemm_padded,
+                                                    cluster_spgemm_windows)
+    from repro_torch.kernels.cluster_spmm import cluster_spmm_compact
+    from repro_torch.obs.trace import get_tracer
+    from repro_torch.planner.cost_model import IDENTITY, Candidate, CostModel
+    from repro_torch.planner.features import extract_features
+    from repro_torch.planner.plan_cache import PlanCache
+    from repro_torch.planner.service import Planner
+    from repro_torch.serve.engine import SpGEMMServer
+
+    kernels = (cluster_spgemm_windows, cluster_spmm_compact,
+               cluster_spgemm_padded)
+
+    def zero():
+        for k in kernels:
+            k.launches = 0
+
+    def counts():
+        return {"window_launches": cluster_spgemm_windows.launches,
+                "spmm_launches": cluster_spmm_compact.launches,
+                "padded_launches": cluster_spgemm_padded.launches}
+
+    launches = {"cluster_spgemm_windows": 0, "cluster_spmm_compact": 0,
+                "cluster_spgemm_padded": 0}
+
+    def bank(c):
+        launches["cluster_spgemm_windows"] += c["window_launches"]
+        launches["cluster_spmm_compact"] += c["spmm_launches"]
+        launches["cluster_spgemm_padded"] += c["padded_launches"]
+
+    # (a) the sweep, timed on the card, and (b) the fit from its cache (a
+    # rehearsal's cache lives in a temporary directory, never the repo's)
+    specs = benchlib.representative_subset(2 if rehearse else 8)
+    reorders = SWEEP_REORDERS[:3] if rehearse else SWEEP_REORDERS
+    names = [s.name for s in specs]
+    mats = {s.name: integer_valued(generate(s), rng) for s in specs}
+    log("  sweep matrices", json.dumps(
+        {n: {"rows": h.nrows, "nnz": h.nnz} for n, h in mats.items()}))
+    if rehearse:
+        default = benchlib.CACHE_PATH
+        with tempfile.TemporaryDirectory() as d:
+            benchlib.CACHE_PATH = os.path.join(d, "bench_cache_torch.json")
+            try:
+                sweep_and_fit(mats, reorders, device, smi, rehearse=True)
+            finally:
+                benchlib.CACHE_PATH = default
+    else:
+        sweep_and_fit(mats, reorders, device, smi, rehearse=False)
+
+    # (c) the prior against the kernel tier's measured kernel_rel
+    prior = CostModel(device="cuda")
+    planner = Planner(cache=PlanCache(), device=device)
+    zero()
+    errs = []
+    for n in names:
+        a = mats[n]
+        f = extract_features(a)
+        base = planner._measure(a, IDENTITY)
+        for reorder in ("original", "rcm"):
+            cand = Candidate(reorder, "pallas")
+            s = prior.score(f, cand, 20)
+            m = planner._measure(a, cand)
+            rel = m.kernel_s / base.kernel_s
+            errs.append(s.kernel_rel / rel)
+            log("  prior", json.dumps({
+                "spec": n, "candidate": cand.key,
+                "tile128_fill": f.tile128_fill,
+                "prior_kernel_rel": s.kernel_rel,
+                "measured_kernel_rel": rel,
+                "prior_over_measured": s.kernel_rel / rel,
+                "prior_preprocess_rel": s.preprocess_rel,
+                "measured_preprocess_rel": m.preprocess_s / base.kernel_s,
+                "identity_kernel_s": base.kernel_s,
+                "kernel_s": m.kernel_s, "gpu": smi}))
+    c = counts()
+    bank(c)
+    log("  prior summary", json.dumps({
+        "cases": len(errs), "geomean_prior_over_measured": geomean(errs),
+        "min": min(errs), "max": max(errs), **c, "gpu": smi}))
+    if device.type == "cuda" and c["window_launches"] == 0:
+        raise SystemExit("the kernel tier's measurements launched no "
+                         "window kernel")
+
+    # (d) one cold request on caveman and one on kron: the prior decides
+    server = SpGEMMServer(device=device)
+    model = server.planner.cost_model
+    for name in ("cave", "kron"):
+        h = integer_valued(big[name], rng)
+        first = model.choose(extract_features(h), server.default_reuse_hint)
+        zero()
+        resp = server.submit(h)
+        c = counts()
+        bank(c)
+        exact = bool(np.array_equal(
+            resp.result, scipy_result(h, None, None).astype(np.float32)))
+        row = {"matrix": name, "scheme": resp.scheme,
+               "reorder": resp.reorder, "prior_first": first.candidate.key,
+               "prior_kernel_rel": first.kernel_rel,
+               "plan_cache_hit": resp.plan_cache_hit,
+               "degraded": resp.degraded, "plan_s": resp.plan_s,
+               "execute_s": resp.execute_s, **c, "exact": exact,
+               "gpu": smi}
+        log("  cold request", json.dumps(row))
+        kernel = resp.scheme == "pallas"
+        routed = (c["window_launches"] + c["padded_launches"] >= 1
+                  if kernel else sum(c.values()) == 0)
+        if not (exact and not resp.degraded and not resp.plan_cache_hit
+                and f"{resp.reorder}+{resp.scheme}" == first.candidate.key
+                and (routed or device.type == "cpu")):
+            raise SystemExit(f"cold request on {name} failed its checks: "
+                             f"{row}")
+    del server
+
+    # (e) the pipeline: two stages of kron's pattern, integer values so
+    # small that every sum stays below 2^24 (exact in fp32)
+    stages = [integer_valued(big["kron"], rng) for _ in range(2)]
+    micro, rows_per = (2, 8) if rehearse else (8, 64)
+    feat = stages[0].ncols
+    x = rng.integers(0, 3, (micro, rows_per, feat)).astype(np.float32)
+    flat = x.reshape(micro * rows_per, feat).T.astype(np.float64)
+    bound, want = np.abs(flat), flat
+    for s_ in stages:
+        bound = abs(scipy_csr(s_)) @ bound
+        want = scipy_csr(s_) @ want
+    if not bound.max() < 2 ** 24:
+        raise SystemExit(f"pipeline sums reach {bound.max()} >= 2^24")
+    want = want.T.reshape(micro, rows_per, feat).astype(np.float32)
+    tracer = get_tracer()
+    for mode in ("cold", "measured"):
+        planner = Planner(cache=PlanCache(), device=device)
+        t0 = time.perf_counter()
+        plans = plan_pipeline_stages(stages, micro, planner=planner,
+                                     measure=mode == "measured")
+        plan_s = time.perf_counter() - t0
+        tracer.clear()
+        tracer.enable()
+        zero()
+        t0 = time.perf_counter()
+        try:
+            y = pipeline_spmm_apply(plans, stages, x, planner=planner)
+        finally:
+            tracer.disable()
+        apply_s = time.perf_counter() - t0
+        c = counts()
+        bank(c)
+        stage_s = [sp_.duration for sp_ in tracer.spans()
+                   if sp_.name == "stage"
+                   and sp_.attrs.get("phase") == "execute"]
+        tracer.clear()
+        exact = bool(np.array_equal(y, want))
+        row = {"mode": mode, "stages": [
+            {"stage": i, "reorder": p.reorder, "scheme": p.scheme,
+             "reuse_hint": p.reuse_hint, "execute_s": t}
+            for i, (p, t) in enumerate(zip(plans, stage_s))],
+            "microbatches": micro, "rows_per_microbatch": rows_per,
+            "features": feat, "dense_width": micro * rows_per,
+            "bubble_fraction": bubble_fraction(len(stages), micro),
+            "max_sum": float(bound.max()), "plan_s": plan_s,
+            "apply_s": apply_s, **c, "exact": exact, "gpu": smi}
+        log("  pipeline", json.dumps(row))
+        kernel_stages = sum(p.scheme == "pallas" for p in plans)
+        if not (exact and len(stage_s) == len(stages)
+                and (c["spmm_launches"] == kernel_stages
+                     or device.type == "cpu")):
+            raise SystemExit(f"pipeline ({mode}) failed its checks: {row}")
+    log("  measurement-tier launches", json.dumps(launches))
+    return launches
+
+
 LOGIT_TOL = 2e-3
 
 
@@ -2333,6 +2651,15 @@ def main(argv=None) -> int:
     # the batch path's launches of the window kernel join the main path's
     launches["cluster_spgemm_windows"] += (burst_launches["batched"]
                                            + burst_launches["pairs"])
+    phase("phase 3f: the measurement tier and the card's prior (benchlib "
+          "sweep, calibration, prior against the kernel tier, cold "
+          "requests, the planner-driven pipeline)")
+    prior_launches = measurement_phase(
+        {"kron": kron, "cave": cave}, device, rng, smi,
+        rehearse=args.rehearse)
+    # its launches of the kernels join the main path's
+    for name, n in prior_launches.items():
+        launches[name] += n
     # the SpGEMM phases' device memory is released before the LM phase
     gc.collect()
     if device.type == "cuda":

@@ -24,7 +24,7 @@ import torch
 
 from repro_torch.core.segment import (boundary_mask, expand_indptr,
                                       key_table, ragged_gather_indices,
-                                      segmented_count)
+                                      segmented_count, segmented_sum)
 
 __all__ = [
     "HostCSR",
@@ -55,7 +55,12 @@ __all__ = [
     "compacted_c_to_host",
     "compacted_c_counters",
     "COUNTER_UNITS",
+    "tile_col_occupancy",
+    "symbolic_strip_nnz",
+    "symbolic_strip_nnz_reference",
     "csr_nbytes",
+    "csr_cluster_nbytes_exact",
+    "csr_cluster_nbytes_exact_reference",
 ]
 
 # ---------------------------------------------------------------------------
@@ -1198,6 +1203,78 @@ def compacted_c_counters(c: CompactedC, *, c_nnz: int | None = None,
 
 
 # ---------------------------------------------------------------------------
+# sparse-C symbolic pass: per-strip nnz bounds from the live-pair stream
+# ---------------------------------------------------------------------------
+
+
+def tile_col_occupancy(b: TiledCSR) -> np.ndarray:
+    """(tile_cap, bn) bool — which lanes (output columns) of each B tile
+    hold at least one nonzero. Row 0 (the reserved zero tile) is all
+    False. A C window's column support is the union of its touching
+    tiles' occupied lanes.
+
+    >>> b = tiled_csr_from_host(
+    ...     HostCSR.from_dense(np.eye(8, dtype=np.float32)),
+    ...     block_k=8, bn=8, device="cpu")
+    >>> tile_col_occupancy(b).astype(int).tolist()
+    [[0, 0, 0, 0, 0, 0, 0, 0], [1, 1, 1, 1, 1, 1, 1, 1]]
+    """
+    return (b.tiles != 0).any(dim=1).cpu().numpy()
+
+
+def symbolic_strip_nnz(pairs, occupancy, *, nblocks: int, nnb: int
+                       ) -> np.ndarray:
+    """Symbolic phase: per-C-row-strip nnz upper bound from the live-pair
+    stream, without touching a value.
+
+    For strip ``blk``, ``ub[blk] = Σ_j |∪ occupied lanes of the B tiles
+    the live pairs (blk, j, slot) contract|``: a nonzero ``C[r, c]`` needs
+    a ``k`` with ``A[r, k] ≠ 0`` (k-tile live in A's block) and
+    ``B[k, c] ≠ 0`` (tile ``(kb, j)`` live, lane ``c % bn`` occupied), so
+    every row's nnz in the strip is at most ``ub[blk]``.
+
+    Vectorized: one stable argsort groups pairs by (blk, j) window, one
+    ``np.logical_or.reduceat`` over the run starts takes each window's
+    lane union, and a segmented sum folds windows into strips.
+    Returns (nblocks,) int64.
+    """
+    blocks, js, slots, _ = (np.asarray(p) for p in pairs)
+    occ = np.asarray(occupancy, dtype=bool)
+    live = slots > 0
+    b = blocks[live].astype(np.int64)
+    j = js[live].astype(np.int64)
+    s = slots[live].astype(np.int64)
+    if b.size == 0:
+        return np.zeros(nblocks, dtype=np.int64)
+    key = b * nnb + j
+    order = np.argsort(key, kind="stable")
+    skey, ss = key[order], s[order]
+    first = boundary_mask(skey)
+    starts = np.flatnonzero(first)
+    union = np.logical_or.reduceat(occ[ss], starts, axis=0)  # (W, bn)
+    counts = union.sum(axis=1).astype(np.float64)
+    return segmented_sum(skey[first] // nnb, counts,
+                         nblocks).astype(np.int64)
+
+
+def symbolic_strip_nnz_reference(pairs, occupancy, *, nblocks: int,
+                                 nnb: int) -> np.ndarray:
+    """Loop reference for :func:`symbolic_strip_nnz` (test oracle)."""
+    blocks, js, slots, _ = (np.asarray(p) for p in pairs)
+    occ = np.asarray(occupancy, dtype=bool)
+    ub = np.zeros(nblocks, dtype=np.int64)
+    for blk in range(nblocks):
+        for j in range(nnb):
+            union = np.zeros(occ.shape[1], dtype=bool)
+            for t in range(blocks.shape[0]):
+                if (int(blocks[t]) == blk and int(js[t]) == j
+                        and int(slots[t]) > 0):
+                    union |= occ[int(slots[t])]
+            ub[blk] += int(union.sum())
+    return ub
+
+
+# ---------------------------------------------------------------------------
 # Analytic footprints
 # ---------------------------------------------------------------------------
 
@@ -1209,3 +1286,59 @@ def csr_nbytes(h: HostCSR) -> int:
     40
     """
     return h.nbytes()
+
+
+def csr_cluster_nbytes_exact(h: HostCSR, boundaries: Sequence[int],
+                             *, fixed_length: bool = False,
+                             index_bytes: int = 4, value_bytes: int = 4,
+                             ptr_bytes: int = 8) -> int:
+    """Exact ragged CSR_Cluster footprint as the paper counts it.
+
+    Per cluster: one col-id per *distinct* column + a value slab of
+    (distinct_cols × cluster_size). Variable-length additionally stores
+    the cluster-size array and a value-pointer array; fixed-length does
+    not. Distinct (cluster, column) pairs are counted from one
+    ``np.unique`` over the joint key; identical byte counts to
+    :func:`csr_cluster_nbytes_exact_reference`.
+    """
+    bounds = np.asarray(list(boundaries) + [h.nrows], dtype=np.int64)
+    ncl = bounds.shape[0] - 1
+    sizes = np.diff(bounds)
+    rows = expand_indptr(h.indptr)
+    cl = np.searchsorted(bounds, rows, side="right") - 1
+    key = cl * max(h.ncols, 1) + h.indices.astype(np.int64)
+    ucl = np.unique(key) // max(h.ncols, 1)
+    distinct = segmented_count(ucl, ncl)
+    total_cols = int(distinct.sum())
+    total_vals = int((distinct * sizes).sum())
+    n = (ncl + 1) * ptr_bytes + total_cols * index_bytes \
+        + total_vals * value_bytes
+    if not fixed_length:
+        n += ncl * index_bytes          # cluster sizes
+        n += (ncl + 1) * ptr_bytes      # value pointers
+    return n
+
+
+def csr_cluster_nbytes_exact_reference(h: HostCSR,
+                                       boundaries: Sequence[int],
+                                       *, fixed_length: bool = False,
+                                       index_bytes: int = 4,
+                                       value_bytes: int = 4,
+                                       ptr_bytes: int = 8) -> int:
+    """Loop reference for :func:`csr_cluster_nbytes_exact` (test oracle)."""
+    bounds = list(boundaries) + [h.nrows]
+    ncl = len(bounds) - 1
+    total_cols = 0
+    total_vals = 0
+    for c in range(ncl):
+        lo, hi = bounds[c], bounds[c + 1]
+        merged = np.unique(np.concatenate(
+            [h.row(i)[0] for i in range(lo, hi)] or [np.empty(0, np.int32)]))
+        total_cols += merged.size
+        total_vals += merged.size * (hi - lo)
+    n = (ncl + 1) * ptr_bytes + total_cols * index_bytes \
+        + total_vals * value_bytes
+    if not fixed_length:
+        n += ncl * index_bytes          # cluster sizes
+        n += (ncl + 1) * ptr_bytes      # value pointers
+    return n

@@ -14,6 +14,12 @@ Dataflow (paper → here):
   product against the cluster's value slab
   (:func:`spgemm_clusterwise_dense_binned` / :func:`spmm_clusterwise`).
 
+The unbinned :func:`spgemm_rowwise_dense` / :func:`spgemm_clusterwise_dense`
+pad every gather to one global width: the oracles the binned passes are
+held against. The paper's work counters (:func:`symbolic_nnz`,
+:func:`gathers_rowwise`, :func:`b_bytes_rowwise_binned`, …) are host-side
+numpy, as in the JAX package.
+
 Scatter-adds on a CUDA device accumulate with atomics, so float sums may
 differ from run to run in the last bits; integer-valued operands are
 exact in any order.
@@ -26,9 +32,12 @@ import torch
 from repro_torch.core.formats import CSR, CSRCluster, HostCSR
 
 __all__ = [
+    "spgemm_rowwise_dense", "spgemm_clusterwise_dense",
     "spgemm_rowwise_dense_binned", "spgemm_clusterwise_dense_binned",
     "length_bins", "slot_rows_host", "spmm_rowwise", "spmm_clusterwise",
-    "spgemm_reference", "flops_spgemm",
+    "spgemm_reference", "symbolic_nnz", "symbolic_row_nnz", "flops_spgemm",
+    "gathers_rowwise", "gathers_clusterwise", "b_bytes_rowwise_binned",
+    "b_bytes_tiled",
 ]
 
 
@@ -66,6 +75,52 @@ def _gather_b_rows(b: CSR, k: torch.Tensor, max_row_b: int
     cols = torch.where(mask, b.indices.long()[idx], b.ncols)
     vals = torch.where(mask, b.data[idx], 0)
     return cols, vals
+
+
+# ---------------------------------------------------------------------------
+# sparse × sparse (A², paper §4.2–4.3): the unbinned oracles
+# ---------------------------------------------------------------------------
+
+
+def spgemm_rowwise_dense(a: CSR, b: CSR, max_row_b: int) -> torch.Tensor:
+    """Gustavson row-wise SpGEMM, every gather ``max_row_b`` wide; returns
+    dense C (nrows_a × ncols_b) on A's device."""
+    rows = _slot_rows(a.indptr, a.nnz_cap)
+    ks = a.indices.long()
+    valid = ks < a.ncols
+    bcols, bvals = _gather_b_rows(b, torch.where(valid, ks, b.nrows),
+                                  max_row_b)
+    prod = a.data[:, None] * bvals                        # (nnz_a, W)
+    out_rows = torch.clamp(rows, 0, a.nrows - 1)[:, None].expand(prod.shape)
+    out_cols = torch.clamp(bcols, max=b.ncols)
+    c = torch.zeros((a.nrows, b.ncols + 1), dtype=prod.dtype,
+                    device=prod.device)
+    c.index_put_((out_rows, out_cols), prod, accumulate=True)
+    return c[:, : b.ncols]
+
+
+def spgemm_clusterwise_dense(a: CSRCluster, b: CSR,
+                             max_row_b: int) -> torch.Tensor:
+    """Cluster-wise SpGEMM (Alg. 1), every gather ``max_row_b`` wide; one
+    B-row gather per (cluster, column) slot, applied to *all* rows of the
+    cluster through an outer product with the value slab. Returns dense C.
+    """
+    cl = torch.clamp(_slot_rows(a.cluster_ptr, a.slot_cap), 0,
+                     a.nclusters - 1)
+    ks = a.cols.long()
+    valid = ks < a.ncols
+    bcols, bvals = _gather_b_rows(b, torch.where(valid, ks, b.nrows),
+                                  max_row_b)
+    prod = bvals[:, :, None] * a.values[:, None, :]       # (S, W, K)
+    base = torch.clamp(a.row_base.long()[cl], 0, a.nrows)
+    kk = torch.arange(a.max_cluster, dtype=torch.int64, device=prod.device)
+    rows = base[:, None, None] + kk                       # (S, 1, K)
+    cols = torch.clamp(bcols, max=b.ncols)[:, :, None]    # (S, W, 1)
+    c = torch.zeros((a.nrows + a.max_cluster, b.ncols + 1),
+                    dtype=prod.dtype, device=prod.device)
+    c.index_put_((rows.expand(prod.shape), cols.expand(prod.shape)), prod,
+                 accumulate=True)
+    return c[: a.nrows, : b.ncols]
 
 
 # ---------------------------------------------------------------------------
@@ -235,7 +290,55 @@ def spgemm_reference(a: HostCSR, b: HostCSR) -> np.ndarray:
     return a.to_dense() @ b.to_dense()
 
 
+def symbolic_nnz(a: HostCSR, b: HostCSR) -> int:
+    """Symbolic-phase nnz(C) (exact, host-side, whole-matrix scalar): the
+    oracle :func:`repro_torch.core.formats.symbolic_strip_nnz`'s per-strip
+    bounds are held against."""
+    c = (a.to_dense() != 0).astype(np.float32) @ \
+        (b.to_dense() != 0).astype(np.float32)
+    return int((c != 0).sum())
+
+
+def symbolic_row_nnz(a: HostCSR, b: HostCSR) -> np.ndarray:
+    """Exact per-row nnz(C) (structural — cancellation ignored): every row
+    block's ``symbolic_strip_nnz`` bound must dominate each of its rows."""
+    c = (a.to_dense() != 0).astype(np.float32) @ \
+        (b.to_dense() != 0).astype(np.float32)
+    return (c != 0).sum(axis=1).astype(np.int64)
+
+
 def flops_spgemm(a: HostCSR, b: HostCSR) -> int:
     """2 × Σ_{a_ik ≠ 0} nnz(B row k) — the standard SpGEMM flop count."""
     bn = b.row_nnz()
     return int(2 * bn[a.indices.astype(np.int64)].sum())
+
+
+def gathers_rowwise(a: HostCSR) -> int:
+    """Number of B-row fetches the row-wise dataflow performs."""
+    return a.nnz
+
+
+def gathers_clusterwise(nslots: int) -> int:
+    """Number of B-row fetches the cluster-wise dataflow performs
+    (= deduplicated (cluster, column) slots)."""
+    return nslots
+
+
+def b_bytes_rowwise_binned(bins: list[tuple[np.ndarray, int]],
+                           nslots: int) -> int:
+    """B bytes the binned gather passes move per A² call: every live slot
+    fetches its B row padded to the bin width — 8 B (int32 index + fp32
+    value) per fetched element, re-fetched per A nonzero (no cross-row
+    reuse)."""
+    total = 0
+    for slots, w in bins:
+        total += int((np.asarray(slots) < nslots).sum()) * w * 8
+    return total
+
+
+def b_bytes_tiled(nlive_tiles: int, block_k: int = 128,
+                  bn: int = 128) -> int:
+    """B bytes the tiled Sp×Sp kernels move per A² call: each live dense
+    fp32 tile (4 B/slot, no indices) is read once and reused by every
+    cluster slab that touches it."""
+    return nlive_tiles * block_k * bn * 4

@@ -17,18 +17,22 @@ heuristic —
   design matrix (hierarchical's ``similar_frac`` feature term is
   subtracted from its samples first, as in the heuristic).
 
-The samples come from the caller: the serving front-end passes the drift
-auditor's live records (``fit_calibration(samples=auditor.samples())``).
-The JAX package's default source — its benchmark sweep cache and its
-committed benchmark artifacts — holds TPU measurements, which say nothing
-of the card, so the port has no default source yet: a call without
-``samples`` raises. Hand-tuned values remain the fallback: with fewer
-than ``min_samples`` samples the fit returns ``None``, and any key seen
-fewer than ``min_key_samples`` times keeps its hand-tuned constant.
+The samples come from the caller — the serving front-end passes the drift
+auditor's live records (``fit_calibration(samples=auditor.samples())``)
+— or, by default, from the port's own sweep cache
+(:data:`repro_torch.benchlib.CACHE_PATH`), read for the card's generation
+tag only (:func:`repro_torch.benchlib.kernel_gen`): a CPU timing in that
+cache never reaches the card's fit. The JAX package's cache and its
+committed benchmark artifacts hold TPU and CPU measurements and are never
+read. Hand-tuned values remain the fallback: with fewer than
+``min_samples`` samples the fit returns ``None``, and any key seen fewer
+than ``min_key_samples`` times keeps its hand-tuned constant.
 """
 from __future__ import annotations
 
 import dataclasses
+import json
+import os
 
 import numpy as np
 
@@ -55,39 +59,70 @@ class Calibration:
                 "preprocess_scheme": dict(self.preprocess_scheme)}
 
 
+def _load_cache_samples(cache_path: str, kernel_gen: str) -> list[dict]:
+    """(spec, reorder, scheme, kernel_rel, preprocess_rel) rows from the
+    benchlib sweep cache, normalized by each spec's identity baseline;
+    only A² rows of generation ``kernel_gen`` are read."""
+    if not os.path.exists(cache_path):
+        return []
+    with open(cache_path) as f:
+        raw = json.load(f)
+    by_spec: dict[str, dict[tuple[str, str], dict]] = {}
+    for key, res in raw.items():
+        parts = key.split("|")
+        if len(parts) != 5:
+            continue
+        spec, algo, scheme, workload, gen = parts
+        if workload != "a2" or gen != kernel_gen:
+            continue
+        by_spec.setdefault(spec, {})[(algo, scheme)] = res
+    out = []
+    for spec, cands in by_spec.items():
+        base = cands.get(("original", "rowwise"))
+        if not base or base.get("kernel_s", 0) <= 0:
+            continue
+        bk = float(base["kernel_s"])
+        for (algo, scheme), res in cands.items():
+            if (algo, scheme) == ("original", "rowwise"):
+                continue
+            out.append({"spec": spec, "reorder": algo, "scheme": scheme,
+                        "kernel_rel": float(res["kernel_s"]) / bk,
+                        "preprocess_rel": float(res["preprocess_s"]) / bk})
+    return out
+
+
 def fit_calibration(cache_path: str | None = None,
                     artifacts_dir: str | None = None, *,
                     tier: str = "quick",
                     min_samples: int = 8,
                     min_key_samples: int = 3,
                     samples: list[dict] | None = None):
-    """Fit a :class:`Calibration` from measured ``samples``.
+    """Fit a :class:`Calibration` from measured samples.
 
     ``samples`` are pre-normalized rows ``{"spec", "reorder", "scheme",
     "kernel_rel", "preprocess_rel"}`` (the drift auditor's
     :meth:`~repro_torch.obs.audit.DriftAuditor.samples` format); a
     ``spec`` naming a suite entry contributes to the kernel slopes, any
     other (``serve:<fingerprint>``) to the preprocessing constants only.
-    Returns ``None`` when fewer than ``min_samples`` samples exist — the
-    hand-tuned constants stay authoritative.
-
-    ``cache_path``, ``artifacts_dir`` and ``tier`` name the JAX package's
-    benchmark sources, which hold TPU measurements: the port reads none,
-    so they must stay unset, and ``samples`` is required (the card's own
-    sample source comes with the port's benchmark harness).
+    Without ``samples`` the rows of the card's generation tag are read
+    from the benchlib sweep cache at ``cache_path`` (default
+    :data:`repro_torch.benchlib.CACHE_PATH`). ``artifacts_dir`` and
+    ``tier`` name the JAX package's trajectory artifacts: there are none
+    for the card, so nothing is read from them. Returns ``None`` when
+    fewer than ``min_samples`` samples exist — the hand-tuned constants
+    stay authoritative.
     """
+    from repro_torch import benchlib
     from repro_torch.core.suite import SUITE, generate
     from repro_torch.planner.cost_model import (_REORDER_PRE, _SCHEME_PRE,
                                                 Candidate, CostModel)
     from repro_torch.planner.features import extract_features
 
-    if samples is None or cache_path is not None or artifacts_dir is not None:
-        raise ValueError(
-            "fit_calibration on the port needs samples= (e.g. "
-            "auditor.samples()); the benchmark cache and artifacts the JAX "
-            "package reads hold TPU measurements, and the card's own "
-            "sample source comes with the port's benchmark harness")
-    del tier
+    del artifacts_dir, tier
+    if samples is None:
+        samples = _load_cache_samples(
+            benchlib.CACHE_PATH if cache_path is None else cache_path,
+            benchlib.kernel_gen("cuda"))
     if len(samples) < min_samples:
         return None
 
@@ -103,8 +138,8 @@ def fit_calibration(cache_path: str | None = None,
         return feats[spec_name]
 
     # -- kernel scale: per-scheme through-origin least squares --------------
-    # the kernel tier is left out: its heuristic is a routing gate (the CPU
-    # penalty) or a constant without a prior (the card), not a prediction
+    # the kernel tier is left out, as in the JAX package: its CPU heuristic
+    # is a routing gate (the interpret penalty), not a prediction
     model = CostModel(device="cpu")
     pred_meas: dict[str, list[tuple[float, float]]] = {}
     for s in samples:

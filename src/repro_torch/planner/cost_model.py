@@ -19,9 +19,14 @@ so single-shot calls (``reuse_hint=1``) keep ``original + rowwise``.
 The ``pallas`` scheme (the hand-written Sp×Sp kernel tier) keys on the
 planner's device: on the CPU it carries the JAX package's off-TPU
 interpret penalty, so CPU plans match the JAX package's; on a card an
-unmeasured ``pallas`` candidate scores ``kernel_rel = 1.0`` — no gain —
-because no Hopper measurement backs a prior yet: only measured mode can
-route to it.
+unmeasured ``pallas`` candidate is priced by the JAX package's
+on-accelerator traffic model, term for term — the bytes of B and A the
+tiled kernels move per B nonzero against the gather tier's, from the
+formats' own byte counts — and a cold plan takes the kernels where that
+price wins. The model charges whole tiles ÷ fill, while the card's
+kernels read only A's live slab columns' B rows, so it prices them far
+above what they measure; measured mode corrects it per pattern. The
+TPU's shard-efficiency constant is left out.
 """
 from __future__ import annotations
 
@@ -48,8 +53,29 @@ HEURISTIC_GAIN_TRUST = 0.5
 # off-TPU interpret penalty, kept so CPU plans match)
 PALLAS_INTERPRET_REL = 50.0
 
-# an unmeasured kernel-tier candidate on the card: no prior, no gain
-PALLAS_UNMEASURED_REL = 1.0
+# -- the kernel tier's traffic prior on the card: byte counts of the
+# port's formats (the JAX package's terms, which describe the same
+# formats, not the TPU) ------------------------------------------------------
+# the gather tier moves ~10.4 B of B per A nonzero: an int32 column index
+# plus an fp32 value (8 B) per gathered element, × ~1.3 for the binned
+# passes' power-of-two width padding, re-fetched per nonzero
+PALLAS_GATHER_BYTES = 10.4
+# the tiled kernels' B term: the TiledCSR store's dense fp32 live tiles,
+# 4 B per slot and no index, read once — ÷ the live tiles' fill gives
+# bytes per B nonzero (a bf16 tile store would move 2 B; the served path
+# packs fp32 tiles)
+PALLAS_B_BYTES_PER_SLOT = 4.0
+# A-refetch term: the BCC slabs, 4 B per fp32 slot, one slab read per
+# stream step — ÷ the slab fill per A nonzero. The port's default slab is
+# block_r × block_k = 8 × 128 (bcc_from_host), 16× smaller than the
+# 128 × 128 tile tile128_fill measures, so it runs denser by about
+# √16 = 4 — the JAX package's geometry and boost
+PALLAS_A_BYTES_PER_SLOT = 4.0
+PALLAS_SLAB_FILL_BOOST = 4.0
+# dead-step term: the live-pair stream's only dead steps are the
+# per-block zero-slot sentinels and tail pads, a small constant next to
+# one gather-tier call
+PALLAS_DEAD_STEP_REL = 0.01
 
 # -- cross-request batching break-even (the JAX package's constants, in
 # units of one identity-order row-wise SpGEMM on one member) ---------------
@@ -297,7 +323,7 @@ class CostModel:
         ``workload`` matters only to an unmeasured ``pallas`` candidate on
         the card: a product the serving path would shard (``a2``,
         ``chain`` or a block-diagonal ``batch`` pack on the live-pair
-        grid) divides its kernel term by the shard count, as the JAX
+        grid) divides its traffic terms by the shard count, as the JAX
         package's per-core term does (without that package's TPU
         shard-efficiency constant). With one shard —
         :func:`~repro_torch.kernels.ops.pallas_shard_count` — nothing
@@ -339,10 +365,27 @@ class CostModel:
             if self.device_type == "cpu":
                 kernel_rel = PALLAS_INTERPRET_REL
             else:
+                # traffic per B nonzero relative to the gather tier (both
+                # bound by memory): B's live tiles read once ÷ their fill
+                # (reordering densifies the lattice by at most the
+                # recovered-locality factor), one A slab per stream step
+                # ÷ the slab fill, and the residual dead steps
+                fill = max(f.tile128_fill, 1e-4)
+                fill_eff = min(fill * (1.0 + 2.0 * reorder_gain), 1.0)
+                slab_fill = min(fill_eff * PALLAS_SLAB_FILL_BOOST, 1.0)
+                b_term = PALLAS_B_BYTES_PER_SLOT / fill_eff
+                a_term = PALLAS_A_BYTES_PER_SLOT / slab_fill
+                kernel_rel = ((b_term + a_term) / PALLAS_GATHER_BYTES
+                              + PALLAS_DEAD_STEP_REL)
+                # the sharded kernel splits the live-pair stream across
+                # shards; the padded grid (wide B) and the dense-B SpMM
+                # path are not sharded
                 cores = (max(_pallas_core_count(), 1)
                          if workload in ("a2", "chain", "batch")
                          and _pallas_compact_ok(f.ncols) else 1)
-                kernel_rel = PALLAS_UNMEASURED_REL / cores
+                kernel_rel /= cores
+                kernel_rel = min(max(kernel_rel, 0.15 / cores),
+                                 PALLAS_INTERPRET_REL)
 
         pre = _REORDER_PRE.get(c.reorder, 1.0) + _SCHEME_PRE[c.scheme]
         if c.scheme == "hierarchical":

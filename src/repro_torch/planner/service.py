@@ -447,9 +447,12 @@ class Planner:
             return self.measurer(a, cand, workload=workload)
         return self.measurer(a, cand)
 
-    def _unpriced(self, s: ScoredCandidate) -> bool:
-        """An unmeasured kernel-tier candidate on the card: the cost model
-        has no prior for it, so measured mode probes it first."""
+    def _probe_first(self, s: ScoredCandidate) -> bool:
+        """An unmeasured kernel-tier candidate on the card. Its prior, the
+        JAX package's traffic model, charges whole tiles where the card's
+        kernels read only live columns, and ranks them far behind the
+        gather tier; measured mode probes it first and lets the
+        measurement decide."""
         return (self.device.type == "cuda" and not s.measured
                 and s.candidate.scheme == "pallas")
 
@@ -459,18 +462,18 @@ class Planner:
 
         Two gates keep probing cheap: non-amortizing candidates are never
         measured (the break-even rule) — except the kernel tier on the
-        card, which has no prior and goes first — and the cumulative
-        *predicted* preprocessing of the shortlist is capped at
-        ``measure_budget`` SpGEMM-equivalents.
+        card, whose prior overprices it and which goes first — and the
+        cumulative *predicted* preprocessing of the shortlist is capped
+        at ``measure_budget`` SpGEMM-equivalents.
         """
         out = [s for s in ranked if s.candidate.key == IDENTITY.key]
         spent = 0.0
-        for s in sorted(ranked, key=lambda s: not self._unpriced(s)):
+        for s in sorted(ranked, key=lambda s: not self._probe_first(s)):
             if len(out) >= self.measure_top:
                 break
             if s.candidate.key == IDENTITY.key:
                 continue
-            if not (s.amortizes or self._unpriced(s)):
+            if not (s.amortizes or self._probe_first(s)):
                 continue
             if spent + s.preprocess_rel > self.measure_budget:
                 continue

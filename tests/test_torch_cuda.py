@@ -5,7 +5,11 @@ Every test here needs an NVIDIA card (Hopper: the kernels are built for
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
-This file imports no JAX, so it runs where only the port is installed.
+The measurement tier is checked here too: ``benchlib.time_fn`` waits
+for the card, ``benchlib``'s byte and flop fields do not depend on the
+device, and a cold kron-14-pattern request plans what the kernel tier's
+prior ranks first. This file imports no JAX, so it runs where only the
+port is installed.
 Integer-valued operands compare exactly (``torch.equal``); bf16 B tiles
 are compared with the plain version on the same bf16 inputs within 1e-5
 of the largest value (fp32 summation order is the only difference). The
@@ -1131,3 +1135,79 @@ def test_batched_float_values_within_fp32_reassociation(card):
         assert float(np.abs(b.result - u.result).max()) <= 1e-5 * scale
         exact = m.to_dense().astype(np.float64) @ m.to_dense()
         assert float(np.abs(b.result - exact).max()) <= 1e-5 * scale
+
+
+# ---------------------------------------------------------------------------
+# the measurement tier and the kernel tier's prior on the card
+# ---------------------------------------------------------------------------
+
+
+def test_time_fn_waits_for_the_card(card):
+    """``benchlib.time_fn`` synchronizes: its best time is never shorter
+    than the device time CUDA events give the same calls."""
+    from repro_torch import benchlib
+    a = torch.randn(4096, 4096, device=card)
+    events = []
+
+    def fn():
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = a @ a
+        end.record()
+        events.append((start, end))
+        return out
+
+    best = benchlib.time_fn(fn, reps=5, warmup=1)
+    torch.cuda.synchronize()
+    device_ms = [s.elapsed_time(e) for s, e in events[1:]]
+    assert len(device_ms) == 5
+    assert best * 1e3 >= min(device_ms) > 0
+
+
+@pytest.mark.parametrize("scheme", ["rowwise", "fixed", "variable",
+                                    "hierarchical"])
+def test_bench_fields_on_the_card_equal_the_cpus(card, scheme, monkeypatch,
+                                                 tmp_path):
+    from repro_torch import benchlib
+    from repro_torch.core.suite import SUITE, generate
+    monkeypatch.setattr(benchlib, "_CACHE", {})
+    monkeypatch.setattr(benchlib, "CACHE_PATH", str(tmp_path / "c.json"))
+    h = generate(next(s for s in SUITE if s.name == "kron_10_8_scr"))
+    got = {}
+    for dev in ("cpu", card):
+        if scheme == "rowwise":
+            r = benchlib.bench_rowwise_on(h, "rcm", name="k", reps=1,
+                                          device=dev)
+        else:
+            r = benchlib.bench_clusterwise_on(h, "rcm", scheme, name="k",
+                                              reps=1, device=dev)
+        got[torch.device(dev).type] = r
+    assert [(r.nnz, r.flops, r.mem_bytes, r.nclusters)
+            for r in got.values()] == [
+        (got["cpu"].nnz, got["cpu"].flops, got["cpu"].mem_bytes,
+         got["cpu"].nclusters)] * 2
+    assert sorted(k.rsplit("|", 1)[1] for k in benchlib._CACHE) == [
+        "torch1-cpu", "torch1-cuda"]
+
+
+def test_cold_kron_request_plans_what_the_prior_ranks_first(card):
+    """An unseeded, unmeasured kron-14-pattern request: the plan is the
+    prior's first amortizing candidate at the server's reuse, and the
+    result equals scipy's product."""
+    import scipy.sparse as sp
+
+    from repro_torch.core.suite import gen_kron
+    from repro_torch.planner.features import extract_features
+    pattern = gen_kron(14, 16, seed=0)
+    vals = np.random.default_rng(0).integers(1, 4, pattern.nnz)
+    h = HostCSR(pattern.indptr, pattern.indices, vals.astype(np.float32),
+                pattern.shape)
+    server = SpGEMMServer(device=card)
+    first = server.planner.cost_model.choose(extract_features(h),
+                                             server.default_reuse_hint)
+    resp = server.submit(h)
+    assert f"{resp.reorder}+{resp.scheme}" == first.candidate.key
+    assert not resp.degraded and not resp.plan_cache_hit
+    s = sp.csr_matrix((h.data, h.indices, h.indptr), shape=h.shape)
+    assert np.array_equal(resp.result, (s @ s).toarray().astype(np.float32))

@@ -413,18 +413,23 @@ def _samples():
     return rows
 
 
-def test_fit_calibration_from_samples_matches_the_jax_package():
+def test_fit_calibration_from_samples_matches_the_jax_package(monkeypatch,
+                                                              tmp_path):
     rows = _samples()
     want = ref_calibration.fit_calibration(samples=rows)
     got = port_calibration.fit_calibration(samples=rows)
     assert got.describe() == want.describe()
     assert got.kernel_scale and got.preprocess_scheme
     assert port_calibration.fit_calibration(samples=rows[:7]) is None
-    with pytest.raises(ValueError, match="samples="):
-        port_calibration.fit_calibration()
-    with pytest.raises(ValueError, match="TPU"):
-        port_calibration.fit_calibration(artifacts_dir="experiments",
-                                         samples=rows)
+    # without samples the port reads its own sweep cache (none here), and
+    # the JAX package's trajectory artifacts are never read
+    from repro_torch import benchlib
+    monkeypatch.setattr(benchlib, "CACHE_PATH",
+                        str(tmp_path / "bench_cache_torch.json"))
+    assert port_calibration.fit_calibration() is None
+    assert port_calibration.fit_calibration(
+        artifacts_dir="experiments", samples=rows).describe() \
+        == got.describe()
     # the fit, installed, moves the port's scores as it moves the JAX
     # package's (the kernel tier's CPU penalty never rescaled)
     ref_f = ref_features(REF.gen_block_diag(256, block=8, seed=0))

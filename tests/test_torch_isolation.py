@@ -56,7 +56,12 @@ def test_port_tree_is_scanned():
     names = {p.name for p in PORT_FILES}
     assert {"formats.py", "ops.py", "service.py", "engine.py",
             "calibration.py", "queue.py", "estimator.py", "batcher.py",
-            "frontend.py", "chip_smoke.py"} <= names
+            "frontend.py", "benchlib.py", "pipeline.py",
+            "chip_smoke.py"} <= names
+    rel = {str(p.relative_to(ROOT)) for p in PORT_FILES}
+    assert {"src/repro_torch/benchlib.py",
+            "src/repro_torch/distributed/__init__.py",
+            "src/repro_torch/distributed/pipeline.py"} <= rel
 
 
 def test_entry_points_default_to_cuda_and_raise_without_a_card():

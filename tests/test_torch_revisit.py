@@ -238,9 +238,9 @@ def test_build_shard_pack_equals_the_reference():
 
 def test_card_cost_model_shard_term_is_inert_at_one_shard(monkeypatch):
     """The port's counterpart of the JAX package's per-core pallas term:
-    an unmeasured pallas candidate on the card divides by the shard count
-    for products the serving path would shard (A² and chain hops on the
-    live-pair grid) — and with one shard, the default, nothing changes."""
+    the card's traffic prior divides by the shard count for products the
+    serving path would shard (A² and chain hops on the live-pair grid) —
+    and with one shard, the default, nothing changes."""
     from repro_torch.planner import cost_model as pcm
     from repro_torch.planner.features import extract_features
     h = PF.HostCSR.from_dense(integer_dense(64, 64, 0.08, 3))
@@ -255,11 +255,13 @@ def test_card_cost_model_shard_term_is_inert_at_one_shard(monkeypatch):
 
     assert pcm._pallas_core_count() == 1
     base = {w: rel(w) for w in ("a2", "chain", "spmm")}
-    assert base == {w: pcm.PALLAS_UNMEASURED_REL for w in base}
+    one = base["a2"]
+    assert base == {w: one for w in base}
+    assert 0.15 < one < pcm.PALLAS_INTERPRET_REL     # neither clamp binds
     monkeypatch.setattr(pcm, "_pallas_core_count", lambda: 4)
-    assert rel("a2") == rel("chain") == pcm.PALLAS_UNMEASURED_REL / 4
-    assert rel("spmm") == pcm.PALLAS_UNMEASURED_REL       # not sharded
-    assert rel("a2", ncols=10 ** 6) == pcm.PALLAS_UNMEASURED_REL  # padded
+    assert rel("a2") == rel("chain") == one / 4
+    assert rel("spmm") == one                          # not sharded
+    assert rel("a2", ncols=10 ** 6) == one             # padded
     cpu = pcm.CostModel(device="cpu")
     assert cpu.score(feats, cand, 20, workload="a2").kernel_rel \
         == pcm.PALLAS_INTERPRET_REL

@@ -14,7 +14,8 @@ and ``repro_torch.serve.engine.SpGEMMServer(device="cpu")``:
   ``InvalidOperandError.field``.
 
 The port's own rules are pinned too: the cost model's device-keyed
-``pallas`` score, measured mode probing the kernel tier first on a card,
+``pallas`` score (the JAX package's on-accelerator traffic prior on a
+card), measured mode probing the kernel tier first on a card,
 and failures propagating when the resilience policy's ladder is off (the
 ladder itself is held against the JAX package in
 ``tests/test_torch_resilience.py``).
@@ -37,7 +38,11 @@ from repro.resilience import reset_policy
 from repro.serve.engine import SpGEMMServer as RefServer
 from repro_torch.core.formats import HostCSR
 from repro_torch.planner.cost_model import (DEFAULT_CANDIDATES, IDENTITY,
-                                            Candidate, CostModel)
+                                            PALLAS_A_BYTES_PER_SLOT,
+                                            PALLAS_B_BYTES_PER_SLOT,
+                                            PALLAS_DEAD_STEP_REL,
+                                            PALLAS_GATHER_BYTES, Candidate,
+                                            CostModel)
 from repro_torch.planner.features import extract_features, fingerprint
 from repro_torch.planner.plan_cache import Plan, PlanCache
 from repro_torch.planner.service import Planner, _materialize
@@ -242,15 +247,24 @@ def test_cpu_cost_model_scores_like_the_reference():
             == ref.choose(f_ref, reuse).candidate.key
 
 
-def test_card_cost_model_needs_a_measurement_to_pick_pallas():
-    _, h = family_pair("kron_10_8")
-    f = extract_features(h)
-    model = CostModel(device="cuda")
+def test_card_cost_model_needs_a_measurement_to_pick_pallas(monkeypatch):
+    """On kron_10_8 the card's traffic prior — the JAX package's
+    on-accelerator score at one core — ranks the kernel tier far behind
+    the gather tier at every reuse count, so only a measurement routes
+    the pattern to it."""
+    import repro.planner.cost_model as ref_cost
+    monkeypatch.setattr(ref_cost, "_pallas_on_tpu", lambda: True)
+    monkeypatch.setattr(ref_cost, "_pallas_core_count", lambda: 1)
+    h_ref, h = family_pair("kron_10_8")
+    f, f_ref = extract_features(h), ref_features(h_ref)
+    model, ref = CostModel(device="cuda"), RefCostModel()
     for reuse in (1, 100, 10000):
         assert model.choose(f, reuse).candidate.scheme != "pallas"
         for s in model.rank(f, reuse):
             if s.candidate.scheme == "pallas":
-                assert s.kernel_rel == 1.0 and not s.amortizes
+                want = ref.score(f_ref, s.candidate, reuse)
+                assert s.kernel_rel == want.kernel_rel > 1.0
+                assert not s.amortizes and not want.amortizes
     fp = fingerprint(h)
     model.observe(fp, IDENTITY, kernel_s=1.0, preprocess_s=0.0)
     model.observe(fp, Candidate("original", "pallas"), kernel_s=0.2,
@@ -259,7 +273,40 @@ def test_card_cost_model_needs_a_measurement_to_pick_pallas():
         == "original+pallas"
 
 
+def test_card_prior_on_a_dense_pattern_amortizes_but_ranks_behind(
+        monkeypatch):
+    """On a 90%-full pattern the prior sits near its one-shard floor
+    ((4 + 4) / 10.4 + 0.01 B-traffic ratio, fill 1): the kernel tier
+    amortizes at the server's reuse of 20, yet the clustered gather
+    schemes rank ahead of it — the cold plan is the JAX package's
+    on-accelerator plan, and not the kernels."""
+    import repro.planner.cost_model as ref_cost
+    monkeypatch.setattr(ref_cost, "_pallas_on_tpu", lambda: True)
+    monkeypatch.setattr(ref_cost, "_pallas_core_count", lambda: 1)
+    h_ref, h = _pair(integer_dense(128, 128, 0.9, 7))
+    f, f_ref = extract_features(h), ref_features(h_ref)
+    model, ref = CostModel(device="cuda"), RefCostModel()
+    floor = ((PALLAS_B_BYTES_PER_SLOT + PALLAS_A_BYTES_PER_SLOT)
+             / PALLAS_GATHER_BYTES + PALLAS_DEAD_STEP_REL)
+    for s in model.rank(f, 20):
+        if s.candidate.scheme == "pallas":
+            assert floor <= s.kernel_rel < 0.97 and s.amortizes
+    best = model.choose(f, 20)
+    assert best.candidate.scheme != "pallas"
+    assert best.candidate.key == ref.choose(f_ref, 20).candidate.key
+    planner = Planner(device="cpu")
+    planner.device = torch.device("cuda")    # plans key on the device
+    planner.cost_model = model
+    plan = planner.plan(h, 20)
+    assert (plan.reorder, plan.scheme) == (best.candidate.reorder,
+                                           best.candidate.scheme)
+
+
 def test_card_planner_probes_the_kernel_tier_first():
+    """The prior ranks both kernel-tier candidates last on kron_10_8 (they
+    do not amortize); measured mode on the card still probes them first,
+    right after the identity baseline, because the prior overprices the
+    card's kernels. On the CPU they are never probed."""
     _, h = family_pair("kron_10_8")
     planner = Planner(device="cpu")
     ranked_cpu = planner.cost_model.rank(extract_features(h), 20)
@@ -267,6 +314,8 @@ def test_card_planner_probes_the_kernel_tier_first():
                for s in planner._shortlist(ranked_cpu))
     planner.device = torch.device("cuda")      # the rule keys on the device
     ranked = CostModel(device="cuda").rank(extract_features(h), 20)
+    assert [s.candidate.scheme for s in ranked[-2:]] == ["pallas", "pallas"]
+    assert not any(s.amortizes for s in ranked[-2:])
     short = planner._shortlist(ranked)
     assert short[0].candidate == IDENTITY
     assert [s.candidate.scheme for s in short[1:3]] == ["pallas", "pallas"]

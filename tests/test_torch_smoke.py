@@ -142,6 +142,35 @@ def test_rehearsal_runs_every_phase(capsys):
         "  kernel vs chunked prefill ")).split("prefill ", 1)[1])
     assert check["finite"]
     assert check["max_abs_logit_diff"] <= 2e-3 * check["max_abs_logit"]
+    # phase 3f: benchlib's sweep (2 specs x 3 reorderings x 4 schemes
+    # here), the fit from its cache, the prior beside the measured kernel
+    # tier, two cold requests and the pipeline planned cold and measured
+    def tagged(tag):
+        return [json.loads(line[line.index("{"):]) for line in lines
+                if line.startswith(tag)]
+    sweep_run = tagged("  sweep run ")[0]
+    assert sweep_run["products"] == 24 and sweep_run["all_equal_scipy"]
+    assert sweep_run["generation"] == "torch1-cpu"
+    table = tagged("  sweep {")
+    assert {r["scheme"] for r in table} == {"rowwise", "fixed", "variable",
+                                           "hierarchical"}
+    assert all(r["geomean_speedup"] > 0 and 0 <= r["share_above_1"] <= 1
+               for r in table)
+    assert len(tagged("  sweep matrix ")) == 2
+    assert tagged("  calibration ")[0]["n_samples"] == 22
+    prior = tagged("  prior {")
+    assert len(prior) == 4
+    assert all(r["prior_kernel_rel"] >= 0.15 and r["measured_kernel_rel"] > 0
+               for r in prior)
+    cold = tagged("  cold request ")
+    assert [r["matrix"] for r in cold] == ["cave", "kron"]
+    assert all(r["exact"] and not r["degraded"] for r in cold)
+    assert all(f"{r['reorder']}+{r['scheme']}" == r["prior_first"]
+               for r in cold)
+    pipe = tagged("  pipeline ")
+    assert [r["mode"] for r in pipe] == ["cold", "measured"]
+    assert all(r["exact"] and len(r["stages"]) == 2 for r in pipe)
+    assert all(s["reuse_hint"] == 2 for r in pipe for s in r["stages"])
 
 
 def test_device_time_counts_device_events_once():
