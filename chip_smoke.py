@@ -50,7 +50,9 @@ a run without a card, or from a directory that does not hold the port):
    distinct B tiles per panel slot and the modelled B bytes printed; the
    same weight packed without the clustering reorder beside it), the
    flash-attention kernel (zamba2-2.7b's prefill shape (128, 1024, 80)
-   causal, a ragged S = 1000 and a D = 128 case) and the SSD chunk-scan
+   causal, a ragged S = 1000, a D = 128 case, and phase 3g's prefill
+   shapes: qwen3-14b's (160, 1024, 128) and granite-moe-3b's
+   (96, 1024, 64)) and the SSD chunk-scan
    kernel (zamba2-2.7b's (320, 4, 256, 64/64) and the single-chunk
    fallback Q = 300); the last two within the tolerances they print;
 3. the serving path — ``SpGEMMServer.submit`` with pallas plans seeded in
@@ -126,12 +128,33 @@ a run without a card, or from a directory that does not hold the port):
    the model's own chunked path, whose logits must agree within the
    printed tolerance, all finite; prints prefill and decode times, tok/s
    and the peak device memory;
+3g. the LM zoo's attention families, after phase 3d's memory is
+   released, one model at a time (each released before the next), fp32,
+   random weights from seed 0, ``run_serving(cfg, batch=4,
+   prompt_len=1024, gen=32)``: qwen3-14b (dense, GQA 40 : 8, qk-norm;
+   published size, 59.1 GB), granite-moe-3b-a800m (moe, 40 experts
+   padded to 48, top-8; published size), musicgen-large (audio, the
+   ``embeddings`` frontend; published size) and qwen2-vl-72b (vlm,
+   M-RoPE; published width, depth cut to 4 of 80 layers: 286 GB of fp32
+   weights hold on no card). Each prefill must launch the
+   flash-attention kernel once per layer (40 / 32 / 48 / 4), every
+   greedy token must lie in the vocabulary, and the kernel prefill
+   (profiled) must agree with the chunked one as in phase 3d; prints
+   prefill and decode times, tok/s, a profiled decode step and the peak
+   memory. On qwen3-14b also: the prefilled cache quantized to int8 and
+   back (layer 0's decode attention within the reference's 2e-2 bound;
+   a whole decode step's logit difference, greedy agreement and the
+   byte counts printed) and ``ServingEngine`` (4 slots, ``max_len``
+   256, 6 seeded prompts of 40–56 tokens, 16 new tokens each: every
+   request finished, all tokens in the vocabulary, the shared ``pos``
+   past ``max_len``);
 4. summary — one ``{"kernels": [...]}`` line, the ``nvidia-smi`` line,
    and last ``{"ok": true, "device": {...}}``.
 
 ``--rehearse`` runs the same phases on the CPU at small sizes through the
-plain versions (no launch counts, no timings; the LM phase on
-``smoke_config("zamba2-2.7b")``) and exits 2 without the final line: a dry run of the control flow before a card is used
+plain versions (no launch counts, no timings; the LM phases on the
+smoke configs) and exits 2 without the final line: a dry run of the
+control flow before a card is used
 (``tests/test_torch_smoke.py`` runs it).
 """
 from __future__ import annotations
@@ -2281,6 +2304,173 @@ def measurement_phase(big, device, rng, smi, *, rehearse):
 
 
 LOGIT_TOL = 2e-3
+# the kernels of the LM prefill, by the name of their device launches
+LM_KERNEL_TAGS = (("flash_attention", "flash_kernel"),
+                  ("ssd_chunk_scan", "ssd_chunk_"))
+
+
+def serving_inputs(cfg, batch, prompt_len, device, seed=0):
+    """The prompts ``run_serving`` draws from ``seed`` (tokens, or
+    embeddings with M-RoPE's positions3), and the generator it goes on
+    drawing each decode step's embeddings from."""
+    import torch
+    rng = np.random.default_rng(seed)
+    if cfg.frontend == "tokens":
+        return {"tokens": torch.from_numpy(rng.integers(
+            0, cfg.vocab_size, (batch, prompt_len))).to(device)}, rng
+    inputs = {"embeddings": torch.from_numpy(rng.standard_normal(
+        (batch, prompt_len, cfg.d_model)).astype(np.float32)).to(device)}
+    if cfg.m_rope:
+        inputs["positions3"] = torch.arange(
+            prompt_len, device=device)[None, None].expand(
+                3, batch, prompt_len)
+    return inputs, rng
+
+
+def decode_inputs(cfg, nxt, rng, pos, device):
+    """One decode step's batch after greedy tokens ``nxt`` (B, 1): the
+    tokens, or a fresh embedding draw (with positions3 at ``pos``)."""
+    import torch
+    if cfg.frontend == "tokens":
+        return {"tokens": nxt}
+    bsz = nxt.shape[0]
+    step = {"embeddings": torch.from_numpy(rng.standard_normal(
+        (bsz, 1, cfg.d_model)).astype(np.float32)).to(device)}
+    if cfg.m_rope:
+        step["positions3"] = torch.full((3, bsz, 1), pos, device=device)
+    return step
+
+
+def prefill_check(cfg, params, batch_in, max_len, device):
+    """The same weights and prompts prefilled through the model's own
+    chunked path, then through the kernels (profiled: device time of each
+    LM kernel); the logits over the real vocabulary must agree within
+    ``LOGIT_TOL`` of the largest, all finite. Returns (the check's row,
+    the kernel prefill's cache, its greedy next tokens (B, 1))."""
+    import torch
+    from repro_torch.models.transformer import prefill
+    sync = (lambda: torch.cuda.synchronize(device)) \
+        if device.type == "cuda" else (lambda: None)
+    v = cfg.vocab_size
+    t0 = time.perf_counter()
+    chunked, _ = prefill(cfg, params, batch_in, max_len, use_pallas=False)
+    sync()
+    chunked_s = time.perf_counter() - t0
+    profile = device.type == "cuda"
+    ctx = (torch.profiler.profile(activities=[
+        torch.profiler.ProfilerActivity.CPU,
+        torch.profiler.ProfilerActivity.CUDA])
+        if profile else contextlib.nullcontext())
+    with ctx as prof:
+        t0 = time.perf_counter()
+        kern, cache = prefill(cfg, params, batch_in, max_len,
+                              use_pallas=True)
+        sync()
+        kern_s = time.perf_counter() - t0
+    kern, chunked = kern[..., :v], chunked[..., :v]
+    nxt = kern[:, -1].argmax(-1)[:, None]
+    finite = bool(torch.isfinite(kern).all() and torch.isfinite(chunked).all())
+    err = float((kern - chunked).abs().max())
+    scale = float(chunked.abs().max())
+    same_argmax = float((kern.argmax(-1) == chunked.argmax(-1)).float().mean())
+    del kern, chunked
+    per_kernel = None
+    busy = None
+    if profile:
+        busy, _ = device_time(prof)
+        per_kernel = {}
+        for ev in prof.events():
+            if ev.device_type == torch.autograd.DeviceType.CUDA:
+                for key, tag in LM_KERNEL_TAGS:
+                    if tag in ev.name:
+                        ms, cnt = per_kernel.get(key, (0.0, 0))
+                        per_kernel[key] = (
+                            ms + ev.time_range.elapsed_us() / 1e3, cnt + 1)
+        per_kernel = {k: {"device_ms": v[0], "launches": v[1]}
+                      for k, v in per_kernel.items()}
+    check = {"kernel_prefill_s": kern_s, "chunked_prefill_s": chunked_s,
+             "prefill_device_busy_s": busy,
+             "kernel_device_time": per_kernel,
+             "max_abs_logit_diff": err, "max_abs_logit": scale,
+             "tolerance": (f"max|kernel - chunked| <= {LOGIT_TOL:g} x "
+                           "max|chunked| over the real vocabulary"),
+             "argmax_agreement": same_argmax, "finite": finite}
+    if not finite or not err <= LOGIT_TOL * scale:
+        log("  kernel vs chunked prefill", json.dumps(check))
+        raise SystemExit(f"kernel prefill disagrees with the chunked path: "
+                         f"{check}")
+    return check, cache, nxt
+
+
+def profiled_step(cfg, params, cache, step_in, device) -> dict:
+    """One decode step after a warm-up one, profiled: how much of a step
+    the card is busy."""
+    import torch
+    from repro_torch.serve.engine import make_serve_step
+    profile = device.type == "cuda"
+    step = make_serve_step(cfg)
+    step(params, cache, step_in)           # warm-up
+    with (torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA])
+          if profile else contextlib.nullcontext()) as dprof:
+        t0 = time.perf_counter()
+        step(params, cache, step_in)
+        if profile:
+            torch.cuda.synchronize(device)
+        step_s = time.perf_counter() - t0
+    step_busy, step_top = device_time(dprof) if profile else (None, None)
+    step_events = (sum(1 for ev in dprof.events() if ev.device_type
+                       == torch.autograd.DeviceType.CUDA)
+                   if profile else None)
+    return {"decode_step_s": step_s, "decode_step_device_busy_s": step_busy,
+            "decode_step_device_events": step_events,
+            "decode_step_device_top_ms": step_top}
+
+
+def serve_and_count(cfg, device, batch, prompt_len, gen, seed):
+    """The main path: ``run_serving`` with every LM kernel's count zeroed
+    just before and read just after; greedy tokens checked against the
+    vocabulary. Returns (launches, the serving row)."""
+    import torch
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.ssd_chunk import ssd_chunk_scan
+    from repro_torch.launch.serve import run_serving
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    flash_attention.launches = 0
+    ssd_chunk_scan.launches = 0
+    t0 = time.perf_counter()
+    out = run_serving(cfg, batch=batch, prompt_len=prompt_len, gen=gen,
+                      seed=seed, device=device, use_pallas=True)
+    wall = time.perf_counter() - t0
+    launches = {"flash_attention": flash_attention.launches,
+                "ssd_chunk_scan": ssd_chunk_scan.launches}
+    peak = (torch.cuda.max_memory_allocated(device)
+            if device.type == "cuda" else None)
+    toks = out["tokens"]
+    in_vocab = bool(((toks >= 0) & (toks < cfg.vocab_size)).all())
+    expected = {"flash_attention": cfg.num_attn_layers,
+                "ssd_chunk_scan": (cfg.num_layers if cfg.family in
+                                   ("ssm", "hybrid") else 0)}
+    row = {"arch": cfg.name, "family": cfg.family,
+           "params": cfg.param_count(), "batch": batch,
+           "prompt_len": prompt_len, "gen": gen,
+           "prefill_s": out["prefill_s"], "decode_s": out["decode_s"],
+           "decode_tok_per_s": out["decode_tok_per_s"],
+           "prefill_tok_per_s": batch * prompt_len / out["prefill_s"],
+           "run_serving_wall_s": wall, "launches_per_prefill": launches,
+           "expected_launches": expected,
+           "tokens_shape": list(toks.shape), "tokens_in_vocab": in_vocab,
+           "sample_tokens": toks[0][:8].tolist(),
+           "peak_device_bytes": peak}
+    if not in_vocab or toks.shape != (batch, gen):
+        log("  serving", json.dumps(row))
+        raise SystemExit(f"greedy tokens off the vocabulary: {row}")
+    if device.type == "cuda" and launches != expected:
+        log("  serving", json.dumps(row))
+        raise SystemExit(f"launch counts off the LM prefill: {launches}")
+    return launches, row
 
 
 def lm_phase(device, *, rehearse):
@@ -2289,13 +2479,8 @@ def lm_phase(device, *, rehearse):
     launches counted, greedy tokens checked against the vocabulary; then
     the same weights and prompts prefilled through the kernels (profiled)
     and through the model's own chunked path, whose logits must agree."""
-    import torch
     from repro_torch.configs.base import get_config, smoke_config
-    from repro_torch.kernels.flash_attention import flash_attention
-    from repro_torch.kernels.ssd_chunk import ssd_chunk_scan
-    from repro_torch.launch.serve import run_serving
-    from repro_torch.models.transformer import init_params, prefill
-    from repro_torch.serve.engine import make_serve_step
+    from repro_torch.models.transformer import init_params
     arch, seed = "zamba2-2.7b", 0
     cfg = smoke_config(arch) if rehearse else get_config(arch)
     batch, prompt_len, gen = (2, 64, 8) if rehearse else (4, 1024, 32)
@@ -2307,120 +2492,210 @@ def lm_phase(device, *, rehearse):
         f"{cfg.ssm_chunk}, vocab {cfg.vocab_size}; "
         f"{cfg.param_count():,} parameters "
         f"({cfg.param_count() * 4 / 1e9:.2f} GB fp32)")
-    if device.type == "cuda":
-        torch.cuda.reset_peak_memory_stats(device)
     # the main path's run: counters zeroed just before, read just after
-    flash_attention.launches = 0
-    ssd_chunk_scan.launches = 0
-    t0 = time.perf_counter()
-    out = run_serving(arch, smoke=rehearse, batch=batch,
-                      prompt_len=prompt_len, gen=gen, seed=seed,
-                      device=device, use_pallas=True)
-    wall = time.perf_counter() - t0
-    launches = {"flash_attention": flash_attention.launches,
-                "ssd_chunk_scan": ssd_chunk_scan.launches}
-    peak = (torch.cuda.max_memory_allocated(device)
-            if device.type == "cuda" else None)
-    toks = out["tokens"]
-    in_vocab = bool(((toks >= 0) & (toks < cfg.vocab_size)).all())
-    row = {"arch": arch, "params": cfg.param_count(), "batch": batch,
-           "prompt_len": prompt_len, "gen": gen,
-           "prefill_s": out["prefill_s"], "decode_s": out["decode_s"],
-           "decode_tok_per_s": out["decode_tok_per_s"],
-           "prefill_tok_per_s": batch * prompt_len / out["prefill_s"],
-           "run_serving_wall_s": wall, "launches_per_prefill": launches,
-           "expected_launches": {"flash_attention": cfg.num_attn_layers,
-                                 "ssd_chunk_scan": cfg.num_layers},
-           "tokens_shape": list(toks.shape), "tokens_in_vocab": in_vocab,
-           "sample_tokens": toks[0][:8].tolist(),
-           "peak_device_bytes": peak}
+    launches, row = serve_and_count(cfg, device, batch, prompt_len, gen,
+                                    seed)
+    row["arch"] = arch
     log("  serving", json.dumps(row))
-    if not in_vocab or toks.shape != (batch, gen):
-        raise SystemExit(f"greedy tokens off the vocabulary: {row}")
-    if device.type == "cuda" and launches != row["expected_launches"]:
-        raise SystemExit(f"launch counts off the LM prefill: {launches}")
-    del out
 
     # the same weights and prompts (run_serving's seed), prefilled through
     # the kernels and through the model's own chunked path
     params = init_params(cfg, seed, device=device)
-    rng = np.random.default_rng(seed)
-    tokens = torch.from_numpy(rng.integers(
-        0, cfg.vocab_size, (batch, prompt_len))).to(device)
-    max_len = prompt_len + gen
-    profile = device.type == "cuda"
-    ctx = (torch.profiler.profile(activities=[
-        torch.profiler.ProfilerActivity.CPU,
-        torch.profiler.ProfilerActivity.CUDA])
-        if profile else contextlib.nullcontext())
-    with ctx as prof:
-        t0 = time.perf_counter()
-        kern, cache = prefill(cfg, params, {"tokens": tokens}, max_len,
-                              use_pallas=True)
-        if device.type == "cuda":
-            torch.cuda.synchronize(device)
-        kern_s = time.perf_counter() - t0
-    kern = kern[..., : cfg.vocab_size].clone()
-    nxt = kern[:, -1].argmax(-1)[:, None]
-    t0 = time.perf_counter()
-    chunked, _ = prefill(cfg, params, {"tokens": tokens}, max_len,
-                         use_pallas=False)
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-    chunked_s = time.perf_counter() - t0
-    chunked = chunked[..., : cfg.vocab_size]
-    finite = bool(torch.isfinite(kern).all() and torch.isfinite(chunked).all())
-    err = float((kern - chunked).abs().max())
-    scale = float(chunked.abs().max())
-    same_argmax = float((kern.argmax(-1) == chunked.argmax(-1)).float().mean())
-    per_kernel = None
-    busy = None
-    if profile:
-        busy, _ = device_time(prof)
-        per_kernel = {}
-        for ev in prof.events():
-            if ev.device_type == torch.autograd.DeviceType.CUDA:
-                for key, tag in (("flash_attention", "flash_kernel"),
-                                 ("ssd_chunk_scan", "ssd_chunk_")):
-                    if tag in ev.name:
-                        ms, cnt = per_kernel.get(key, (0.0, 0))
-                        per_kernel[key] = (
-                            ms + ev.time_range.elapsed_us() / 1e3, cnt + 1)
-        per_kernel = {k: {"device_ms": v[0], "launches": v[1]}
-                      for k, v in per_kernel.items()}
+    batch_in, _ = serving_inputs(cfg, batch, prompt_len, device, seed)
+    check, cache, nxt = prefill_check(cfg, params, batch_in,
+                                      prompt_len + gen, device)
     # one decode step after the kernel prefill, profiled: how much of a
     # step the card is busy
-    step = make_serve_step(cfg)
-    step(params, cache, {"tokens": nxt})           # warm-up
-    with (torch.profiler.profile(activities=[
-            torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA])
-          if profile else contextlib.nullcontext()) as dprof:
-        t0 = time.perf_counter()
-        step(params, cache, {"tokens": nxt})
-        if device.type == "cuda":
-            torch.cuda.synchronize(device)
-        step_s = time.perf_counter() - t0
-    step_busy, step_top = device_time(dprof) if profile else (None, None)
-    step_events = (sum(1 for ev in dprof.events() if ev.device_type
-                       == torch.autograd.DeviceType.CUDA)
-                   if profile else None)
+    check.update(profiled_step(cfg, params, cache, {"tokens": nxt}, device))
     del cache
-    check = {"kernel_prefill_s": kern_s, "chunked_prefill_s": chunked_s,
-             "prefill_device_busy_s": busy,
-             "kernel_device_time": per_kernel,
-             "max_abs_logit_diff": err, "max_abs_logit": scale,
-             "tolerance": (f"max|kernel - chunked| <= {LOGIT_TOL:g} x "
-                           "max|chunked| over the real vocabulary"),
-             "argmax_agreement": same_argmax, "finite": finite,
-             "decode_step_s": step_s, "decode_step_device_busy_s": step_busy,
-             "decode_step_device_events": step_events,
-             "decode_step_device_top_ms": step_top}
     log("  kernel vs chunked prefill", json.dumps(check))
-    if not finite or not err <= LOGIT_TOL * scale:
-        raise SystemExit(f"kernel prefill disagrees with the chunked path: "
-                         f"{check}")
     return launches, row, check
+
+
+# ---------------------------------------------------------------------------
+# phase 3g: the LM zoo's attention families
+# ---------------------------------------------------------------------------
+
+# (arch, layers kept on the card: None for the published depth); the
+# rehearsal runs each smoke config
+ZOO_MODELS = (("qwen3-14b", None), ("granite-moe-3b-a800m", None),
+              ("musicgen-large", None), ("qwen2-vl-72b", 4))
+ENGINE_SLOTS, ENGINE_MAX_LEN, ENGINE_REQUESTS, ENGINE_NEW = 4, 256, 6, 16
+KV_INT8_TOL = 2e-2
+
+
+def release(device, what: str) -> None:
+    """Collect the garbage and give the cached blocks back; print what the
+    card still holds."""
+    import torch
+    gc.collect()
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+        log(f"  device memory held after {what}: "
+            f"{torch.cuda.memory_allocated(device) / 1e9:.3f} GB")
+
+
+def int8_kv_check(cfg, params, cache, nxt, device) -> dict:
+    """The prefilled cache quantized to int8 and back to fp32: layer 0's
+    decode attention output for the next token's query (over every
+    prefilled position) must lie within the reference's bound of the
+    output from the full cache; then one whole decode step from each
+    cache, compared but not asserted."""
+    import torch
+    from repro_torch.models.attention import decode_attention
+    from repro_torch.models.layers import apply_rope, rmsnorm, rope_cos_sin
+    from repro_torch.models.transformer import _qkv, decode_step
+    from repro_torch.serve.quant import (dequantize_kv, quantize_kv,
+                                         quantized_cache_bytes)
+    pos = int(cache["pos"]) - 1
+    deq = dequantize_kv(quantize_kv(cache), dtype=torch.float32)
+    with torch.inference_mode():
+        attn = params["layers"][0]["attn"]
+        q, _, _ = _qkv(cfg, attn, rmsnorm(params["embed"][nxt], attn["ln"],
+                                          cfg.norm_eps))
+        cos, sin = rope_cos_sin(torch.full_like(nxt, pos + 1), cfg.head_dim,
+                                cfg.rope_theta)
+        q = apply_rope(q, cos, sin)
+        want = decode_attention(q, cache["k"][0], cache["v"][0], pos)
+        got = decode_attention(q, deq["k"][0], deq["v"][0], pos)
+        excess = float(((got - want).abs()
+                        / (KV_INT8_TOL + KV_INT8_TOL * want.abs())).max())
+    full_bytes = sum(cache[k].numel() * cache[k].element_size()
+                     for k in ("k", "v"))
+    bf16_bytes, int8_bytes = quantized_cache_bytes(cache)
+    step_q, _ = decode_step(cfg, params, {"tokens": nxt}, deq)
+    step_f, _ = decode_step(cfg, params, {"tokens": nxt}, cache)
+    v = cfg.vocab_size
+    step_q, step_f = step_q[..., :v], step_f[..., :v]
+    row = {"layer0_attention_max_abs_diff": float((got - want).abs().max()),
+           "layer0_attention_max_abs": float(want.abs().max()),
+           "tolerance": (f"|int8 - full| <= {KV_INT8_TOL:g} + "
+                         f"{KV_INT8_TOL:g} |full| per element (the "
+                         "reference's test_kv_quant_attention_output_close)"),
+           "largest_share_of_tolerance": excess,
+           "decode_step_max_abs_logit_diff_rel": float(
+               (step_q - step_f).abs().max() / step_f.abs().max()),
+           "greedy_tokens_agree": bool(torch.equal(step_q.argmax(-1),
+                                                   step_f.argmax(-1))),
+           "cache_bytes_fp32": full_bytes,
+           "quantized_cache_bytes": {"bf16": bf16_bytes,
+                                     "int8_and_scales": int8_bytes}}
+    del deq
+    log("  int8 kv", json.dumps(row))
+    if not excess <= 1.0:
+        raise SystemExit(f"int8 KV cache: layer 0's attention output off "
+                         f"the {KV_INT8_TOL:g} bound: {row}")
+    return row
+
+
+def engine_check(cfg, params, device, rng) -> dict:
+    """``ServingEngine`` with ``ENGINE_SLOTS`` slots and ``max_len``
+    ``ENGINE_MAX_LEN``: ``ENGINE_REQUESTS`` seeded prompts of 40–56 tokens
+    (so the shared ``pos``, which advances for every replayed prompt token
+    and every decode step, passes ``max_len``), ``ENGINE_NEW`` new tokens
+    each."""
+    import torch
+    from repro_torch.serve.engine import Request, ServingEngine
+    lens = rng.integers(40, 57, ENGINE_REQUESTS)
+    reqs = [Request(prompt=rng.integers(0, cfg.vocab_size, n),
+                    max_new_tokens=ENGINE_NEW) for n in lens]
+    eng = ServingEngine(cfg, params, slots=ENGINE_SLOTS,
+                        max_len=ENGINE_MAX_LEN)
+    for r in reqs:
+        eng.submit(r)
+    t0 = time.perf_counter()
+    eng.run(steps=4 * ENGINE_NEW * ENGINE_REQUESTS)
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    wall = time.perf_counter() - t0
+    replay = int(lens.sum())
+    pos = int(eng.cache["pos"])
+    done = all(r.done and len(r.out) == ENGINE_NEW for r in reqs)
+    in_vocab = all(0 <= t < cfg.vocab_size for r in reqs for t in r.out)
+    row = {"arch": cfg.name, "slots": ENGINE_SLOTS,
+           "max_len": ENGINE_MAX_LEN, "requests": ENGINE_REQUESTS,
+           "prompt_lens": lens.tolist(), "new_tokens": ENGINE_NEW,
+           "wall_s": wall, "replay_steps": replay,
+           "decode_steps": pos - replay, "final_pos": pos,
+           "pos_past_max_len": pos > ENGINE_MAX_LEN,
+           "generated_tok_per_s": ENGINE_REQUESTS * ENGINE_NEW / wall,
+           "steps_per_s": pos / wall, "all_done": done,
+           "tokens_in_vocab": in_vocab,
+           "sample_tokens": reqs[0].out[:8]}
+    del eng
+    log("  engine", json.dumps(row))
+    if not (done and in_vocab and pos > ENGINE_MAX_LEN):
+        raise SystemExit(f"ServingEngine failed its checks: {row}")
+    return row
+
+
+def zoo_phase(device, *, rehearse):
+    """The dense, moe, audio and vlm families served through
+    ``run_serving`` one model at a time (each released before the next):
+    K10's launches per prefill counted, greedy tokens in the vocabulary,
+    the kernel prefill against the chunked path; on qwen3-14b also the
+    int8 KV cache and ``ServingEngine``."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs.base import get_config, smoke_config
+    from repro_torch.models.transformer import init_params
+    batch, prompt_len, gen = (2, 64, 8) if rehearse else (4, 1024, 32)
+    seed = 0
+    launches = {"flash_attention": 0}
+    rows = []
+    for arch, layers in ZOO_MODELS:
+        cfg = smoke_config(arch) if rehearse else get_config(arch)
+        reduced = None
+        if layers is not None and layers < cfg.num_layers:
+            reduced = f"num_layers {cfg.num_layers} -> {layers}"
+            cfg = dataclasses.replace(cfg, num_layers=layers)
+        log(f"  config {cfg.name} ({cfg.family}): {cfg.num_layers} layers"
+            f"{' (' + reduced + ')' if reduced else ''}, d_model "
+            f"{cfg.d_model}, {cfg.num_heads} : {cfg.num_kv_heads} heads of "
+            f"{cfg.head_dim}, d_ff {cfg.d_ff}"
+            + (f", {cfg.num_experts} experts (padded to "
+               f"{cfg.num_experts_padded}) top-{cfg.experts_per_token}"
+               if cfg.family == "moe" else "")
+            + f", vocab {cfg.vocab_size}, {cfg.frontend} frontend")
+        # the main path's run: counters zeroed just before, read just after
+        got, row = serve_and_count(cfg, device, batch, prompt_len, gen,
+                                   seed)
+        launches["flash_attention"] += got["flash_attention"]
+        row["arch"] = arch
+        row["reduced"] = reduced
+        log("  zoo serving", json.dumps(row))
+        release(device, f"{arch}'s run_serving")
+
+        if device.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(device)
+        params = init_params(cfg, seed, device=device)
+        n_params = sum(p.numel() for p in params.parameters())
+        batch_in, rng = serving_inputs(cfg, batch, prompt_len, device, seed)
+        check, cache, nxt = prefill_check(cfg, params, batch_in,
+                                          prompt_len + gen, device)
+        check["arch"] = arch
+        check["param_tensors"] = n_params
+        check["param_bytes"] = sum(p.numel() * p.element_size()
+                                   for p in params.parameters())
+        if arch == "qwen3-14b":
+            check["int8_kv"] = int8_kv_check(cfg, params, cache, nxt, device)
+        check.update(profiled_step(
+            cfg, params, cache,
+            decode_inputs(cfg, nxt, rng, int(cache["pos"]), device), device))
+        del cache, batch_in
+        release(device, f"{arch}'s prefill check")
+        if arch == "qwen3-14b":
+            check["engine"] = engine_check(cfg, params, device,
+                                           np.random.default_rng(seed + 1))
+        check["peak_device_bytes"] = (
+            torch.cuda.max_memory_allocated(device)
+            if device.type == "cuda" else None)
+        log("  zoo kernel vs chunked prefill", json.dumps(check))
+        rows.append((row, check))
+        del params
+        release(device, arch)
+    return launches, rows
 
 
 # ---------------------------------------------------------------------------
@@ -2493,7 +2768,8 @@ def main(argv=None) -> int:
         linear = (96, 1280, 64)
         flash_shapes = [(4, 128, 80, "float32"), (2, 100, 80, "float32"),
                         (2, 64, 128, "float32"), (2, 64, 160, "float32"),
-                        (4, 128, 80, "bfloat16"), (4, 128, 80, "float16")]
+                        (4, 128, 80, "bfloat16"), (4, 128, 80, "float16"),
+                        (10, 64, 128, "float32"), (6, 64, 64, "float32")]
         ssd_shapes = [(8, 4, 64, 16, 16, 1), (8, 4, 64, 16, 16, 4),
                       (8, 1, 75, 16, 16, 1)]
     else:
@@ -2509,12 +2785,15 @@ def main(argv=None) -> int:
         # 4 chunks of 256, P = N = 64
         linear = (2560, 10240, 4096)
         # (BH, S, D, dtype): the prefill's shape, a ragged S, D = 128 and
-        # D = 160 (the 32-key-block instantiation), and the prefill's shape
-        # in bf16 and fp16
+        # D = 160 (the 32-key-block instantiation), the prefill's shape
+        # in bf16 and fp16, and phase 3g's prefills: qwen3-14b's (4 × 40
+        # query heads of 128) and granite-moe-3b's (4 × 24 of 64)
         flash_shapes = [(128, 1024, 80, "float32"), (128, 1000, 80, "float32"),
                         (64, 1024, 128, "float32"), (32, 1024, 160, "float32"),
                         (128, 1024, 80, "bfloat16"),
-                        (128, 1024, 80, "float16")]
+                        (128, 1024, 80, "float16"),
+                        (160, 1024, 128, "float32"),
+                        (96, 1024, 64, "float32")]
         # (…, heads per group): per head as the JAX kernel takes B and C,
         # then zamba2-2.7b's one group for its 80 heads, as fused_ssd
         # passes them
@@ -2660,15 +2939,17 @@ def main(argv=None) -> int:
     # its launches of the kernels join the main path's
     for name, n in prior_launches.items():
         launches[name] += n
-    # the SpGEMM phases' device memory is released before the LM phase
-    gc.collect()
-    if device.type == "cuda":
-        torch.cuda.empty_cache()
-        log(f"  device memory held before the LM phase: "
-            f"{torch.cuda.memory_allocated(device) / 1e9:.3f} GB")
+    # the SpGEMM phases' device memory is released before the LM phases
+    release(device, "the SpGEMM phases")
     phase("phase 3d: LM serving, run_serving('zamba2-2.7b')")
     lm_launches, _, _ = lm_phase(device, rehearse=args.rehearse)
     launches.update(lm_launches)
+    release(device, "phase 3d")
+    phase("phase 3g: LM zoo serving (qwen3-14b, granite-moe-3b-a800m, "
+          "musicgen-large, qwen2-vl-72b cut to 4 layers), ServingEngine, "
+          "int8 KV cache")
+    zoo_launches, _ = zoo_phase(device, rehearse=args.rehearse)
+    launches["flash_attention"] += zoo_launches["flash_attention"]
 
     # -- phase 4: summary ------------------------------------------------------
     win_cases = [dense, slab, tall, bf16, burst_pack] + nonfinite[:2]

@@ -4,8 +4,7 @@
 zoo (dense / moe / ssm / hybrid / audio / vlm). Each architecture module in
 this package exports ``CONFIG`` (exact published numbers) and
 ``smoke_config()`` (reduced same-family config for CPU tests). The registry
-(:func:`get_config`) resolves ``--arch <id>`` names; it lists the
-architectures whose family the port runs (``ssm`` and ``hybrid``).
+(:func:`get_config`) resolves ``--arch <id>`` names.
 """
 from __future__ import annotations
 
@@ -17,7 +16,15 @@ __all__ = ["ModelConfig", "get_config", "smoke_config", "ARCH_IDS"]
 
 ARCH_IDS = [
     "zamba2-2.7b",
+    "musicgen-large",
+    "llama3-405b",
+    "qwen3-14b",
+    "granite-34b",
+    "command-r-35b",
     "mamba2-370m",
+    "granite-moe-3b-a800m",
+    "moonshot-v1-16b-a3b",
+    "qwen2-vl-72b",
 ]
 
 
@@ -145,7 +152,15 @@ class ModelConfig:
 
 _MODULES = {
     "zamba2-2.7b": "zamba2_2p7b",
+    "musicgen-large": "musicgen_large",
+    "llama3-405b": "llama3_405b",
+    "qwen3-14b": "qwen3_14b",
+    "granite-34b": "granite_34b",
+    "command-r-35b": "command_r_35b",
     "mamba2-370m": "mamba2_370m",
+    "granite-moe-3b-a800m": "granite_moe_3b",
+    "moonshot-v1-16b-a3b": "moonshot_16b",
+    "qwen2-vl-72b": "qwen2_vl_72b",
 }
 
 

@@ -71,10 +71,12 @@ def plan_from_numpy(fields: dict) -> Plan:
 
 def lm_params_from_numpy(cfg, tree: dict, *, device):
     """Load an LM parameter tree laid out as the JAX package's
-    ``init_params`` makes it — ``{"embed", "layers": {"ssm": {name:
-    (L, …)}}, "shared_attn": {"attn": {…}, "mlp": {…}}, "final_norm",
-    "lm_head"}`` with numpy leaves, the Mamba2 leaves stacked on a
-    leading layer axis — into the port's modules
+    ``init_params`` makes it — ``{"embed", "layers": {...}, "shared_attn":
+    {"attn": {…}, "mlp": {…}}, "final_norm", "lm_head"}`` with numpy
+    leaves, the layers' leaves stacked on a leading layer axis
+    (``{"ssm": {…}}``, ``{"attn": {…}, "mlp": {…}}`` or ``{"attn": {…},
+    "moe": {…}}``); no ``embed`` for the ``embeddings`` frontend, no
+    ``lm_head`` with tied embeddings — into the port's modules
     (:func:`repro_torch.models.transformer.init_params`'s layout) on
     ``device``."""
     from torch import nn
@@ -94,14 +96,21 @@ def lm_params_from_numpy(cfg, tree: dict, *, device):
                                     device=dev)
             for name, value in leaves.items()})
 
-    ssm = tree["layers"]["ssm"]
-    missing = set(MAMBA2_PARAM_NAMES) - set(ssm)
-    if missing:
-        raise KeyError(f"Mamba2 leaves missing: {sorted(missing)}")
-    members = {
-        "embed": tensor_from_numpy(tree["embed"], device=dev),
-        "layers": nn.ModuleList(group(ssm, i)
-                                for i in range(cfg.num_layers))}
+    stacked = tree["layers"]
+    if cfg.family in ("ssm", "hybrid"):
+        missing = set(MAMBA2_PARAM_NAMES) - set(stacked["ssm"])
+        if missing:
+            raise KeyError(f"Mamba2 leaves missing: {sorted(missing)}")
+        layers = (group(stacked["ssm"], i) for i in range(cfg.num_layers))
+    else:
+        ffn = "moe" if cfg.family == "moe" else "mlp"
+        layers = (ParamGroup(attn=group(stacked["attn"], i),
+                             **{ffn: group(stacked[ffn], i)})
+                  for i in range(cfg.num_layers))
+    members = {}
+    if cfg.frontend == "tokens":
+        members["embed"] = tensor_from_numpy(tree["embed"], device=dev)
+    members["layers"] = nn.ModuleList(layers)
     if cfg.family == "hybrid":
         members["shared_attn"] = ParamGroup(
             attn=group(tree["shared_attn"]["attn"]),

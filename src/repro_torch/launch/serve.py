@@ -1,12 +1,15 @@
 """Serving entry point: batched prefill + greedy decode throughput demo.
 
-    PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-2.7b \\
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-14b \\
         --no-smoke --batch 4 --prompt-len 1024 --gen 32
 
-Runs on the card unless ``--device cpu`` is given. The prefill's
-attention and SSD scans run the flash-attention and fused SSD chunk-scan
-kernels (``run_serving(use_pallas=False)`` takes the model's own chunked
-path instead); decoding runs plain torch ops.
+Any architecture of ``ARCH_IDS``; runs on the card unless ``--device cpu``
+is given. The prefill's attention and SSD scans run the flash-attention
+and fused SSD chunk-scan kernels (``run_serving(use_pallas=False)`` takes
+the model's own chunked path instead); decoding runs plain torch ops. The
+audio and vlm architectures take seeded random frame/patch embeddings in
+place of tokens (and M-RoPE positions for vlm), drawn as the reference
+draws them: the prompt's first, then one (B, 1, D) draw per decode step.
 """
 from __future__ import annotations
 
@@ -16,7 +19,8 @@ import time
 import numpy as np
 import torch
 
-from repro_torch.configs.base import ARCH_IDS, get_config, smoke_config
+from repro_torch.configs.base import (ARCH_IDS, ModelConfig, get_config,
+                                      smoke_config)
 from repro_torch.device import resolve_device, synchronize
 from repro_torch.models.transformer import check_family, init_params, prefill
 from repro_torch.serve.engine import make_serve_step
@@ -24,22 +28,39 @@ from repro_torch.serve.engine import make_serve_step
 __all__ = ["run_serving", "main"]
 
 
-def run_serving(arch: str, *, smoke: bool = True, batch: int = 4,
-                prompt_len: int = 32, gen: int = 32, seed: int = 0,
-                device="cuda", use_pallas: bool = True) -> dict:
+def run_serving(arch: str | ModelConfig, *, smoke: bool = True,
+                batch: int = 4, prompt_len: int = 32, gen: int = 32,
+                seed: int = 0, device="cuda", use_pallas: bool = True
+                ) -> dict:
     """Prefill ``batch`` random prompts of ``prompt_len`` tokens (from
     ``seed``) on a randomly initialised ``arch`` (its smoke config with
-    ``smoke``), then decode ``gen`` tokens greedily. Returns
+    ``smoke``; a :class:`ModelConfig` is taken as it is, e.g. a published
+    config cut in depth), then decode ``gen`` tokens greedily. Returns
     ``{"prefill_s", "decode_s", "decode_tok_per_s", "tokens" (batch,
     gen)}``; both times end in a device sync."""
-    cfg = smoke_config(arch) if smoke else get_config(arch)
+    if isinstance(arch, ModelConfig):
+        cfg = arch
+    else:
+        cfg = smoke_config(arch) if smoke else get_config(arch)
     check_family(cfg)
     dev = resolve_device(device)
     params = init_params(cfg, seed, device=dev)
     rng = np.random.default_rng(seed)
     max_len = prompt_len + gen
-    batch_in = {"tokens": torch.from_numpy(
-        rng.integers(0, cfg.vocab_size, (batch, prompt_len))).to(dev)}
+
+    def embeddings(seq):
+        return torch.from_numpy(rng.standard_normal(
+            (batch, seq, cfg.d_model)).astype(np.float32)).to(dev)
+
+    if cfg.frontend == "tokens":
+        batch_in = {"tokens": torch.from_numpy(
+            rng.integers(0, cfg.vocab_size, (batch, prompt_len))).to(dev)}
+    else:
+        batch_in = {"embeddings": embeddings(prompt_len)}
+        if cfg.m_rope:
+            batch_in["positions3"] = torch.arange(
+                prompt_len, device=dev)[None, None].expand(
+                    3, batch, prompt_len)
 
     synchronize(dev)
     t0 = time.perf_counter()
@@ -53,8 +74,16 @@ def run_serving(arch: str, *, smoke: bool = True, batch: int = 4,
     step = make_serve_step(cfg)
     out_tokens = [tok[:, 0]]
     t0 = time.perf_counter()
-    for _ in range(gen - 1):
-        nxt, cache = step(params, cache, {"tokens": tok})
+    for i in range(gen - 1):
+        if cfg.frontend == "tokens":
+            step_in = {"tokens": tok}
+        else:
+            step_in = {"embeddings": embeddings(1)}
+            if cfg.m_rope:
+                step_in["positions3"] = torch.full((3, batch, 1),
+                                                   prompt_len + i,
+                                                   device=dev)
+        nxt, cache = step(params, cache, step_in)
         tok = nxt[:, None]
         out_tokens.append(nxt)
     synchronize(dev)

@@ -1,9 +1,8 @@
-"""Shared neural-net primitives: RMSNorm, SwiGLU, RoPE, and the parameter
-container of the model zoo.
+"""Shared neural-net primitives: RMSNorm, SwiGLU, RoPE and M-RoPE, and
+the parameter container of the model zoo.
 
-The counterparts of the JAX package's ``models/layers.py`` for the
-families the port runs. M-RoPE (the VLM family) and the cross-entropy
-(training) come with those paths.
+The counterparts of the JAX package's ``models/layers.py`` for serving;
+the cross-entropy comes with the training path.
 """
 from __future__ import annotations
 
@@ -11,8 +10,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-__all__ = ["rmsnorm", "swiglu", "rope_cos_sin", "apply_rope", "ParamGroup",
-           "normal_init"]
+__all__ = ["rmsnorm", "swiglu", "rope_cos_sin", "m_rope_cos_sin",
+           "apply_rope", "ParamGroup", "normal_init"]
 
 
 def rmsnorm(x: torch.Tensor, w: torch.Tensor,
@@ -30,15 +29,39 @@ def swiglu(x: torch.Tensor, wg: torch.Tensor, wu: torch.Tensor,
     return (F.silu(x @ wg) * (x @ wu)) @ wd
 
 
+def _rope_freq(head_dim: int, theta: float, device) -> torch.Tensor:
+    """theta ** (-i / half) for i < half, in fp32."""
+    half = head_dim // 2
+    exponent = -torch.arange(half, dtype=torch.float32, device=device) / half
+    return torch.pow(torch.tensor(theta, dtype=torch.float32, device=device),
+                     exponent)
+
+
 def rope_cos_sin(positions: torch.Tensor, head_dim: int,
                  theta: float) -> tuple[torch.Tensor, torch.Tensor]:
     """positions (..., S) → cos/sin (..., S, head_dim//2) in fp32."""
+    ang = positions[..., None].float() * _rope_freq(head_dim, theta,
+                                                     positions.device)
+    return torch.cos(ang), torch.sin(ang)
+
+
+def m_rope_cos_sin(positions3: torch.Tensor, head_dim: int, theta: float,
+                   sections: tuple) -> tuple[torch.Tensor, torch.Tensor]:
+    """Qwen2-VL M-RoPE: positions3 (3, ..., S); the half-dim frequency
+    bands are split into (t, h, w) sections, each rotated by its own
+    position stream. Returns cos/sin shaped (..., S, head_dim//2)."""
     half = head_dim // 2
-    exponent = -torch.arange(half, dtype=torch.float32,
-                             device=positions.device) / half
-    freq = torch.pow(torch.tensor(theta, dtype=torch.float32,
-                                  device=positions.device), exponent)
-    ang = positions[..., None].float() * freq
+    if sum(sections) != half:
+        raise ValueError(f"M-RoPE sections {sections} do not sum to {half}")
+    ang_per = positions3[..., None].float() * _rope_freq(
+        head_dim, theta, positions3.device)            # (3, ..., S, half)
+    # band j takes stream i for the j of section i (the reference's
+    # take_along_axis over the stream axis)
+    bounds = [0]
+    for n in sections:
+        bounds.append(bounds[-1] + n)
+    ang = torch.cat([ang_per[i, ..., bounds[i]: bounds[i + 1]]
+                     for i in range(3)], dim=-1)
     return torch.cos(ang), torch.sin(ang)
 
 

@@ -1,14 +1,17 @@
-"""Model zoo assembly for the port: the ``ssm`` (mamba2) and ``hybrid``
-(zamba2) decoder LMs.
+"""Model zoo assembly for the port: the dense, moe, audio and vlm
+decoder LMs (attention + SwiGLU or MoE blocks), the ssm (mamba2) and the
+hybrid (zamba2) ones.
 
 The counterpart of the JAX package's ``models/transformer.py``, with the
 same functional names:
 
 * ``init_params`` — random weights from a seeded :class:`torch.Generator`,
-  as a tree of :class:`~repro_torch.models.layers.ParamGroup` modules: one
-  per Mamba2 block (``params["layers"][i]``), the hybrid family's shared
+  as a tree of :class:`~repro_torch.models.layers.ParamGroup` modules:
+  one per layer (``params["layers"][i]``: ``attn`` + ``mlp`` or ``attn``
+  + ``moe`` groups, or one Mamba2 block), the hybrid family's shared
   attention block (``params["shared_attn"]["attn"]`` / ``["mlp"]``), the
-  embedding, final norm and LM head;
+  embedding (absent for the ``embeddings`` frontend), the final norm and
+  the LM head (absent with ``tie_embeddings``);
 * ``forward`` — the full-sequence pass (chunked attention, chunked SSD
   scan; ``use_pallas=True`` routes them to the flash-attention and fused
   SSD kernels);
@@ -16,11 +19,14 @@ same functional names:
   cache (attention) and the O(1) recurrent state (SSM);
 * ``prefill`` — the full-sequence pass that also fills the serving cache.
 
-The layers run as a Python loop under :func:`torch.inference_mode` (no
-scan, no rematerialisation); the reference's sharding hints have no
-one-card meaning and are left out. ``decode_step`` updates the cache's
-tensors in place and returns the same dict. The ``dense``, ``audio``,
-``vlm`` and ``moe`` families raise :class:`NotImplementedError`.
+The audio and vlm frontends are stubs, as in the reference: the batch
+carries precomputed ``embeddings`` (B, S, D) in place of ``tokens``, and
+the vlm family's M-RoPE takes ``positions3`` (3, B, S). The layers run as
+a Python loop under :func:`torch.inference_mode` (no scan, no
+rematerialisation); the reference's sharding hints have no one-card
+meaning and are left out. ``decode_step`` updates the cache's tensors in
+place and returns the same dict; past the cache's end it writes the last
+slot, as the reference's ``dynamic_update_slice`` clamps its start.
 """
 from __future__ import annotations
 
@@ -30,28 +36,31 @@ from torch import nn
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models.attention import decode_attention, gqa_attention
-from repro_torch.models.layers import (ParamGroup, apply_rope, normal_init,
-                                       rmsnorm, rope_cos_sin, swiglu)
+from repro_torch.models.layers import (ParamGroup, apply_rope, m_rope_cos_sin,
+                                       normal_init, rmsnorm, rope_cos_sin,
+                                       swiglu)
 from repro_torch.models.mamba2 import (init_mamba2_params, mamba2_block,
                                        mamba2_decode_block)
+from repro_torch.models.moe import init_moe_params, moe_ffn
 
 __all__ = ["init_params", "forward", "init_cache", "decode_step", "prefill",
            "check_family"]
 
-PORTED_FAMILIES = ("ssm", "hybrid")
+FAMILIES = ("dense", "audio", "vlm", "moe", "ssm", "hybrid")
+FRONTENDS = ("tokens", "embeddings")
 
 
 def check_family(cfg: ModelConfig) -> None:
-    """Raise for a configuration the port cannot run yet."""
-    if cfg.family not in PORTED_FAMILIES:
+    """Raise for a configuration outside the model zoo's families and
+    frontends."""
+    if cfg.family not in FAMILIES:
         raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family!r} family is not ported yet (the "
-            "port runs the ssm and hybrid families; the others wait for "
-            "ROADMAP queue 1, item 10 — LM zoo)")
-    if cfg.frontend != "tokens":
+            f"{cfg.name}: no {cfg.family!r} family in the model zoo "
+            f"(families: {', '.join(FAMILIES)})")
+    if cfg.frontend not in FRONTENDS:
         raise NotImplementedError(
-            f"{cfg.name}: the {cfg.frontend!r} frontend waits for ROADMAP "
-            "queue 1, item 10 (LM zoo)")
+            f"{cfg.name}: no {cfg.frontend!r} frontend (frontends: "
+            f"{', '.join(FRONTENDS)})")
 
 
 # ---------------------------------------------------------------------------
@@ -95,12 +104,22 @@ def init_params(cfg: ModelConfig, generator: torch.Generator | int = 0, *,
     if not isinstance(gen, torch.Generator):
         gen = torch.Generator(device=dev).manual_seed(int(generator))
     kw = dict(device=dev, dtype=dtype)
-    members: dict = {
-        "embed": normal_init((cfg.padded_vocab, cfg.d_model),
-                             cfg.d_model ** -0.5, gen, **kw),
-        "layers": nn.ModuleList(
-            init_mamba2_params(cfg, gen, **kw)
-            for _ in range(cfg.num_layers))}
+    members: dict = {}
+    if cfg.frontend == "tokens":
+        members["embed"] = normal_init((cfg.padded_vocab, cfg.d_model),
+                                       cfg.d_model ** -0.5, gen, **kw)
+    if cfg.family in ("ssm", "hybrid"):
+        layers = (init_mamba2_params(cfg, gen, **kw)
+                  for _ in range(cfg.num_layers))
+    elif cfg.family == "moe":
+        layers = (ParamGroup(attn=_init_attn(cfg, gen, kw),
+                             moe=init_moe_params(cfg, gen, **kw))
+                  for _ in range(cfg.num_layers))
+    else:
+        layers = (ParamGroup(attn=_init_attn(cfg, gen, kw),
+                             mlp=_init_mlp(cfg, gen, kw))
+                  for _ in range(cfg.num_layers))
+    members["layers"] = nn.ModuleList(layers)
     if cfg.family == "hybrid":
         members["shared_attn"] = ParamGroup(attn=_init_attn(cfg, gen, kw),
                                             mlp=_init_mlp(cfg, gen, kw))
@@ -143,6 +162,28 @@ def _mlp_full(cfg, p, x):
     return swiglu(h, p["wg"], p["wu"], p["wd"])
 
 
+def _positions(batch, bsz, seq, device):
+    if "positions" in batch:
+        return batch["positions"]
+    return torch.arange(seq, device=device)[None].expand(bsz, seq)
+
+
+def _rope_tables(cfg, batch, positions):
+    if cfg.m_rope:
+        pos3 = batch.get("positions3")
+        if pos3 is None:
+            pos3 = positions[None].expand(3, *positions.shape)
+        return m_rope_cos_sin(pos3, cfg.head_dim, cfg.rope_theta,
+                              cfg.m_rope_sections)
+    return rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta)
+
+
+def _embed_in(cfg, params, batch):
+    if cfg.frontend == "tokens":
+        return params["embed"][batch["tokens"]]
+    return batch["embeddings"]
+
+
 def _head_out(cfg, params, x):
     """Logits over the *padded* vocab (pad ids masked to -1e30)."""
     x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
@@ -151,6 +192,14 @@ def _head_out(cfg, params, x):
     if cfg.padded_vocab != cfg.vocab_size:
         logits[..., cfg.vocab_size:] = -1e30
     return logits
+
+
+def _ffn(cfg, lp, h):
+    """The block's feed-forward half: the MoE layer or the SwiGLU MLP."""
+    if cfg.family == "moe":
+        return moe_ffn(cfg, lp["moe"], rmsnorm(h, lp["moe"]["ln"],
+                                               cfg.norm_eps))
+    return _mlp_full(cfg, lp["mlp"], h)
 
 
 def _ssm_layer(cfg, lp, h, collect_kv, use_pallas):
@@ -173,9 +222,8 @@ def forward(cfg: ModelConfig, params: ParamGroup, batch: dict, *,
     returns the per-layer serving state (for prefill)."""
     check_family(cfg)
     with torch.inference_mode():
-        tokens = batch["tokens"]
-        x = params["embed"][tokens]
-        bsz, seq = tokens.shape
+        x = _embed_in(cfg, params, batch)
+        bsz, seq = x.shape[:2]
         states, bufs, ks, vs = [], [], [], []
 
         def ssm(h, li):
@@ -186,33 +234,45 @@ def forward(cfg: ModelConfig, params: ParamGroup, batch: dict, *,
                 bufs.append(st[1])
             return h
 
+        def attn(h, p, cos, sin):
+            a, (k, v) = _attn_full(cfg, p, h, cos, sin, use_pallas)
+            if collect_kv:
+                ks.append(k)
+                vs.append(v)
+            return h + a
+
         if cfg.family == "ssm":
             for li in range(cfg.num_layers):
                 x = ssm(x, li)
-        else:  # hybrid: the shared attention block after every k SSM blocks
-            positions = torch.arange(seq, device=x.device)[None].expand(
-                bsz, seq)
-            cos, sin = rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta)
-            every = cfg.hybrid_attn_every
-            shared = params["shared_attn"]
-            for gi in range(cfg.num_layers // every):
-                for li in range(gi * every, (gi + 1) * every):
-                    x = ssm(x, li)
-                a, (k, v) = _attn_full(cfg, shared["attn"], x, cos, sin,
-                                       use_pallas)
-                x = x + a
-                x = x + _mlp_full(cfg, shared["mlp"], x)
-                if collect_kv:
-                    ks.append(k)
-                    vs.append(v)
+        else:
+            positions = _positions(batch, bsz, seq, x.device)
+            cos, sin = _rope_tables(cfg, batch, positions)
+            if cfg.family == "hybrid":
+                # the shared attention block after every k SSM blocks
+                every = cfg.hybrid_attn_every
+                shared = params["shared_attn"]
+                for gi in range(cfg.num_layers // every):
+                    for li in range(gi * every, (gi + 1) * every):
+                        x = ssm(x, li)
+                    x = attn(x, shared["attn"], cos, sin)
+                    x = x + _mlp_full(cfg, shared["mlp"], x)
+            else:
+                for lp in params["layers"]:
+                    x = attn(x, lp["attn"], cos, sin)
+                    x = x + _ffn(cfg, lp, x)
 
+        ck = {}
+        if collect_kv:
+            if states:
+                ck["ssm_state"] = torch.stack(states)
+                ck["conv_buf"] = torch.stack(bufs)
+            if ks:
+                ck["k"] = torch.stack(ks)
+                ck["v"] = torch.stack(vs)
+            del states, bufs, ks, vs
         logits = _head_out(cfg, params, x)
         if not collect_kv:
             return logits
-        ck = {"ssm_state": torch.stack(states), "conv_buf": torch.stack(bufs)}
-        if ks:
-            ck["k"] = torch.stack(ks)
-            ck["v"] = torch.stack(vs)
         return logits, ck
 
 
@@ -231,35 +291,42 @@ def init_cache(cfg: ModelConfig, batch_size: int, max_len: int,
         cache["k"] = torch.zeros((na, batch_size, max_len, cfg.num_kv_heads,
                                   cfg.head_dim), dtype=dtype, device=dev)
         cache["v"] = torch.zeros_like(cache["k"])
-    h, p, n = cfg.ssm_num_heads, cfg.ssm_head_dim, cfg.ssm_state
-    cch = cfg.ssm_d_inner + 2 * cfg.ssm_groups * cfg.ssm_state
-    cache["ssm_state"] = torch.zeros((cfg.num_layers, batch_size, h, p, n),
-                                     dtype=torch.float32, device=dev)
-    cache["conv_buf"] = torch.zeros(
-        (cfg.num_layers, batch_size, cfg.ssm_conv_width - 1, cch),
-        dtype=dtype, device=dev)
+    if cfg.family in ("ssm", "hybrid"):
+        h, p, n = cfg.ssm_num_heads, cfg.ssm_head_dim, cfg.ssm_state
+        cch = cfg.ssm_d_inner + 2 * cfg.ssm_groups * cfg.ssm_state
+        cache["ssm_state"] = torch.zeros(
+            (cfg.num_layers, batch_size, h, p, n), dtype=torch.float32,
+            device=dev)
+        cache["conv_buf"] = torch.zeros(
+            (cfg.num_layers, batch_size, cfg.ssm_conv_width - 1, cch),
+            dtype=dtype, device=dev)
     return cache
 
 
 def _attn_decode(cfg, p, x, kc, vc, pos, cos, sin):
-    """x (B,1,D); kc/vc (B,Smax,Hkv,Dh), written at ``pos`` in place."""
+    """x (B,1,D); kc/vc (B,Smax,Hkv,Dh), written in place at ``pos`` —
+    at the last slot once ``pos`` is past the end, where the reference's
+    ``dynamic_update_slice`` clamps its start index."""
     h = rmsnorm(x, p["ln"], cfg.norm_eps)
     q, k, v = _qkv(cfg, p, h)
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
-    kc[:, pos] = k[:, 0].to(kc.dtype)
-    vc[:, pos] = v[:, 0].to(vc.dtype)
+    slot = min(pos, kc.shape[1] - 1)
+    kc[:, slot] = k[:, 0].to(kc.dtype)
+    vc[:, slot] = v[:, 0].to(vc.dtype)
     out = decode_attention(q, kc, vc, pos)
     return out.reshape(*x.shape[:2], -1) @ p["wo"]
 
 
 def decode_step(cfg: ModelConfig, params: ParamGroup, batch: dict,
                 cache: dict):
-    """One-token step. batch: {"tokens": (B,1)}. Returns (logits (B,1,V),
-    cache) — the cache's tensors updated in place, ``pos`` advanced."""
+    """One-token step. batch: {"tokens": (B,1)} or {"embeddings":
+    (B,1,D)} (+ optional ``positions3`` (3,B,1)). Returns (logits
+    (B,1,V), cache) — the cache's tensors updated in place, ``pos``
+    advanced."""
     check_family(cfg)
     with torch.inference_mode():
-        x = params["embed"][batch["tokens"]]
+        x = _embed_in(cfg, params, batch)
         pos = int(cache["pos"])
         bsz = x.shape[0]
 
@@ -277,15 +344,22 @@ def decode_step(cfg: ModelConfig, params: ParamGroup, batch: dict,
                 x = ssm(x, li)
         else:
             positions = torch.full((bsz, 1), pos, device=x.device)
-            cos, sin = rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta)
-            every = cfg.hybrid_attn_every
-            shared = params["shared_attn"]
-            for gi in range(cfg.num_layers // every):
-                for li in range(gi * every, (gi + 1) * every):
-                    x = ssm(x, li)
-                x = x + _attn_decode(cfg, shared["attn"], x, cache["k"][gi],
-                                     cache["v"][gi], pos, cos, sin)
-                x = x + _mlp_full(cfg, shared["mlp"], x)
+            cos, sin = _rope_tables(cfg, batch, positions)
+            if cfg.family == "hybrid":
+                every = cfg.hybrid_attn_every
+                shared = params["shared_attn"]
+                for gi in range(cfg.num_layers // every):
+                    for li in range(gi * every, (gi + 1) * every):
+                        x = ssm(x, li)
+                    x = x + _attn_decode(cfg, shared["attn"], x,
+                                         cache["k"][gi], cache["v"][gi], pos,
+                                         cos, sin)
+                    x = x + _mlp_full(cfg, shared["mlp"], x)
+            else:
+                for li, lp in enumerate(params["layers"]):
+                    x = x + _attn_decode(cfg, lp["attn"], x, cache["k"][li],
+                                         cache["v"][li], pos, cos, sin)
+                    x = x + _ffn(cfg, lp, x)
 
         logits = _head_out(cfg, params, x)
         cache["pos"] = pos + 1
@@ -295,19 +369,23 @@ def decode_step(cfg: ModelConfig, params: ParamGroup, batch: dict,
 def prefill(cfg: ModelConfig, params: ParamGroup, batch: dict, max_len: int,
             *, use_pallas: bool = False):
     """Run the full prompt, returning (logits, cache ready at pos=seq):
-    one chunked forward pass whose SSM layers hand their final SSD state
-    and conv tail straight to the cache, and whose attention K/V fill the
-    cache's head."""
-    bsz, seq = batch["tokens"].shape
-    cache = init_cache(cfg, bsz, max_len, dtype=params["embed"].dtype,
-                       device=params["embed"].device)
+    one chunked forward pass whose attention K/V fill the cache's head,
+    and whose SSM layers hand their final SSD state and conv tail
+    straight to the cache. The cache takes the parameters' dtype."""
+    lead = (batch["tokens"] if cfg.frontend == "tokens"
+            else batch["embeddings"])
+    bsz, seq = lead.shape[:2]
+    norm = params["final_norm"]
+    cache = init_cache(cfg, bsz, max_len, dtype=norm.dtype,
+                       device=norm.device)
     logits, ck = forward(cfg, params, batch, use_pallas=use_pallas,
                          collect_kv=True)
     with torch.inference_mode():
         if cfg.num_attn_layers:
-            cache["k"][:, :, :seq] = ck["k"].to(cache["k"].dtype)
-            cache["v"][:, :, :seq] = ck["v"].to(cache["v"].dtype)
-        cache["ssm_state"].copy_(ck["ssm_state"])
-        cache["conv_buf"].copy_(ck["conv_buf"])
+            cache["k"][:, :, :seq] = ck.pop("k").to(cache["k"].dtype)
+            cache["v"][:, :, :seq] = ck.pop("v").to(cache["v"].dtype)
+        if cfg.family in ("ssm", "hybrid"):
+            cache["ssm_state"].copy_(ck["ssm_state"])
+            cache["conv_buf"].copy_(ck["conv_buf"])
     cache["pos"] = seq
     return logits, cache

@@ -1,9 +1,13 @@
-"""Serving on the card: the LM serving step and planner-driven SpGEMM
-serving.
+"""Serving on the card: the LM serving step and engine, and
+planner-driven SpGEMM serving.
 
 ``make_serve_step`` returns the one-token step of LM serving (greedy, or
 sampled with an explicit :class:`torch.Generator`); ``launch/serve.py``
-drives it after a prefill.
+drives it after a prefill. ``ServingEngine`` is the host-side
+continuous-batching loop over a fixed slot table, eager (no compiled
+step) with the reference's semantics: each admitted prompt is replayed
+token by token through ``decode_step``, one ``pos`` is shared by every
+slot, and every decode step feeds token 0 to every slot.
 
 ``SpGEMMServer`` serves repeated sparse products: requests are (matrix,
 operand, reuse hint) triples, and every pattern goes through the
@@ -24,7 +28,8 @@ import numpy as np
 import torch
 
 from repro_torch.core.formats import HostCSR
-from repro_torch.models.transformer import decode_step
+from repro_torch.models.transformer import (check_family, decode_step,
+                                            init_cache)
 from repro_torch.obs import metrics as obs_metrics
 from repro_torch.obs.trace import get_tracer
 from repro_torch.planner.plan_cache import PlanCache
@@ -32,7 +37,8 @@ from repro_torch.planner.service import Planner
 from repro_torch.resilience.errors import InvalidOperandError
 from repro_torch.resilience.validation import validate_request_pair
 
-__all__ = ["make_serve_step", "SpGEMMResponse", "SpGEMMServer"]
+__all__ = ["make_serve_step", "Request", "ServingEngine", "SpGEMMResponse",
+           "SpGEMMServer"]
 
 
 def make_serve_step(cfg, *, sample: bool = False,
@@ -56,6 +62,79 @@ def make_serve_step(cfg, *, sample: bool = False,
         return torch.argmax(last / temperature + gumbel, dim=-1), cache
 
     return serve_step
+
+
+@dataclasses.dataclass
+class Request:
+    prompt: np.ndarray            # (len,) int token ids
+    max_new_tokens: int = 32
+    out: list = dataclasses.field(default_factory=list)
+    done: bool = False
+
+
+class ServingEngine:
+    """Host-side continuous batching over a fixed slot table: the
+    reference's engine, with its cache on the parameters' device and in
+    their dtype."""
+
+    def __init__(self, cfg, params, *, slots: int = 4, max_len: int = 512,
+                 eos_id: Optional[int] = None):
+        check_family(cfg)
+        self.cfg = cfg
+        self.params = params
+        self.slots = slots
+        self.max_len = max_len
+        self.eos_id = eos_id
+        norm = params["final_norm"]
+        self.device = norm.device
+        self.cache = init_cache(cfg, slots, max_len, dtype=norm.dtype,
+                                device=norm.device)
+        self.requests: list[Optional[Request]] = [None] * slots
+        self.positions = np.zeros(slots, np.int64)
+        self._step = make_serve_step(cfg)
+        self._queue: list[Request] = []
+
+    def submit(self, req: Request) -> None:
+        self._queue.append(req)
+
+    def _tokens(self) -> torch.Tensor:
+        return torch.zeros((self.slots, 1), dtype=torch.long,
+                           device=self.device)
+
+    def _admit(self) -> None:
+        for i in range(self.slots):
+            if self.requests[i] is None and self._queue:
+                req = self._queue.pop(0)
+                self.requests[i] = req
+                # replay the prompt into this slot, one token a step (the
+                # other slots see token 0)
+                for t in req.prompt:
+                    tok = self._tokens()
+                    tok[i, 0] = int(t)
+                    _, self.cache = decode_step(self.cfg, self.params,
+                                                {"tokens": tok}, self.cache)
+                self.positions[i] = len(req.prompt)
+
+    def run(self, steps: int) -> None:
+        """Up to ``steps`` decode steps, admitting queued requests into
+        free slots before the first and after each. One ``pos`` is shared
+        by every slot, as in the reference."""
+        self._admit()
+        for _ in range(steps):
+            live = [i for i, r in enumerate(self.requests) if r is not None]
+            if not live:
+                return
+            next_tok, self.cache = self._step(self.params, self.cache,
+                                              {"tokens": self._tokens()})
+            nt = next_tok.cpu().numpy()
+            for i in live:
+                req = self.requests[i]
+                req.out.append(int(nt[i]))
+                if (self.eos_id is not None and nt[i] == self.eos_id) \
+                        or len(req.out) >= req.max_new_tokens:
+                    req.done = True
+                    self.requests[i] = None
+            self._admit()
 
 
 @dataclasses.dataclass

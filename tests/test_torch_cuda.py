@@ -22,6 +22,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.configs.base import smoke_config
 from repro_torch.core.formats import (HostCSR, bcc_from_host,
                                       block_diag_csr, tiled_csr_from_host)
 from repro_torch.kernels import ops
@@ -40,12 +41,13 @@ from repro_torch.kernels.ssd_chunk import (ssd_chunk_scan,
                                            ssd_chunk_scan_plain)
 from repro_torch.launch.serve import run_serving
 from repro_torch.models.sparse_linear import SparseLinear
+from repro_torch.models.transformer import init_params, prefill
 from repro_torch.planner.features import fingerprint
 from repro_torch.planner.plan_cache import Plan, PlanCache
 from repro_torch.planner.service import Planner
 from repro_torch.resilience import ResiliencePolicy, faults
 from repro_torch.serve.batcher import BatchPolicy
-from repro_torch.serve.engine import SpGEMMServer
+from repro_torch.serve.engine import Request, ServingEngine, SpGEMMServer
 from repro_torch.serve.frontend import AsyncSpGEMMServer
 
 pytestmark = pytest.mark.cuda
@@ -320,6 +322,8 @@ def test_sparse_linear_on_the_card(card, compact):
     (2, 300, 300, 128, True),
     (2, 100, 260, 80, False),
     (1, 1, 1, 80, True),
+    (160, 1024, 1024, 128, True),    # qwen3-14b's prefill, 4 x 40 heads
+    (96, 1024, 1024, 64, True),      # granite-moe-3b's prefill, 4 x 24 heads
 ])
 def test_flash_attention_kernel_matches_plain(card, bh, sq, sk, d, causal):
     g = torch.Generator(device=card).manual_seed(bh * sq + d)
@@ -479,6 +483,28 @@ def test_flash_mha_gqa_on_the_card(card):
                                atol=1e-5)
 
 
+@pytest.mark.parametrize("hq,hkv,d", [
+    (40, 8, 128),                    # qwen3-14b: 5 query heads per KV head
+    (48, 1, 128),                    # granite-34b: multi-query
+    (24, 8, 64),                     # granite-moe-3b: 3 per KV head
+])
+def test_flash_mha_at_the_zoo_head_ratios(card, hq, hkv, d):
+    g = torch.Generator(device=card).manual_seed(hq * d + hkv)
+    q = torch.randn((2, hq, 256, d), generator=g, device=card)
+    k, v = (torch.randn((2, hkv, 256, d), generator=g, device=card)
+            for _ in range(2))
+    before = flash_attention.launches
+    got = ops.flash_mha(q, k, v)
+    assert flash_attention.launches == before + 1
+    rep = hq // hkv
+    want = flash_attention_plain(
+        q.reshape(2 * hq, 256, d),
+        torch.repeat_interleave(k, rep, dim=1).reshape(2 * hq, 256, d),
+        torch.repeat_interleave(v, rep, dim=1).reshape(2 * hq, 256, d))
+    torch.testing.assert_close(got, want.reshape(2, hq, 256, d), rtol=1e-4,
+                               atol=1e-5)
+
+
 @pytest.mark.parametrize("bh,nc,q,p,n,rep", [
     (4, 3, 64, 16, 16, 1),
     (3, 2, 256, 64, 64, 1),          # the zamba2 chunk
@@ -515,6 +541,49 @@ def test_run_serving_launches_both_lm_kernels(card):
     assert (flash_attention.launches, ssd_chunk_scan.launches) == (2, 4)
     assert out["tokens"].shape == (2, 4)
     assert (out["tokens"] < 128).all()
+
+
+@pytest.mark.parametrize("arch", ["qwen3-14b", "granite-moe-3b-a800m",
+                                  "musicgen-large", "qwen2-vl-72b"])
+def test_zoo_prefill_launches_flash_attention(card, arch):
+    """The smoke configs of the four families on the card: one prefill is
+    one flash-attention launch per layer, its logits within 2e-3 of the
+    largest of the chunked path's; ``run_serving`` decodes in the
+    vocabulary."""
+    cfg = smoke_config(arch)
+    params = init_params(cfg, 0, device=card)
+    rng = np.random.default_rng(0)
+    if cfg.frontend == "tokens":
+        batch = {"tokens": torch.from_numpy(
+            rng.integers(0, cfg.vocab_size, (2, 64))).to(card)}
+    else:
+        batch = {"embeddings": torch.from_numpy(rng.standard_normal(
+            (2, 64, cfg.d_model)).astype(np.float32)).to(card)}
+    flash_attention.launches = 0
+    kern, _ = prefill(cfg, params, batch, 70, use_pallas=True)
+    assert flash_attention.launches == cfg.num_layers
+    chunked, _ = prefill(cfg, params, batch, 70, use_pallas=False)
+    v = cfg.vocab_size
+    err = float((kern[..., :v] - chunked[..., :v]).abs().max())
+    assert err <= 2e-3 * float(chunked[..., :v].abs().max())
+    out = run_serving(arch, smoke=True, batch=2, prompt_len=40, gen=4)
+    assert (out["tokens"] < v).all()
+
+
+def test_serving_engine_on_the_card(card):
+    """The engine on the qwen3 smoke config: 3 requests on 2 slots, the
+    shared ``pos`` past ``max_len`` 8 (the last slot rewritten)."""
+    cfg = smoke_config("qwen3-14b")
+    eng = ServingEngine(cfg, init_params(cfg, 0, device=card), slots=2,
+                        max_len=8)
+    reqs = [Request(prompt=np.asarray(p), max_new_tokens=4)
+            for p in ([1, 2, 3], [4, 5, 6, 7, 8], [9, 10])]
+    for r in reqs:
+        eng.submit(r)
+    eng.run(steps=32)
+    assert all(r.done and len(r.out) == 4 for r in reqs)
+    assert all(0 <= t < cfg.vocab_size for r in reqs for t in r.out)
+    assert eng.cache["pos"] == 18 and eng.cache["k"].device.type == "cuda"
 
 
 # -- the live-column kernels (K4's compact SpMM, K1's window walk) ---------

@@ -17,6 +17,7 @@ model logits within 1e-4 absolute + 1e-4 relative (observed ≈ 6e-6 on
 logits of magnitude ≈ 4); the port's kernel path against its chunked path
 within 2e-3.
 """
+import dataclasses
 import functools
 
 import jax
@@ -35,7 +36,6 @@ from repro.models import mamba2 as ref_mamba2
 from repro.models import transformer as ref_tf
 from repro_torch.configs import base as port_configs
 from repro_torch.configs.base import ModelConfig
-from repro_torch.convert import lm_params_from_numpy
 from repro_torch.kernels import ops
 from repro_torch.kernels.cluster_spmm import cluster_spmm
 from repro_torch.kernels.flash_attention import (flash_attention,
@@ -44,6 +44,7 @@ from repro_torch.kernels.ssd_chunk import ssd_chunk_scan
 from repro_torch.launch import serve as port_serve
 from repro_torch.models import attention, layers, mamba2, transformer
 from repro_torch.serve.engine import make_serve_step
+from torch_port_helpers import lm_params_pair
 
 ARCHS = ("zamba2-2.7b", "mamba2-370m")
 LOGIT_RTOL = LOGIT_ATOL = 1e-4
@@ -67,14 +68,15 @@ def _ssd_inputs(bh, nc, q, p, n, seed):
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ref_configs.ARCH_IDS)
 def test_configs_are_the_reference_configs(arch):
     for getter in ("get_config", "smoke_config"):
         ref = getattr(ref_configs, getter)(arch)
         port = getattr(port_configs, getter)(arch)
         assert ref.__dict__ == port.__dict__
         assert ref.param_count() == port.param_count()
-    assert set(port_configs.ARCH_IDS) == set(ARCHS)
+        assert ref.active_param_count() == port.active_param_count()
+    assert port_configs.ARCH_IDS == ref_configs.ARCH_IDS
 
 
 def test_zamba2_published_size():
@@ -299,17 +301,6 @@ def test_gqa_attention_matches_the_reference(s):
 # ---------------------------------------------------------------------------
 
 
-@functools.lru_cache(maxsize=None)
-def _both_params(arch):
-    """Both packages' configs and parameters (the JAX package's, carried
-    across): made once per architecture and only read by the tests."""
-    rcfg = ref_configs.smoke_config(arch)
-    cfg = port_configs.smoke_config(arch)
-    rparams = ref_tf.init_params(rcfg, jax.random.PRNGKey(0))
-    tree = jax.tree.map(np.asarray, rparams)
-    return rcfg, rparams, cfg, lm_params_from_numpy(cfg, tree, device="cpu")
-
-
 def _close(got, want):
     np.testing.assert_allclose(got, want, rtol=LOGIT_RTOL, atol=LOGIT_ATOL)
 
@@ -325,7 +316,7 @@ def _same_tokens_where_decided(got_logits, want_logits):
 
 
 def test_mamba2_block_matches_the_reference():
-    rcfg, rparams, cfg, params = _both_params("mamba2-370m")
+    rcfg, rparams, cfg, params = lm_params_pair("mamba2-370m")
     rng = np.random.default_rng(1)
     u = rng.standard_normal((2, 40, cfg.d_model)).astype(np.float32)
     rlp = jax.tree.map(lambda a: a[0], rparams["layers"]["ssm"])
@@ -364,7 +355,7 @@ def test_model_matches_the_reference(arch, seq):
     """forward and prefill (logits and every cache field) against the
     reference's prefill, then four greedy decode steps; seq 64 is two SSM
     chunks, seq 24 the single-chunk fallback."""
-    _, rparams, cfg, params = _both_params(arch)
+    _, rparams, cfg, params = lm_params_pair(arch)
     ref_prefill, ref_step = _ref_serving(arch)
     rng = np.random.default_rng(seq)
     toks = rng.integers(0, cfg.vocab_size, (2, seq)).astype(np.int32)
@@ -397,7 +388,7 @@ def test_kernel_path_matches_the_chunked_path(arch, seq):
     """use_pallas=True (on the CPU: the kernels' plain versions) against
     the model's own chunked path; seq 40 and 300 take the single-chunk
     SSD fallback, 300 the odd-length attention path too."""
-    _, _, cfg, params = _both_params(arch)
+    _, _, cfg, params = lm_params_pair(arch)
     toks = _t(np.random.default_rng(seq).integers(
         0, cfg.vocab_size, (2, seq))).long()
     kern, kcache = transformer.prefill(cfg, params, {"tokens": toks},
@@ -421,7 +412,7 @@ def test_bf16_kernel_path_prefill_matches_the_reference(seq):
     in the two packages over the layers, so the bound is 2^-4 of the
     largest logit against the reference (the port's chunked path meets
     it too) and 2^-5 between the port's two paths."""
-    rcfg, rparams, cfg, params = _both_params("zamba2-2.7b")
+    rcfg, rparams, cfg, params = lm_params_pair("zamba2-2.7b")
     params = params.to(torch.bfloat16)
     rb = jax.tree.map(lambda t: t.astype(jnp.bfloat16), rparams)
     toks = np.random.default_rng(seq).integers(
@@ -451,7 +442,7 @@ def test_bf16_kernel_path_prefill_matches_the_reference(seq):
 
 
 def test_lm_params_from_numpy_matches_init_params_layout():
-    _, _, cfg, loaded = _both_params("zamba2-2.7b")
+    _, _, cfg, loaded = lm_params_pair("zamba2-2.7b")
     fresh = transformer.init_params(cfg, 0, device="cpu")
     got = {k: tuple(v.shape) for k, v in loaded.named_parameters()}
     want = {k: tuple(v.shape) for k, v in fresh.named_parameters()}
@@ -503,13 +494,21 @@ def test_sampled_serve_step_follows_its_generator():
 
 
 def test_unported_families_raise():
-    dense = ModelConfig(name="dense-smoke", family="dense", num_layers=2,
-                        d_model=32, num_heads=2, num_kv_heads=2, d_ff=64,
-                        vocab_size=64)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        transformer.init_params(dense, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 10"):
-        transformer.init_cache(dense, 1, 8, device="cpu")
+    """Every architecture of ``ARCH_IDS`` is served; a family or a
+    frontend outside the model zoo raises."""
+    for arch in port_configs.ARCH_IDS:
+        transformer.check_family(port_configs.get_config(arch))
+    rnn = ModelConfig(name="rnn-smoke", family="rnn", num_layers=2,
+                      d_model=32, num_heads=2, num_kv_heads=2, d_ff=64,
+                      vocab_size=64)
+    with pytest.raises(NotImplementedError, match="no 'rnn' family"):
+        transformer.init_params(rnn, device="cpu")
+    with pytest.raises(NotImplementedError, match="no 'rnn' family"):
+        transformer.init_cache(rnn, 1, 8, device="cpu")
+    pixels = dataclasses.replace(port_configs.smoke_config("qwen3-14b"),
+                                 frontend="pixels")
+    with pytest.raises(NotImplementedError, match="no 'pixels' frontend"):
+        transformer.forward(pixels, None, {})
 
 
 @pytest.mark.parametrize("kernel", ["flash", "ssd", "padded_spmm"])

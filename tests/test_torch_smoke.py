@@ -171,6 +171,31 @@ def test_rehearsal_runs_every_phase(capsys):
     assert [r["mode"] for r in pipe] == ["cold", "measured"]
     assert all(r["exact"] and len(r["stages"]) == 2 for r in pipe)
     assert all(s["reuse_hint"] == 2 for r in pipe for s in r["stages"])
+    # phase 3g: the LM zoo's four attention families on their smoke
+    # configs, each prefill's kernel path against its chunked path, the
+    # int8 KV cache and the engine on qwen3 (its shared pos past max_len)
+    zoo = tagged("  zoo serving ")
+    assert [(r["arch"], r["family"]) for r in zoo] == [
+        ("qwen3-14b", "dense"), ("granite-moe-3b-a800m", "moe"),
+        ("musicgen-large", "audio"), ("qwen2-vl-72b", "vlm")]
+    assert all(r["tokens_in_vocab"] and r["expected_launches"] == {
+        "flash_attention": 2, "ssd_chunk_scan": 0} for r in zoo)
+    checks = tagged("  zoo kernel vs chunked prefill ")
+    assert [c["arch"] for c in checks] == [r["arch"] for r in zoo]
+    assert all(c["finite"] and c["max_abs_logit_diff"]
+               <= 2e-3 * c["max_abs_logit"] for c in checks)
+    int8 = tagged("  int8 kv ")[0]
+    assert int8 == checks[0]["int8_kv"]
+    assert int8["largest_share_of_tolerance"] <= 1.0
+    assert 0 < int8["quantized_cache_bytes"]["int8_and_scales"] < (
+        int8["quantized_cache_bytes"]["bf16"])
+    eng = tagged("  engine ")[0]
+    assert eng["all_done"] and eng["tokens_in_vocab"]
+    assert eng["final_pos"] > eng["max_len"] == 256
+    assert eng["decode_steps"] == 2 * eng["new_tokens"]
+    # K10 at phase 3g's two new shapes (here scaled down: D 128 and 64)
+    assert [c["shape"][2] for c in flash["cases"]][-2:] == [128, 64]
+    assert all(c["matched"] for c in flash["cases"])
 
 
 def test_device_time_counts_device_events_once():

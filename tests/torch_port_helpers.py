@@ -1,12 +1,19 @@
 """Shared inputs of the ``test_torch_*`` files: seeded numpy matrices that
-go through both the JAX package and the PyTorch port, and the field
-dicts that carry the JAX package's packed formats across."""
+go through both the JAX package and the PyTorch port, the field dicts
+that carry the JAX package's packed formats across, and the LM smoke
+models' parameters carried the same way."""
 import dataclasses
+import functools
 
+import jax
 import numpy as np
 
+from repro.configs import base as ref_configs
 from repro.core import formats as ref_formats
 from repro.core import suite as ref_suite
+from repro.models import transformer as ref_tf
+from repro_torch.configs import base as port_configs
+from repro_torch.convert import lm_params_from_numpy
 from repro_torch.core import formats as port_formats
 
 FAMILIES = ("mesh2d_24", "blkdiag_1024_8", "plaw_1024_10", "kron_10_8",
@@ -77,3 +84,17 @@ def assert_same_fields(ref_obj, port_obj):
             want = want.astype(np.float32)
         assert got.shape == want.shape, (name, got.shape, want.shape)
         assert np.array_equal(got, want), name
+
+
+@functools.lru_cache(maxsize=None)
+def lm_params_pair(arch):
+    """Both packages' smoke configs of ``arch`` and parameters — the JAX
+    package's ``init_params(PRNGKey(0))``, carried onto the CPU by
+    ``lm_params_from_numpy``: made once per architecture and process,
+    only read by the tests. Returns (ref config, ref params, port
+    config, port params)."""
+    rcfg = ref_configs.smoke_config(arch)
+    cfg = port_configs.smoke_config(arch)
+    rparams = ref_tf.init_params(rcfg, jax.random.PRNGKey(0))
+    tree = jax.tree.map(np.asarray, rparams)
+    return rcfg, rparams, cfg, lm_params_from_numpy(cfg, tree, device="cpu")
