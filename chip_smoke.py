@@ -148,14 +148,34 @@ a run without a card, or from a directory that does not hold the port):
    256, 6 seeded prompts of 40–56 tokens, 16 new tokens each: every
    request finished, all tokens in the vocabulary, the shared ``pos``
    past ``max_len``);
+3h. training, after phase 3g's memory is released — (a)
+   ``run_training("zamba2-2.7b", smoke=False, steps=8, batch=4,
+   seq=1024, microbatches=2)`` (the reference's preset), fp32 with
+   remat: the flash-attention and SSD counts zeroed just before and read
+   just after must be 0 (the training path runs the model's chunked
+   attention and SSD scan, as the reference's does), every loss finite,
+   the first within 1.5 of ln(vocab), the last below the first; prints
+   each step's time, tokens/s, the step's dense-product FLOPs over the
+   fp32 peak and the peak memory, then one more step on the trained
+   weights, profiled (device busy time, no LM kernel event); (b) one
+   train step on the card and on the CPU from the same weights and data
+   at a smoke config of each family (dense, moe, ssm, hybrid, audio,
+   vlm), within the tolerance each line prints; (c) at smoke size on the
+   card: compressed training whose loss falls, a step on a NaN weight
+   skipped with nothing touched, and a run resumed from its checkpoint
+   whose losses match the uninterrupted run's; (d) ``pipeline_apply``
+   in a world of one over NCCL (in this process, a ``FileStore`` in a
+   temporary directory, then destroyed), equal to the stage — NCCL puts
+   no two ranks on one card, so the multi-rank schedule is held against
+   the JAX package on the CPU only;
 4. summary — one ``{"kernels": [...]}`` line, the ``nvidia-smi`` line,
    and last ``{"ok": true, "device": {...}}``.
 
 ``--rehearse`` runs the same phases on the CPU at small sizes through the
-plain versions (no launch counts, no timings; the LM phases on the
-smoke configs) and exits 2 without the final line: a dry run of the
-control flow before a card is used
-(``tests/test_torch_smoke.py`` runs it).
+plain versions (no launch counts, no timings; the LM and training
+phases on the smoke configs, ``pipeline_apply`` over gloo) and exits 2
+without the final line: a dry run of the control flow before a card is
+used (``tests/test_torch_smoke.py`` runs it).
 """
 from __future__ import annotations
 
@@ -185,14 +205,20 @@ def log(*parts) -> None:
     print(*parts, flush=True)
 
 
-# the phase running now, named in the line a failed run prints last
+# the phase running now, named in the line a failed run prints last,
+# and when it started
 PHASE = "start"
+PHASE_START = None
 
 
 def phase(title: str) -> None:
-    """Log a phase's header and remember it for a failure's last line."""
-    global PHASE
-    PHASE = title.split(":")[0]
+    """Log how long the last phase took, then the next phase's header,
+    remembered for a failure's last line."""
+    global PHASE, PHASE_START
+    now = time.perf_counter()
+    if PHASE_START is not None:
+        log(f"  {PHASE} took {now - PHASE_START:.1f} s")
+    PHASE, PHASE_START = title.split(":")[0], now
     log(title)
 
 
@@ -2309,6 +2335,21 @@ LM_KERNEL_TAGS = (("flash_attention", "flash_kernel"),
                   ("ssd_chunk_scan", "ssd_chunk_"))
 
 
+def lm_kernel_counts() -> dict:
+    """The LM kernels' launch counts."""
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.ssd_chunk import ssd_chunk_scan
+    return {"flash_attention": flash_attention.launches,
+            "ssd_chunk_scan": ssd_chunk_scan.launches}
+
+
+def zero_lm_kernel_counts() -> None:
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.ssd_chunk import ssd_chunk_scan
+    flash_attention.launches = 0
+    ssd_chunk_scan.launches = 0
+
+
 def serving_inputs(cfg, batch, prompt_len, device, seed=0):
     """The prompts ``run_serving`` draws from ``seed`` (tokens, or
     embeddings with M-RoPE's positions3), and the generator it goes on
@@ -2433,19 +2474,15 @@ def serve_and_count(cfg, device, batch, prompt_len, gen, seed):
     just before and read just after; greedy tokens checked against the
     vocabulary. Returns (launches, the serving row)."""
     import torch
-    from repro_torch.kernels.flash_attention import flash_attention
-    from repro_torch.kernels.ssd_chunk import ssd_chunk_scan
     from repro_torch.launch.serve import run_serving
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
-    flash_attention.launches = 0
-    ssd_chunk_scan.launches = 0
+    zero_lm_kernel_counts()
     t0 = time.perf_counter()
     out = run_serving(cfg, batch=batch, prompt_len=prompt_len, gen=gen,
                       seed=seed, device=device, use_pallas=True)
     wall = time.perf_counter() - t0
-    launches = {"flash_attention": flash_attention.launches,
-                "ssd_chunk_scan": ssd_chunk_scan.launches}
+    launches = lm_kernel_counts()
     peak = (torch.cuda.max_memory_allocated(device)
             if device.type == "cuda" else None)
     toks = out["tokens"]
@@ -2696,6 +2733,328 @@ def zoo_phase(device, *, rehearse):
         del params
         release(device, arch)
     return launches, rows
+
+
+# ---------------------------------------------------------------------------
+# phase 3h: the training path
+# ---------------------------------------------------------------------------
+
+# zamba2-2.7b's launch preset (2 microbatches); 4 × 1,024 tokens a step
+TRAIN_ARCH, TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_MICRO = (
+    "zamba2-2.7b", 8, 4, 1024, 2)
+# one smoke config of each family, for the card against the CPU
+TRAIN_FAMILIES = (("dense", "qwen3-14b"), ("moe", "granite-moe-3b-a800m"),
+                  ("ssm", "mamba2-370m"), ("hybrid", "zamba2-2.7b"),
+                  ("audio", "musicgen-large"), ("vlm", "qwen2-vl-72b"))
+TRAIN_LOSS_RTOL, TRAIN_NORM_RTOL, TRAIN_PARAM_ATOL = 1e-5, 1e-4, 1e-6
+
+
+def hybrid_train_flops(cfg, tokens: int) -> dict:
+    """FLOPs of one train step's dense products on the hybrid family, by
+    the model's structure: the forward pass once, the backward pass
+    (twice the forward), and the port's nested remat — each Mamba2
+    layer's forward run twice more (its group's and its own recompute),
+    the shared block's once more. Beside it, ``6 N T + 2 N T`` from the
+    parameter count (the shared block counted once, remat as one more
+    forward)."""
+    d, din = cfg.d_model, cfg.ssm_d_inner
+    g, n, h = cfg.ssm_groups, cfg.ssm_state, cfg.ssm_num_heads
+    hq, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    ssm = 2 * (d * (2 * din + 2 * g * n + h) + din * d)
+    shared = 2 * (d * hq * hd + 2 * d * hkv * hd + hq * hd * d
+                  + 3 * d * cfg.d_ff)
+    head = 2 * d * cfg.padded_vocab
+    groups = cfg.num_layers // cfg.hybrid_attn_every
+    fwd = (cfg.num_layers * ssm + groups * shared + head) * tokens
+    remat = (2 * cfg.num_layers * ssm + groups * shared) * tokens
+    n_params = cfg.param_count()
+    return {"structural": 3 * fwd + remat,
+            "six_n_t_plus_remat": 8 * n_params * tokens}
+
+
+def train_full_width(device, smi, *, rehearse) -> dict:
+    """(a) ``run_training`` on zamba2-2.7b at its published size (the
+    smoke config in the rehearsal), fp32, remat on: the LM kernels'
+    counts zeroed just before and read just after (0: the training path
+    runs the chunked attention and SSD scan); losses finite, the first
+    near ln(vocab), the last below the first; then one more step on the
+    trained weights, profiled."""
+    import math
+
+    import torch
+    from repro_torch.configs.base import get_config, smoke_config
+    from repro_torch.data.pipeline import DataConfig, make_batch
+    from repro_torch.launch.train import run_training
+    from repro_torch.optim.adamw import AdamWConfig, init_opt_state
+    from repro_torch.train.step import TrainConfig, make_train_step
+    cfg = smoke_config(TRAIN_ARCH) if rehearse else get_config(TRAIN_ARCH)
+    seq = 64 if rehearse else TRAIN_SEQ
+    tokens = TRAIN_BATCH * seq
+    log(f"  config {cfg.name}: {cfg.param_count():,} parameters, fp32 "
+        f"weights, gradients and AdamW moments "
+        f"({4 * cfg.param_count() * 4 / 1e9:.2f} GB), batch "
+        f"{TRAIN_BATCH} x {seq} in {TRAIN_MICRO} microbatches, "
+        f"{TRAIN_STEPS} steps")
+    zero_lm_kernel_counts()
+    t0 = time.perf_counter()
+    out = run_training(cfg, steps=TRAIN_STEPS, batch=TRAIN_BATCH, seq=seq,
+                       microbatches=TRAIN_MICRO, log_every=1, device=device)
+    wall = time.perf_counter() - t0
+    launches = lm_kernel_counts()
+    losses = out["losses"]
+    # the first step also pays the allocator's first growth
+    step_s = statistics.median(out["step_s"][1:])
+    flops = hybrid_train_flops(cfg, tokens)
+    row = {"arch": TRAIN_ARCH, "params": cfg.param_count(),
+           "batch": TRAIN_BATCH, "seq": seq, "microbatches": TRAIN_MICRO,
+           "steps": TRAIN_STEPS, "losses": losses, "step_s": out["step_s"],
+           "median_step_s": step_s, "tokens_per_s": tokens / step_s,
+           "train_flops": flops,
+           "fp32_peak_share": (flops["structural"] / step_s
+                               / PEAK_FP32_FLOPS),
+           "fp32_peak_share_6nt": (flops["six_n_t_plus_remat"] / step_s
+                                   / PEAK_FP32_FLOPS),
+           "peak_device_bytes": out["peak_device_bytes"],
+           "run_training_wall_s": wall, "lm_kernel_launches": launches,
+           "gpu": smi}
+    first_ok = abs(losses[0] - math.log(cfg.vocab_size)) < 1.5
+    ok = (all(math.isfinite(x) for x in losses) and first_ok
+          and losses[-1] < losses[0]
+          and launches == {"flash_attention": 0, "ssd_chunk_scan": 0})
+    if not ok:
+        log("  train", json.dumps(row))
+        raise SystemExit(f"training failed its checks: {row}")
+
+    # one more step on the trained weights, profiled (fresh moments: the
+    # run's state is not returned)
+    params = out.pop("params")
+    del out
+    gc.collect()
+    ocfg = AdamWConfig(lr_peak=3e-4, warmup_steps=5, total_steps=TRAIN_STEPS)
+    step = make_train_step(cfg, TrainConfig(microbatches=TRAIN_MICRO,
+                                            optimizer=ocfg))
+    opt = init_opt_state(params, ocfg, device=device)
+    dcfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=seq,
+                      global_batch=TRAIN_BATCH, frontend=cfg.frontend,
+                      d_model=cfg.d_model, m_rope=cfg.m_rope)
+    batch = make_batch(dcfg, TRAIN_STEPS, device=device)
+    profile = device.type == "cuda"
+    zero_lm_kernel_counts()
+    with (torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA])
+          if profile else contextlib.nullcontext()) as prof:
+        t0 = time.perf_counter()
+        _, opt, m = step(params, opt, batch)
+        if profile:
+            torch.cuda.synchronize(device)
+        prof_s = time.perf_counter() - t0
+    row["profiled_step"] = {"wall_s": prof_s, "loss": float(m["loss"]),
+                            "lm_kernel_launches": lm_kernel_counts()}
+    if profile:
+        busy, top = device_time(prof)
+        names = [ev.name for ev in prof.events()
+                 if ev.device_type == torch.autograd.DeviceType.CUDA]
+        row["profiled_step"].update(
+            device_busy_s=busy, device_events=len(names),
+            device_top_ms=top,
+            lm_kernel_events=sum(1 for n in names for _, tag in
+                                 LM_KERNEL_TAGS if tag in n))
+        if row["profiled_step"]["lm_kernel_events"]:
+            raise SystemExit(f"a train step ran an LM kernel: {row}")
+    del params, opt, batch
+    log("  train", json.dumps(row))
+    return row
+
+
+def same_train_step(device, *, rehearse) -> list:
+    """(b) One train step (2 microbatches, fresh moments) on the card and
+    on the CPU from the same weights and data, at each family's smoke
+    config: loss, grad norm, parameters and moments must agree."""
+    import copy
+
+    import torch
+    from repro_torch.configs.base import smoke_config
+    from repro_torch.data.pipeline import DataConfig, make_batch
+    from repro_torch.models.transformer import init_params
+    from repro_torch.optim.adamw import AdamWConfig, init_opt_state
+    from repro_torch.train.step import TrainConfig, make_train_step
+    ocfg = AdamWConfig(lr_peak=1e-3, warmup_steps=1, total_steps=10)
+    cpu = torch.device("cpu")
+    rows = []
+    for family, arch in TRAIN_FAMILIES:
+        cfg = smoke_config(arch)
+        dcfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=64,
+                          global_batch=4, seed=1, frontend=cfg.frontend,
+                          d_model=cfg.d_model, m_rope=cfg.m_rope)
+        step = make_train_step(cfg, TrainConfig(microbatches=2,
+                                                optimizer=ocfg))
+        start = init_params(cfg, 0, device=cpu)
+        got = {}
+        for dev in (device, cpu):
+            params = copy.deepcopy(start).to(dev)
+            opt = init_opt_state(params, ocfg, device=dev)
+            params, opt, m = step(params, opt, make_batch(dcfg, 0,
+                                                          device=dev))
+            got[dev.type] = (float(m["loss"]), float(m["grad_norm"]),
+                             float(m["lr"]),
+                             {k: p.detach().cpu() for k, p in
+                              params.named_parameters()},
+                             {k: v.cpu() for k, v in opt.mu.items()})
+        (l_d, n_d, lr, p_d, mu_d), (l_c, n_c, _, p_c, mu_c) = (
+            got[device.type], got["cpu"])
+        diffs = {k: (p_d[k] - p_c[k]).abs() for k in p_c}
+        off = sum(int((e > TRAIN_PARAM_ATOL).sum()) for e in diffs.values())
+        total = sum(e.numel() for e in diffs.values())
+        mu_rel = max(float((mu_d[k] - mu_c[k]).abs().max())
+                     / max(float(mu_c[k].abs().max()), 1e-30) for k in mu_c)
+        row = {"family": family, "arch": cfg.name,
+               "loss_card": l_d, "loss_cpu": l_c,
+               "grad_norm_card": n_d, "grad_norm_cpu": n_c,
+               "max_param_diff": max(float(e.max()) for e in diffs.values()),
+               "params_beyond_atol": off, "param_elements": total,
+               "max_moment_rel_diff": mu_rel,
+               "tolerance": (f"loss {TRAIN_LOSS_RTOL:g} rel, grad norm and "
+                             f"moments {TRAIN_NORM_RTOL:g} rel, parameters "
+                             f"{TRAIN_PARAM_ATOL:g} abs on all but 1e-3 of "
+                             f"the elements (gradients near Adam's eps), "
+                             f"those within 2 lr")}
+        ok = (abs(l_d - l_c) <= TRAIN_LOSS_RTOL * abs(l_c)
+              and abs(n_d - n_c) <= TRAIN_NORM_RTOL * abs(n_c)
+              and mu_rel <= TRAIN_NORM_RTOL
+              and off <= 1e-3 * total
+              and row["max_param_diff"] <= 2 * lr)
+        log("  card vs cpu", json.dumps(row))
+        if not ok:
+            raise SystemExit(f"train step: card and CPU disagree: {row}")
+        rows.append(row)
+    return rows
+
+
+def train_smoke_paths(device, tmp) -> dict:
+    """(c) At smoke size on the card: compressed training, a non-finite
+    step skipped, and a run resumed from its checkpoint against the
+    uninterrupted run."""
+    import math
+    import shutil
+
+    import torch
+    from repro_torch.configs.base import smoke_config
+    from repro_torch.data.pipeline import DataConfig, make_batch
+    from repro_torch.launch.train import run_training
+    from repro_torch.models.transformer import init_params
+    from repro_torch.optim.adamw import AdamWConfig, init_opt_state
+    from repro_torch.train.step import TrainConfig, make_train_step
+    row = {}
+    cmp = run_training("mamba2-370m", steps=25, batch=4, seq=64, lr=1e-3,
+                       compress=True, log_every=1000, device=device)
+    row["compressed"] = {"first_loss": cmp["first_loss"],
+                         "final_loss": cmp["final_loss"]}
+    cfg = smoke_config("qwen3-14b")
+    params = init_params(cfg, 0, device=device)
+    with torch.no_grad():
+        params["final_norm"][0] = float("nan")
+    before = {k: p.detach().clone() for k, p in params.named_parameters()}
+    ocfg = AdamWConfig()
+    opt = init_opt_state(params, ocfg, device=device)
+    batch = make_batch(DataConfig(vocab_size=cfg.vocab_size, seq_len=16,
+                                  global_batch=2), 0, device=device)
+    params, new_opt, m = make_train_step(cfg, TrainConfig(
+        optimizer=ocfg))(params, opt, batch)
+    untouched = all(torch.equal(p.detach().nan_to_num(),
+                                before[k].nan_to_num())
+                    for k, p in params.named_parameters())
+    row["non_finite"] = {"skipped": m["skipped"],
+                         "step": int(new_opt.step), "untouched": untouched}
+    kw = dict(steps=20, batch=4, seq=32, ckpt_every=5, log_every=1000,
+              device=device)
+    whole = run_training("zamba2-2.7b", ckpt_dir=tmp, **kw)
+    for s in (15, 20):
+        shutil.rmtree(os.path.join(tmp, f"step_{s:09d}"))
+    resumed = run_training("zamba2-2.7b", ckpt_dir=tmp, **kw)
+    tail = whole["losses"][10:]
+    row["resumed"] = {
+        "losses_whole": tail, "losses_resumed": resumed["losses"],
+        "bit_identical": resumed["losses"] == tail,
+        "max_rel_diff": max(abs(a - b) / abs(b) for a, b in
+                            zip(resumed["losses"], tail)),
+        "tolerance": f"{TRAIN_LOSS_RTOL:g} relative per loss (the card's "
+                     "scatter-adds may sum in another order)"}
+    log("  train paths", json.dumps(row))
+    ok = (cmp["final_loss"] < cmp["first_loss"] - 0.1
+          and all(math.isfinite(x) for x in cmp["losses"])
+          and m["skipped"] == 1 and int(new_opt.step) == 0 and untouched
+          and len(resumed["losses"]) == 10
+          and row["resumed"]["max_rel_diff"] <= TRAIN_LOSS_RTOL)
+    if not ok:
+        raise SystemExit(f"training paths failed their checks: {row}")
+    return row
+
+
+def pipeline_one_rank(device, tmp) -> dict:
+    """(d) ``pipeline_apply`` in a world of one (NCCL on the card, gloo in
+    the rehearsal), in this process on a ``FileStore``, then destroyed:
+    equal to the stage applied in order. NCCL puts no two ranks on one
+    card, so the multi-rank schedule is held against the JAX package on
+    the CPU only (``tests/test_torch_pipeline_apply.py``)."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+    from repro_torch.distributed.pipeline import pipeline_apply
+    rng = np.random.default_rng(0)
+    w1 = torch.from_numpy((rng.standard_normal((1, 16, 32)) * 0.3).astype(
+        np.float32)).to(device)
+    w2 = torch.from_numpy((rng.standard_normal((1, 32, 16)) * 0.3).astype(
+        np.float32)).to(device)
+    x = torch.from_numpy(rng.standard_normal((6, 2, 16)).astype(
+        np.float32)).to(device)
+
+    def stage(p, a):
+        return a + torch.tanh(a @ p["w1"]) @ p["w2"]
+
+    backend = "nccl" if device.type == "cuda" else "gloo"
+    dist.init_process_group(
+        backend, store=dist.FileStore(os.path.join(tmp, "store"), 1),
+        rank=0, world_size=1, timeout=datetime.timedelta(seconds=60))
+    try:
+        got = pipeline_apply(stage, {"w1": w1, "w2": w2}, x)
+    finally:
+        dist.destroy_process_group()
+    want = stage({"w1": w1[0], "w2": w2[0]}, x)
+    row = {"backend": backend, "world": 1,
+           "max_abs_err": float((got - want).abs().max())}
+    log("  pipeline_apply", json.dumps(row))
+    if not row["max_abs_err"] == 0.0:
+        raise SystemExit(f"pipeline_apply (P = 1) is not the stage: {row}")
+    return row
+
+
+def train_phase(device, smi, *, rehearse) -> dict:
+    """Phase 3h: (a) zamba2-2.7b trained at its published size, (b) the
+    card against the CPU on every family, (c) compression, the non-finite
+    skip and checkpoint/restart at smoke size, (d) ``pipeline_apply``
+    with P = 1."""
+    import tempfile
+
+    import torch
+    # the smoke models' CPU steps are thousands of tiny ops: one intra-op
+    # thread each (under other busy processes, all-core threads spinning
+    # on each op made a 4 s CPU run take 380 s)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        rows = {"full_width": train_full_width(device, smi,
+                                               rehearse=rehearse)}
+        release(device, "the full-width training")
+        rows["card_vs_cpu"] = same_train_step(device, rehearse=rehearse)
+        with tempfile.TemporaryDirectory() as tmp:
+            rows["paths"] = train_smoke_paths(device, tmp)
+        with tempfile.TemporaryDirectory() as tmp:
+            rows["pipeline"] = pipeline_one_rank(device, tmp)
+    finally:
+        torch.set_num_threads(threads)
+    return rows
 
 
 # ---------------------------------------------------------------------------
@@ -2950,8 +3309,15 @@ def main(argv=None) -> int:
           "int8 KV cache")
     zoo_launches, _ = zoo_phase(device, rehearse=args.rehearse)
     launches["flash_attention"] += zoo_launches["flash_attention"]
+    release(device, "phase 3g")
+    phase("phase 3h: training (run_training on zamba2-2.7b at its "
+          "published size, the card against the CPU per family, "
+          "compression, the non-finite skip, checkpoint/restart, "
+          "pipeline_apply with P = 1)")
+    train_phase(device, smi, rehearse=args.rehearse)
 
     # -- phase 4: summary ------------------------------------------------------
+    phase("phase 4: summary")
     win_cases = [dense, slab, tall, bf16, burst_pack] + nonfinite[:2]
     spmm_cases = [spmm, ragged, spmm_cave, spmm_plaw, linear_compact,
                   linear_16[1], linear_16[3]]

@@ -7,7 +7,9 @@ and hands the dict to :func:`packed_from_numpy`; a plan goes through
 :func:`plan_from_numpy` the same way. Both packages then compute on the
 same packed operands. An LM's parameters cross the same way:
 :func:`lm_params_from_numpy` takes the reference's parameter tree with
-numpy leaves.
+numpy leaves — and so do its gradients, which share that tree, and its
+optimizer moments: loaded the same way, each lands under the name of its
+parameter in the port's ``named_parameters()``, ready to compare.
 """
 from __future__ import annotations
 

@@ -1,1 +1,2 @@
-"""Launch entry points of the port: the serving demo."""
+"""Launch entry points of the port: the serving demo and the training
+driver."""

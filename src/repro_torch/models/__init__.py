@@ -1,1 +1,1 @@
-"""The LM zoo (ssm and hybrid families) and the sparse linear layer."""
+"""The LM zoo (every family of the configs) and the sparse linear layer."""

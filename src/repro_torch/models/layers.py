@@ -1,8 +1,7 @@
-"""Shared neural-net primitives: RMSNorm, SwiGLU, RoPE and M-RoPE, and
-the parameter container of the model zoo.
+"""Shared neural-net primitives: RMSNorm, SwiGLU, RoPE and M-RoPE, the
+cross-entropy loss, and the parameter container of the model zoo.
 
-The counterparts of the JAX package's ``models/layers.py`` for serving;
-the cross-entropy comes with the training path.
+The counterparts of the JAX package's ``models/layers.py``.
 """
 from __future__ import annotations
 
@@ -11,7 +10,8 @@ import torch.nn.functional as F
 from torch import nn
 
 __all__ = ["rmsnorm", "swiglu", "rope_cos_sin", "m_rope_cos_sin",
-           "apply_rope", "ParamGroup", "normal_init"]
+           "apply_rope", "softmax_cross_entropy", "ParamGroup",
+           "normal_init"]
 
 
 def rmsnorm(x: torch.Tensor, w: torch.Tensor,
@@ -77,10 +77,26 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor,
     return torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], dim=-1).to(dt)
 
 
+def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                          ignore_index: int = -100) -> torch.Tensor:
+    """Mean CE over non-ignored positions, in fp32; logits (..., V),
+    labels (...). An ignored label gathers class 0 (the reference's
+    ``maximum(labels, 0)``) and is masked out of the mean."""
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, torch.clamp(labels.long(), min=0)[
+        ..., None])[..., 0]
+    mask = (labels != ignore_index).float()
+    return torch.sum((lse - gold) * mask) / torch.clamp(torch.sum(mask),
+                                                        min=1.0)
+
+
 class ParamGroup(nn.Module):
     """One block's weights — a node of the JAX package's parameter tree —
-    as frozen parameters (tensors) and child groups (modules). Members are
-    read by name, ``p["wz"]``, as the reference reads its dicts."""
+    as parameters (tensors) and child groups (modules). Members are read
+    by name, ``p["wz"]``, as the reference reads its dicts. Parameters are
+    made frozen, as serving wants them; the train step turns gradients on
+    (``params.requires_grad_(True)``)."""
 
     def __init__(self, **members):
         super().__init__()

@@ -14,7 +14,8 @@ same functional names:
   the LM head (absent with ``tie_embeddings``);
 * ``forward`` — the full-sequence pass (chunked attention, chunked SSD
   scan; ``use_pallas=True`` routes them to the flash-attention and fused
-  SSD kernels);
+  SSD kernels, for inference only), rematerialised per layer while
+  autograd records; ``loss_fn`` — its mean cross-entropy;
 * ``init_cache`` / ``decode_step`` — single-token serving against the KV
   cache (attention) and the O(1) recurrent state (SSM);
 * ``prefill`` — the full-sequence pass that also fills the serving cache.
@@ -22,29 +23,34 @@ same functional names:
 The audio and vlm frontends are stubs, as in the reference: the batch
 carries precomputed ``embeddings`` (B, S, D) in place of ``tokens``, and
 the vlm family's M-RoPE takes ``positions3`` (3, B, S). The layers run as
-a Python loop under :func:`torch.inference_mode` (no scan, no
-rematerialisation); the reference's sharding hints have no one-card
-meaning and are left out. ``decode_step`` updates the cache's tensors in
-place and returns the same dict; past the cache's end it writes the last
-slot, as the reference's ``dynamic_update_slice`` clamps its start.
+a Python loop (no scan); ``prefill`` and ``decode_step`` run under
+:func:`torch.inference_mode`. The reference's sharding hints have no
+one-card meaning and are left out. ``decode_step`` updates the cache's
+tensors in place and returns the same dict; past the cache's end it
+writes the last slot, as the reference's ``dynamic_update_slice`` clamps
+its start.
 """
 from __future__ import annotations
 
+import functools
+import itertools
+
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models.attention import decode_attention, gqa_attention
 from repro_torch.models.layers import (ParamGroup, apply_rope, m_rope_cos_sin,
                                        normal_init, rmsnorm, rope_cos_sin,
-                                       swiglu)
+                                       softmax_cross_entropy, swiglu)
 from repro_torch.models.mamba2 import (init_mamba2_params, mamba2_block,
                                        mamba2_decode_block)
 from repro_torch.models.moe import init_moe_params, moe_ffn
 
-__all__ = ["init_params", "forward", "init_cache", "decode_step", "prefill",
-           "check_family"]
+__all__ = ["init_params", "forward", "loss_fn", "init_cache", "decode_step",
+           "prefill", "check_family"]
 
 FAMILIES = ("dense", "audio", "vlm", "moe", "ssm", "hybrid")
 FRONTENDS = ("tokens", "embeddings")
@@ -212,68 +218,114 @@ def _ssm_layer(cfg, lp, h, collect_kv, use_pallas):
 
 
 # ---------------------------------------------------------------------------
-# forward (prefill)
+# forward (train / prefill)
 # ---------------------------------------------------------------------------
 
 
+def _remat(fn, on: bool):
+    """``fn`` with its activations recomputed in the backward pass (the
+    reference's ``jax.checkpoint``) when ``on``; ``fn`` itself otherwise."""
+    if not on:
+        return fn
+    return functools.partial(checkpoint, fn, use_reentrant=False)
+
+
 def forward(cfg: ModelConfig, params: ParamGroup, batch: dict, *,
-            use_pallas: bool = False, collect_kv: bool = False):
+            remat: bool = True, use_pallas: bool = False,
+            collect_kv: bool = False):
     """Full-sequence pass → logits (B, S, V). With ``collect_kv`` also
-    returns the per-layer serving state (for prefill)."""
+    returns the per-layer serving state (for prefill).
+
+    While autograd records (grad mode on and a parameter or input that
+    requires grad), ``remat`` recomputes activations in the backward pass
+    at the reference's points: each layer (dense, moe, audio, vlm), each
+    Mamba2 layer (ssm), and each Mamba2 layer nested in each group of
+    layers and its shared attention block (hybrid). ``use_pallas=True``
+    is refused there: the kernels have no backward, as the reference
+    defines no gradient for its Pallas kernels."""
     check_family(cfg)
-    with torch.inference_mode():
-        x = _embed_in(cfg, params, batch)
-        bsz, seq = x.shape[:2]
-        states, bufs, ks, vs = [], [], [], []
+    recording = torch.is_grad_enabled() and any(
+        t.requires_grad for t in itertools.chain(
+            params.parameters(), (v for v in batch.values()
+                                  if isinstance(v, torch.Tensor))))
+    if use_pallas and recording:
+        raise NotImplementedError(
+            "use_pallas=True under autograd: the flash-attention and SSD "
+            "chunk-scan kernels have no backward (the reference defines no "
+            "gradient for its Pallas kernels); train with use_pallas=False")
+    rm = remat and recording
+    x = _embed_in(cfg, params, batch)
+    bsz, seq = x.shape[:2]
+    states, ks, vs = [], [], []
 
-        def ssm(h, li):
-            h, st = _ssm_layer(cfg, params["layers"][li], h, collect_kv,
-                               use_pallas)
+    def ssm(h, lp):
+        return _ssm_layer(cfg, lp, h, collect_kv, use_pallas)
+
+    ssm_fn = _remat(ssm, rm)
+
+    def attn_layer(h, lp, cos, sin):
+        a, kv = _attn_full(cfg, lp["attn"], h, cos, sin, use_pallas)
+        h = h + a
+        return h + _ffn(cfg, lp, h), kv
+
+    def group(h, layers, shared, cos, sin):
+        # the shared attention block after every k SSM blocks
+        sts = []
+        for lp in layers:
+            h, st = ssm_fn(h, lp)
+            sts.append(st)
+        a, kv = _attn_full(cfg, shared["attn"], h, cos, sin, use_pallas)
+        h = h + a
+        return h + _mlp_full(cfg, shared["mlp"], h), kv, sts
+
+    if cfg.family == "ssm":
+        for lp in params["layers"]:
+            x, st = ssm_fn(x, lp)
             if collect_kv:
-                states.append(st[0])
-                bufs.append(st[1])
-            return h
-
-        def attn(h, p, cos, sin):
-            a, (k, v) = _attn_full(cfg, p, h, cos, sin, use_pallas)
-            if collect_kv:
-                ks.append(k)
-                vs.append(v)
-            return h + a
-
-        if cfg.family == "ssm":
-            for li in range(cfg.num_layers):
-                x = ssm(x, li)
+                states.append(st)
+    else:
+        positions = _positions(batch, bsz, seq, x.device)
+        cos, sin = _rope_tables(cfg, batch, positions)
+        if cfg.family == "hybrid":
+            every = cfg.hybrid_attn_every
+            group_fn = _remat(group, rm)
+            for gi in range(cfg.num_layers // every):
+                layers = params["layers"][gi * every: (gi + 1) * every]
+                x, kv, sts = group_fn(x, layers, params["shared_attn"],
+                                      cos, sin)
+                if collect_kv:
+                    states.extend(sts)
+                    ks.append(kv[0])
+                    vs.append(kv[1])
         else:
-            positions = _positions(batch, bsz, seq, x.device)
-            cos, sin = _rope_tables(cfg, batch, positions)
-            if cfg.family == "hybrid":
-                # the shared attention block after every k SSM blocks
-                every = cfg.hybrid_attn_every
-                shared = params["shared_attn"]
-                for gi in range(cfg.num_layers // every):
-                    for li in range(gi * every, (gi + 1) * every):
-                        x = ssm(x, li)
-                    x = attn(x, shared["attn"], cos, sin)
-                    x = x + _mlp_full(cfg, shared["mlp"], x)
-            else:
-                for lp in params["layers"]:
-                    x = attn(x, lp["attn"], cos, sin)
-                    x = x + _ffn(cfg, lp, x)
+            layer_fn = _remat(attn_layer, rm)
+            for lp in params["layers"]:
+                x, kv = layer_fn(x, lp, cos, sin)
+                if collect_kv:
+                    ks.append(kv[0])
+                    vs.append(kv[1])
 
-        ck = {}
-        if collect_kv:
-            if states:
-                ck["ssm_state"] = torch.stack(states)
-                ck["conv_buf"] = torch.stack(bufs)
-            if ks:
-                ck["k"] = torch.stack(ks)
-                ck["v"] = torch.stack(vs)
-            del states, bufs, ks, vs
-        logits = _head_out(cfg, params, x)
-        if not collect_kv:
-            return logits
-        return logits, ck
+    if not collect_kv:
+        return _head_out(cfg, params, x)
+    # the serving state is stacked (and the per-layer lists freed) before
+    # the logits are made, so the two never coexist with the lists
+    ck = {}
+    if states:
+        ck["ssm_state"] = torch.stack([st[0] for st in states])
+        ck["conv_buf"] = torch.stack([st[1] for st in states])
+    if ks:
+        ck["k"] = torch.stack(ks)
+        ck["v"] = torch.stack(vs)
+    del states, ks, vs
+    return _head_out(cfg, params, x), ck
+
+
+def loss_fn(cfg: ModelConfig, params: ParamGroup, batch: dict, *,
+            remat: bool = True, use_pallas: bool = False) -> torch.Tensor:
+    """Mean next-token cross-entropy of ``forward``'s logits against
+    ``batch["labels"]`` (a 0-d fp32 tensor)."""
+    logits = forward(cfg, params, batch, remat=remat, use_pallas=use_pallas)
+    return softmax_cross_entropy(logits, batch["labels"])
 
 
 # ---------------------------------------------------------------------------
@@ -378,9 +430,9 @@ def prefill(cfg: ModelConfig, params: ParamGroup, batch: dict, max_len: int,
     norm = params["final_norm"]
     cache = init_cache(cfg, bsz, max_len, dtype=norm.dtype,
                        device=norm.device)
-    logits, ck = forward(cfg, params, batch, use_pallas=use_pallas,
-                         collect_kv=True)
     with torch.inference_mode():
+        logits, ck = forward(cfg, params, batch, use_pallas=use_pallas,
+                             collect_kv=True)
         if cfg.num_attn_layers:
             cache["k"][:, :, :seq] = ck.pop("k").to(cache["k"].dtype)
             cache["v"][:, :, :seq] = ck.pop("v").to(cache["v"].dtype)

@@ -1280,3 +1280,95 @@ def test_cold_kron_request_plans_what_the_prior_ranks_first(card):
     assert not resp.degraded and not resp.plan_cache_hit
     s = sp.csr_matrix((h.data, h.indices, h.indptr), shape=h.shape)
     assert np.array_equal(resp.result, (s @ s).toarray().astype(np.float32))
+
+
+# ---------------------------------------------------------------------------
+# the training path (no kernel: the model's own chunked attention and SSD
+# scan, as the reference trains)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("arch", ["qwen3-14b", "granite-moe-3b-a800m",
+                                  "mamba2-370m", "zamba2-2.7b",
+                                  "musicgen-large", "qwen2-vl-72b"])
+def test_train_step_on_the_card_matches_the_cpu(card, arch):
+    """One step (2 microbatches) from the same weights and data on the
+    card and on the CPU: loss within 1e-5 relative, grad norm and first
+    moments within 1e-4 of the largest, parameters within 1e-6 but for
+    at most 1e-3 of the elements (gradients near Adam's eps), those
+    within 2 lr."""
+    import copy
+
+    from repro_torch.data.pipeline import DataConfig, make_batch
+    from repro_torch.optim.adamw import AdamWConfig, init_opt_state
+    from repro_torch.train.step import TrainConfig, make_train_step
+    cfg = smoke_config(arch)
+    ocfg = AdamWConfig(lr_peak=1e-3, warmup_steps=1, total_steps=10)
+    step = make_train_step(cfg, TrainConfig(microbatches=2, optimizer=ocfg))
+    dcfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=64, global_batch=4,
+                      seed=1, frontend=cfg.frontend, d_model=cfg.d_model,
+                      m_rope=cfg.m_rope)
+    start = init_params(cfg, 0, device="cpu")
+    out = []
+    for dev in (card, torch.device("cpu")):
+        params = copy.deepcopy(start).to(dev)
+        opt = init_opt_state(params, ocfg, device=dev)
+        params, opt, m = step(params, opt, make_batch(dcfg, 0, device=dev))
+        out.append((m, {k: p.detach().cpu()
+                        for k, p in params.named_parameters()},
+                    {k: v.cpu() for k, v in opt.mu.items()}))
+    (md, pd, mud), (mc, pc, muc) = out
+    assert float(md["loss"]) == pytest.approx(float(mc["loss"]), rel=1e-5)
+    assert float(md["grad_norm"]) == pytest.approx(float(mc["grad_norm"]),
+                                                   rel=1e-4)
+    off = total = 0
+    for k in pc:
+        err = (pd[k] - pc[k]).abs()
+        off += int((err > 1e-6).sum())
+        total += err.numel()
+        assert float(err.max()) <= 2 * float(mc["lr"]), k
+        assert float((mud[k] - muc[k]).abs().max()) <= 1e-4 * float(
+            muc[k].abs().max()), k
+    assert off <= 1e-3 * total, (off, total)
+
+
+def test_run_training_on_the_card_launches_no_lm_kernel(card):
+    from repro_torch.launch.train import run_training
+    flash_attention.launches = 0
+    ssd_chunk_scan.launches = 0
+    out = run_training("zamba2-2.7b", steps=12, batch=4, seq=64, lr=1e-3,
+                       log_every=1000)
+    assert (flash_attention.launches, ssd_chunk_scan.launches) == (0, 0)
+    assert all(np.isfinite(out["losses"]))
+    assert out["final_loss"] < out["first_loss"]
+    assert out["peak_device_bytes"] > 0
+    assert out["params"]["final_norm"].device.type == "cuda"
+
+
+def test_kernels_refused_under_autograd_on_the_card(card):
+    from repro_torch.models.transformer import loss_fn
+    cfg = smoke_config("zamba2-2.7b")
+    params = init_params(cfg, 0, device=card).requires_grad_(True)
+    toks = torch.zeros((2, 64), dtype=torch.long, device=card)
+    with pytest.raises(NotImplementedError, match="no backward"):
+        loss_fn(cfg, params, {"tokens": toks, "labels": toks},
+                use_pallas=True)
+
+
+def test_pipeline_apply_in_a_world_of_one_nccl_rank(card, tmp_path):
+    import datetime
+
+    import torch.distributed as dist
+    from repro_torch.distributed.pipeline import pipeline_apply
+    g = torch.Generator(device=card).manual_seed(0)
+    w = torch.randn((1, 16, 16), generator=g, device=card)
+    x = torch.randn((6, 2, 16), generator=g, device=card)
+    dist.init_process_group(
+        "nccl", store=dist.FileStore(str(tmp_path / "store"), 1), rank=0,
+        world_size=1, timeout=datetime.timedelta(seconds=60))
+    try:
+        got = pipeline_apply(lambda p, a: a + torch.tanh(a @ p["w"]),
+                             {"w": w}, x)
+    finally:
+        dist.destroy_process_group()
+    assert torch.equal(got, x + torch.tanh(x @ w[0]))

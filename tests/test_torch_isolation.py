@@ -3,8 +3,8 @@
 * No module of ``src/repro_torch/`` — nor ``chip_smoke.py`` — imports
   ``jax``, ``jaxlib`` or the JAX package ``repro``, at the top of a file
   or nested in a function (an AST scan, one case per file).
-* The serving entry points default to the card and refuse to carry on
-  without one; the kernel wrappers never fall back to their plain
+* The serving and training entry points default to the card and refuse
+  to carry on without one; the kernel wrappers never fall back to their plain
   versions off the CPU.
 """
 import ast
@@ -16,9 +16,12 @@ import pytest
 import torch
 
 from repro_torch.core.formats import HostCSR, bcc_from_host, tiled_csr_from_host
+from repro_torch.data.pipeline import DataConfig, make_batch
 from repro_torch.kernels import _build, ops
 from repro_torch.kernels.cluster_spgemm import cluster_spgemm_windows
 from repro_torch.kernels.cluster_spmm import cluster_spmm_compact
+from repro_torch.launch.train import run_training
+from repro_torch.optim.adamw import AdamWConfig, init_opt_state
 from repro_torch.planner.service import Planner
 from repro_torch.serve.engine import SpGEMMServer
 
@@ -61,7 +64,15 @@ def test_port_tree_is_scanned():
     rel = {str(p.relative_to(ROOT)) for p in PORT_FILES}
     assert {"src/repro_torch/benchlib.py",
             "src/repro_torch/distributed/__init__.py",
-            "src/repro_torch/distributed/pipeline.py"} <= rel
+            "src/repro_torch/distributed/pipeline.py",
+            "src/repro_torch/distributed/compression.py",
+            "src/repro_torch/distributed/elastic.py",
+            "src/repro_torch/optim/adamw.py",
+            "src/repro_torch/train/step.py",
+            "src/repro_torch/data/pipeline.py",
+            "src/repro_torch/checkpoint/manager.py",
+            "src/repro_torch/launch/presets.py",
+            "src/repro_torch/launch/train.py"} <= rel
 
 
 def test_entry_points_default_to_cuda_and_raise_without_a_card():
@@ -75,6 +86,15 @@ def test_entry_points_default_to_cuda_and_raise_without_a_card():
         SpGEMMServer(device="cuda:0")
     assert Planner(device="cpu").device.type == "cpu"
     assert SpGEMMServer(device="cpu").planner.device.type == "cpu"
+    # the training path
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        run_training("mamba2-370m", steps=1)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_batch(DataConfig(vocab_size=8, seq_len=4, global_batch=1), 0)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        init_opt_state({"w": torch.zeros(2)}, AdamWConfig())
+    assert init_opt_state({"w": torch.zeros(2)}, AdamWConfig(),
+                          device="cpu").mu["w"].device.type == "cpu"
 
 
 def test_unknown_device_type_is_refused():

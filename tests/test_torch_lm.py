@@ -17,6 +17,7 @@ model logits within 1e-4 absolute + 1e-4 relative (observed ≈ 6e-6 on
 logits of magnitude ≈ 4); the port's kernel path against its chunked path
 within 2e-3.
 """
+import copy
 import dataclasses
 import functools
 
@@ -413,11 +414,16 @@ def test_bf16_kernel_path_prefill_matches_the_reference(seq):
     largest logit against the reference (the port's chunked path meets
     it too) and 2^-5 between the port's two paths."""
     rcfg, rparams, cfg, params = lm_params_pair("zamba2-2.7b")
-    params = params.to(torch.bfloat16)
+    # a copy: Module.to converts in place, and the pair is shared by
+    # every test in the process
+    params = copy.deepcopy(params).to(torch.bfloat16)
     rb = jax.tree.map(lambda t: t.astype(jnp.bfloat16), rparams)
     toks = np.random.default_rng(seq).integers(
         0, cfg.vocab_size, (2, seq)).astype(np.int32)
     batch = {"tokens": _t(toks).long()}
+    # the shared fp32 pair is left as it was
+    assert all(p.dtype == torch.float32
+               for p in lm_params_pair("zamba2-2.7b")[3].parameters())
     kern, _ = transformer.prefill(cfg, params, batch, seq + 2,
                                   use_pallas=True)
     chunked, _ = transformer.prefill(cfg, params, batch, seq + 2,

@@ -196,6 +196,26 @@ def test_rehearsal_runs_every_phase(capsys):
     # K10 at phase 3g's two new shapes (here scaled down: D 128 and 64)
     assert [c["shape"][2] for c in flash["cases"]][-2:] == [128, 64]
     assert all(c["matched"] for c in flash["cases"])
+    # phase 3h: training — zamba2's smoke config through run_training
+    # (no LM kernel launched), one step per family on the "card" (the CPU
+    # here) against the CPU, compression, the non-finite skip, a resumed
+    # run, and pipeline_apply in a world of one
+    train = tagged("  train {")[0]
+    assert train["arch"] == "zamba2-2.7b" and train["steps"] == 8
+    assert train["losses"][-1] < train["losses"][0]
+    assert train["lm_kernel_launches"] == {"flash_attention": 0,
+                                           "ssd_chunk_scan": 0}
+    assert train["profiled_step"]["lm_kernel_launches"] == \
+        train["lm_kernel_launches"]
+    assert train["train_flops"]["structural"] > 0
+    same = tagged("  card vs cpu ")
+    assert [r["family"] for r in same] == ["dense", "moe", "ssm", "hybrid",
+                                           "audio", "vlm"]
+    paths = tagged("  train paths ")[0]
+    assert paths["non_finite"] == {"skipped": 1, "step": 0,
+                                   "untouched": True}
+    assert paths["resumed"]["bit_identical"]
+    assert tagged("  pipeline_apply ")[0]["max_abs_err"] == 0.0
 
 
 def test_device_time_counts_device_events_once():

@@ -1,12 +1,15 @@
 """Shared inputs of the ``test_torch_*`` files: seeded numpy matrices that
 go through both the JAX package and the PyTorch port, the field dicts
 that carry the JAX package's packed formats across, and the LM smoke
-models' parameters carried the same way."""
+models' parameters carried the same way (and, for training, their
+gradients, moments and updated weights)."""
 import dataclasses
 import functools
 
 import jax
 import numpy as np
+import pytest
+import torch
 
 from repro.configs import base as ref_configs
 from repro.core import formats as ref_formats
@@ -98,3 +101,30 @@ def lm_params_pair(arch):
     rparams = ref_tf.init_params(rcfg, jax.random.PRNGKey(0))
     tree = jax.tree.map(np.asarray, rparams)
     return rcfg, rparams, cfg, lm_params_from_numpy(cfg, tree, device="cpu")
+
+
+def trainable_pair_copy(cfg, rparams):
+    """A trainable copy, in the port, of the JAX package's parameters."""
+    params = lm_params_from_numpy(cfg, jax.tree.map(np.asarray, rparams),
+                                  device="cpu")
+    return params.requires_grad_(True)
+
+
+def ref_named(cfg, tree):
+    """A tree laid out as the JAX package's parameters (its gradients,
+    moments or updated weights) as numpy arrays under the port's
+    parameter names."""
+    loaded = lm_params_from_numpy(cfg, jax.tree.map(np.asarray, tree),
+                                  device="cpu")
+    return {k: v.detach().numpy() for k, v in loaded.named_parameters()}
+
+
+@pytest.fixture
+def one_torch_thread():
+    """One intra-op thread for the test: the smoke models' training runs
+    thousands of tiny ops, and with every parallel test worker spinning
+    all the cores' worth of threads on each one, a 4 s run took 380 s."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
