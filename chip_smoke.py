@@ -168,6 +168,23 @@ a run without a card, or from a directory that does not hold the port):
    temporary directory, then destroyed), equal to the stage — NCCL puts
    no two ranks on one card, so the multi-rank schedule is held against
    the JAX package on the CPU only;
+3i. the sharded LM and the dry-run analysis tier, after phase 3h's
+   memory is released — (b) three production-mesh dry-run cells
+   (qwen3-14b × train_4k, zamba2-2.7b × decode_32k, granite-moe-3b-a800m
+   × train_4k on the fake 256-rank (16, 16) mesh), one
+   ``repro_torch.launch.dryrun`` process each, started first on the
+   host: each must be ``ok``; each roofline row and wall time printed;
+   (a) ``FlopCounterMode`` around one full-width zamba2-2.7b train step
+   (phase 3h's: fp32, 4 × 1,024, 2 microbatches, nested remat) and one
+   qwen3-14b prefill (4 × 1,024, the chunked attention) on the card,
+   each equal to ``trace_cost`` of the same function on fake tensors
+   (extrapolated from one and two layer periods); each also timed
+   uncounted, beside ``analyze(chips=1)`` at the fp32 peak (measured /
+   max(compute_s, memory_s)), and the train step beside
+   ``hybrid_train_flops``' structural count of its dense products;
+   (c) each family's smoke config through the DTensor train step and two
+   decode steps on a 1 × 1 × 1 ``DeviceMesh`` over NCCL (a world of one,
+   then destroyed), equal to the plain steps within phase 3h's bounds;
 4. summary — one ``{"kernels": [...]}`` line, the ``nvidia-smi`` line,
    and last ``{"ok": true, "device": {...}}``.
 
@@ -3058,6 +3075,385 @@ def train_phase(device, smi, *, rehearse) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 3i: the sharded LM and the dry-run analysis tier
+# ---------------------------------------------------------------------------
+
+# the production-mesh dry-run cells, each traced in its own process
+ANALYSIS_CELLS = (("qwen3-14b", "train_4k"), ("zamba2-2.7b", "decode_32k"),
+                  ("granite-moe-3b-a800m", "train_4k"))
+COUNT_PREFILL_ARCH = "qwen3-14b"
+DRYRUN_TIMEOUT_S = 600
+
+
+def start_dry_runs(out_dir) -> list:
+    """(b) One ``repro_torch.launch.dryrun`` process per production-mesh
+    cell, started together (each on its own fake 256-rank world); they
+    run on the host while (a) and (c) use the card."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    procs = []
+    for arch, shape in ANALYSIS_CELLS:
+        cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+               arch, "--shape", shape, "--mesh", "single", "--out", out_dir]
+        procs.append((arch, shape, time.perf_counter(), subprocess.Popen(
+            cmd, cwd=ROOT, env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True)))
+    return procs
+
+
+def finish_dry_runs(procs, out_dir, smi) -> list:
+    """Wait for (b)'s processes and read their cells: every one ok."""
+    rows = []
+    for arch, shape, t0, proc in procs:
+        out, err = proc.communicate(timeout=DRYRUN_TIMEOUT_S)
+        wall = time.perf_counter() - t0
+        path = os.path.join(out_dir, f"{arch}__{shape}__single.json")
+        res = {}
+        if os.path.exists(path):
+            with open(path) as f:
+                res = json.load(f)
+        if proc.returncode != 0 or res.get("status") != "ok":
+            raise SystemExit(
+                f"dry-run cell {arch} x {shape} failed (rc "
+                f"{proc.returncode}): {res.get('error')} "
+                f"{(err or out)[-1500:]}")
+        rf = res["roofline"]
+        row = {"arch": arch, "shape": shape, "mesh": "single",
+               "chips": rf["chips"], "wall_s": wall,
+               "trace_s": res["lower_s"], "flops_total": rf["flops_total"],
+               "bytes_total": rf["bytes_total"],
+               "coll_wire_bytes_per_device":
+                   rf["coll_wire_bytes_per_device"],
+               "compute_s": rf["compute_s"], "memory_s": rf["memory_s"],
+               "collective_s": rf["collective_s"],
+               "bottleneck": rf["bottleneck"],
+               "useful_ratio": rf["useful_ratio"],
+               "peak_fraction": rf["peak_fraction"],
+               "memory_stats": rf["memory_stats"],
+               "collectives": {k: v["count"] for k, v in
+                               rf["collectives"].items()},
+               "hw": "NVIDIA H100 SXM5 datasheet limits", "host_gpu": smi}
+        log("  dry-run", json.dumps(row))
+        rows.append(row)
+    return rows
+
+
+def fake_period_flops(cfg, run, args_of) -> dict:
+    """trace_cost of ``run(cut_cfg, params, *args)`` on fake tensors at
+    one and two layer periods, extrapolated to ``cfg``'s depth (exact:
+    ``tests/test_torch_roofline_tools.py``). ``args_of(cut_cfg)`` builds
+    the other fake arguments."""
+    import dataclasses
+
+    import torch
+    from repro_torch.launch.flop_cost import fake_mode, trace_cost
+    from repro_torch.launch.specs import num_periods, period_layers
+    from repro_torch.models.transformer import init_params
+    counts = []
+    for p in (1, 2):
+        cut = dataclasses.replace(cfg, num_layers=p * period_layers(cfg))
+        with fake_mode():
+            params = init_params(cut, 0, device="cpu", dtype=torch.float32)
+        counts.append(trace_cost(lambda *a, cut=cut: run(cut, *a), params,
+                                 *args_of(cut)))
+    full = num_periods(cfg)
+    return {k: counts[0][k] + (full - 1) * (counts[1][k] - counts[0][k])
+            for k in counts[0]}
+
+
+def counted(fn, device):
+    """(FlopCounterMode's count, seconds) of one run of ``fn``, whose
+    result is dropped."""
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+    with FlopCounterMode(display=False) as fc:
+        t0 = time.perf_counter()
+        fn()
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+    return fc.get_total_flops(), time.perf_counter() - t0
+
+
+def count_check(device, smi, *, rehearse) -> list:
+    """(a) FlopCounterMode's count of a full-width zamba2-2.7b train step
+    (fp32, 4 × 1,024, 2 microbatches, nested remat) and of a qwen3-14b
+    prefill (4 × 1,024, the chunked attention) on the card, each equal to
+    ``trace_cost`` of the same function on fake tensors; each step timed
+    again uncounted, beside ``analyze(chips=1)`` at the fp32 peak."""
+    import torch
+    from repro_torch.configs.base import get_config, smoke_config
+    from repro_torch.configs.shapes import ShapeSpec
+    from repro_torch.data.pipeline import DataConfig, batch_spec, make_batch
+    from repro_torch.launch.flop_cost import fake_mode
+    from repro_torch.launch.roofline import HW, analyze
+    from repro_torch.models import transformer as tfm
+    from repro_torch.optim.adamw import (AdamWConfig, OptState,
+                                         init_opt_state)
+    from repro_torch.train.step import TrainConfig, make_train_step
+    seq = 64 if rehearse else TRAIN_SEQ
+    ocfg = AdamWConfig(lr_peak=3e-4, warmup_steps=5, total_steps=10)
+    tcfg = TrainConfig(microbatches=TRAIN_MICRO, skip_nonfinite=False,
+                       optimizer=ocfg)
+    no_colls = {"_total": {"count": 0, "bytes": 0, "wire_bytes": 0}}
+    rows = []
+
+    def finish(name, arch, cfg, shape, flops, step_s, fake, structural):
+        rep = analyze(arch, shape, "one card", 1, {}, {}, no_colls, cfg,
+                      fake, dtype=torch.float32)
+        row = {"what": name, "arch": arch, "batch": shape.global_batch,
+               "seq": shape.seq_len, "flop_counter_mode": flops,
+               "trace_cost_fake": fake["flops"],
+               "trace_cost_bytes": fake["bytes"], "equal": flops ==
+               fake["flops"], "structural_dense_products": structural,
+               "step_s": step_s, "compute_s": rep.compute_s,
+               "memory_s": rep.memory_s, "bottleneck": rep.bottleneck,
+               "measured_over_roofline":
+                   step_s / max(rep.compute_s, rep.memory_s),
+               "peak": f"fp32 {HW().peak_flops_fp32:g} FLOP/s, "
+                       f"{HW().hbm_bw:g} B/s (H100 SXM5 datasheet)",
+               "gpu": smi}
+        log("  count", json.dumps(row))
+        if not row["equal"]:
+            raise SystemExit(f"FlopCounterMode on the card and trace_cost "
+                             f"on fake tensors disagree: {row}")
+        rows.append(row)
+
+    # zamba2-2.7b: one train step
+    cfg = smoke_config(TRAIN_ARCH) if rehearse else get_config(TRAIN_ARCH)
+    dcfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=seq,
+                      global_batch=TRAIN_BATCH, frontend=cfg.frontend,
+                      d_model=cfg.d_model, m_rope=cfg.m_rope)
+    step = make_train_step(cfg, tcfg)
+    params = tfm.init_params(cfg, 0, device=device)
+    opt = init_opt_state(params, ocfg, device=device)
+    batch = make_batch(dcfg, 0, device=device)
+    flops = counted(lambda: step(params, opt, batch), device)[0]
+    t0 = time.perf_counter()
+    step(params, opt, batch)
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    step_s = time.perf_counter() - t0
+    del params, opt, batch
+    release(device, "the counted train step")
+
+    def train_args(cut):
+        with fake_mode():
+            fparams = tfm.init_params(cut, 0, device="cpu")
+            fopt = init_opt_state(fparams, ocfg, device="cpu")
+        # a real step counter: the schedule's scalars are host floats
+        fopt = OptState(torch.zeros((), dtype=torch.int32), fopt.mu,
+                        fopt.nu)
+        return fopt, batch_spec(dcfg)
+
+    def train_run(cut, fparams, fopt, fbatch):
+        return make_train_step(cut, tcfg)(fparams, fopt, fbatch)
+
+    fake = fake_period_flops(cfg, train_run, train_args)
+    finish("train step", TRAIN_ARCH, cfg,
+           ShapeSpec("train_4x1024", "train", seq, TRAIN_BATCH), flops,
+           step_s, fake,
+           hybrid_train_flops(cfg, TRAIN_BATCH * seq)["structural"])
+
+    # qwen3-14b: one prefill through the chunked attention
+    arch = COUNT_PREFILL_ARCH
+    cfg = smoke_config(arch) if rehearse else get_config(arch)
+    pcfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=seq,
+                      global_batch=TRAIN_BATCH)
+    params = tfm.init_params(cfg, 0, device=device)
+    batch = {"tokens": make_batch(pcfg, 0, device=device)["tokens"]}
+    flops = counted(
+        lambda: tfm.prefill(cfg, params, batch, seq, use_pallas=False),
+        device)[0]
+    t0 = time.perf_counter()
+    out = tfm.prefill(cfg, params, batch, seq, use_pallas=False)
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    step_s = time.perf_counter() - t0
+    del params, batch, out
+    release(device, "the counted prefill")
+
+    def prefill_args(cut):
+        return ({"tokens": batch_spec(pcfg)["tokens"]},)
+
+    def prefill_run(cut, fparams, fbatch):
+        return tfm.prefill(cut, fparams, fbatch, seq, use_pallas=False)
+
+    fake = fake_period_flops(cfg, prefill_run, prefill_args)
+    finish("prefill", arch, cfg,
+           ShapeSpec("prefill_4x1024", "prefill", seq, TRAIN_BATCH), flops,
+           step_s, fake, 2 * cfg.active_param_count() * TRAIN_BATCH * seq)
+    return rows
+
+
+def sharded_steps(device, tmp) -> list:
+    """(c) Each family's smoke config through the DTensor train step and
+    two decode steps on a 1 × 1 × 1 DeviceMesh (NCCL on the card, gloo in
+    the rehearsal; a world of one in this process, then destroyed), held
+    against the plain port's steps on the same device with phase 3h's
+    bounds."""
+    import copy
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor.experimental import implicit_replication
+    from repro_torch.configs.base import smoke_config
+    from repro_torch.data.pipeline import DataConfig, make_batch
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.models import transformer as tfm
+    from repro_torch.optim.adamw import AdamWConfig, init_opt_state
+    from repro_torch.train.step import TrainConfig, make_train_step
+    backend = "nccl" if device.type == "cuda" else "gloo"
+    dist.init_process_group(
+        backend, store=dist.FileStore(os.path.join(tmp, "store"), 1),
+        rank=0, world_size=1, timeout=datetime.timedelta(seconds=120))
+    rows = []
+    try:
+        mesh = init_device_mesh(device.type, (1, 1, 1),
+                                mesh_dim_names=("pod", "data", "model"))
+        rules = shd.Rules(mesh=mesh, data_axes=("pod", "data"))
+        ocfg = AdamWConfig(lr_peak=1e-3, warmup_steps=1, total_steps=10)
+        for family, arch in TRAIN_FAMILIES:
+            cfg = smoke_config(arch)
+            dcfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=64,
+                              global_batch=4, seed=1, frontend=cfg.frontend,
+                              d_model=cfg.d_model, m_rope=cfg.m_rope)
+            step = make_train_step(cfg, TrainConfig(microbatches=2,
+                                                    optimizer=ocfg))
+            batch = make_batch(dcfg, 0, device=device)
+            start = tfm.init_params(cfg, 0, device=device)
+            ref = copy.deepcopy(start)
+            ref, _, m_ref = step(ref, init_opt_state(ref, ocfg,
+                                                     device=device), batch)
+            params = copy.deepcopy(start)
+            opt = init_opt_state(params, ocfg, device=device)
+            shd.shard_params(params, mesh, shd.param_specs(cfg, rules))
+            opt = shd.shard_opt_state(opt, mesh, shd.param_specs(
+                cfg, rules, fsdp=True))
+            bsp = shd.batch_specs(cfg, rules, "train")
+            sbatch = {k: shd.shard_tensor(v, mesh, bsp[k])
+                      for k, v in batch.items()}
+            with shd.use_rules(rules), implicit_replication():
+                params, opt, m = step(params, opt, sbatch)
+            loss = float(m["loss"].full_tensor())
+            lr = float(m["lr"])
+            want = dict(ref.named_parameters())
+            diffs = [(p.detach().full_tensor() - want[k].detach()).abs()
+                     for k, p in params.named_parameters()]
+            off = sum(int((e > TRAIN_PARAM_ATOL).sum()) for e in diffs)
+            total = sum(e.numel() for e in diffs)
+            # two decode steps from the start weights
+            if cfg.frontend == "tokens":
+                sb = {"tokens": batch["tokens"][:, :1]}
+            else:
+                sb = {"embeddings": batch["embeddings"][:, :1]}
+                if cfg.m_rope:
+                    sb["positions3"] = batch["positions3"][:, :, :1]
+            cache = tfm.init_cache(cfg, 4, 16, device=device)
+            want_lg = []
+            for _ in range(2):
+                lg, cache = tfm.decode_step(cfg, start, sb, cache)
+                want_lg.append(lg.clone())
+            sharded = copy.deepcopy(start)
+            shd.shard_params(sharded, mesh, shd.param_specs(cfg, rules))
+            scache = shd.shard_cache(tfm.init_cache(cfg, 4, 16,
+                                                    device=device),
+                                     mesh, shd.cache_specs(cfg, rules))
+            dsp = shd.batch_specs(cfg, rules, "decode")
+            ssb = {k: shd.shard_tensor(v, mesh, dsp[k])
+                   for k, v in sb.items()}
+            logit_err = 0.0
+            with shd.use_rules(rules), implicit_replication():
+                for w in want_lg:
+                    lg, scache = tfm.decode_step(cfg, sharded, ssb, scache)
+                    logit_err = max(logit_err, float(
+                        (lg.full_tensor() - w).abs().max()))
+            row = {"family": family, "arch": cfg.name, "backend": backend,
+                   "loss_sharded": loss, "loss_plain": float(m_ref["loss"]),
+                   "max_param_diff": max(float(e.max()) for e in diffs),
+                   "params_beyond_atol": off, "param_elements": total,
+                   "decode_max_abs_err": logit_err,
+                   "tolerance": (f"loss {TRAIN_LOSS_RTOL:g} rel, parameters "
+                                 f"{TRAIN_PARAM_ATOL:g} abs on all but 1e-3 "
+                                 f"of the elements, those within 2 lr; "
+                                 f"decode logits 1e-5 abs")}
+            log("  sharded vs plain", json.dumps(row))
+            ok = (abs(loss - row["loss_plain"])
+                  <= TRAIN_LOSS_RTOL * abs(row["loss_plain"])
+                  and off <= 1e-3 * total
+                  and row["max_param_diff"] <= 2 * lr
+                  and logit_err <= 1e-5)
+            if not ok:
+                raise SystemExit(f"the DTensor steps disagree with the "
+                                 f"plain ones: {row}")
+            rows.append(row)
+    finally:
+        dist.destroy_process_group()
+    return rows
+
+
+def rehearse_dry_run(out_dir) -> list:
+    """(b) in the rehearsal: one smoke-sized cell of each kind on a fake
+    (2, 2) mesh in this process (the production mesh's cells take
+    minutes of host time)."""
+    import torch.distributed as dist
+    from repro_torch.configs.base import smoke_config
+    from repro_torch.configs.shapes import ShapeSpec
+    from repro_torch.launch.dryrun import run_cell
+    from repro_torch.launch.mesh import ensure_fake_world, make_test_mesh
+    ensure_fake_world(4)
+    rows = []
+    try:
+        mesh = make_test_mesh(data=2, model=2)
+        for arch, kind in (("qwen3-14b", "train"), ("zamba2-2.7b", "decode"),
+                           ("granite-moe-3b-a800m", "train")):
+            shape = ShapeSpec(f"smoke_{kind}", kind, 32, 4)
+            t0 = time.perf_counter()
+            r = run_cell(arch, shape.name, False, out_dir=out_dir,
+                         verbose=False, mesh=mesh, cfg=smoke_config(arch),
+                         shape=shape)
+            if r["status"] != "ok":
+                raise SystemExit(f"dry-run cell failed: {r.get('error')}")
+            row = {"arch": arch, "shape": shape.name,
+                   "wall_s": time.perf_counter() - t0,
+                   "bottleneck": r["roofline"]["bottleneck"]}
+            log("  dry-run", json.dumps(row))
+            rows.append(row)
+    finally:
+        dist.destroy_process_group()
+    return rows
+
+
+def analysis_phase(device, smi, *, rehearse) -> dict:
+    """Phase 3i: (b) started first on the host, then (a) and (c) on the
+    card, then (b) joined."""
+    import tempfile
+
+    import torch
+    out_dir = os.path.join(ROOT, "experiments", "dryrun_torch")
+    os.makedirs(out_dir, exist_ok=True)
+    t0 = time.perf_counter()
+    procs = [] if rehearse else start_dry_runs(out_dir)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    rows = {}
+    try:
+        rows["counts"] = count_check(device, smi, rehearse=rehearse)
+        with tempfile.TemporaryDirectory() as tmp:
+            rows["sharded"] = sharded_steps(device, tmp)
+        rows["dry_run"] = (rehearse_dry_run(out_dir) if rehearse
+                           else finish_dry_runs(procs, out_dir, smi))
+    finally:
+        torch.set_num_threads(threads)
+        for *_, proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+    rows["phase_s"] = time.perf_counter() - t0
+    return rows
+
+
+# ---------------------------------------------------------------------------
 # main
 # ---------------------------------------------------------------------------
 
@@ -3315,6 +3711,11 @@ def main(argv=None) -> int:
           "compression, the non-finite skip, checkpoint/restart, "
           "pipeline_apply with P = 1)")
     train_phase(device, smi, rehearse=args.rehearse)
+    release(device, "phase 3h")
+    phase("phase 3i: the sharded LM and the dry-run analysis tier "
+          "(FlopCounterMode against trace_cost, production-mesh dry-run "
+          "cells, DTensor steps on a 1 x 1 x 1 mesh)")
+    analysis_phase(device, smi, rehearse=args.rehearse)
 
     # -- phase 4: summary ------------------------------------------------------
     phase("phase 4: summary")

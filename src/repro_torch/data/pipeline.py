@@ -25,7 +25,7 @@ import torch
 
 from repro_torch.device import resolve_device
 
-__all__ = ["DataConfig", "make_batch", "host_batch_iterator"]
+__all__ = ["DataConfig", "make_batch", "host_batch_iterator", "batch_spec"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -102,3 +102,24 @@ def host_batch_iterator(cfg: DataConfig, start_step: int = 0,
     while True:
         yield step, make_batch(cfg, step, shard, num_shards, device=device)
         step += 1
+
+
+def batch_spec(cfg: DataConfig, *, mode=None,
+               float_dtype=torch.float32) -> dict:
+    """Abstract stand-ins for one *global* batch (the dry-run's input):
+    fake tensors of :func:`make_batch`'s shapes and dtypes (embeddings in
+    ``float_dtype``, to meet weights of another dtype), in ``mode`` (a
+    :class:`~torch._subclasses.fake_tensor.FakeTensorMode`; the shared one
+    of :func:`repro_torch.launch.flop_cost.fake_mode` by default). They
+    allocate nothing."""
+    from repro_torch.launch.flop_cost import abstract
+    b, s = cfg.global_batch, cfg.seq_len
+    spec: dict = {"labels": abstract((b, s), torch.int32, mode=mode)}
+    if cfg.frontend == "tokens":
+        spec["tokens"] = abstract((b, s), torch.int32, mode=mode)
+    else:
+        spec["embeddings"] = abstract((b, s, cfg.d_model), float_dtype,
+                                      mode=mode)
+        if cfg.m_rope:
+            spec["positions3"] = abstract((3, b, s), torch.int32, mode=mode)
+    return spec

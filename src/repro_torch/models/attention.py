@@ -14,7 +14,8 @@ import torch
 
 from repro_torch.kernels.ops import flash_mha
 
-__all__ = ["gqa_attention", "decode_attention"]
+__all__ = ["gqa_attention", "decode_attention", "decode_attention_partial",
+           "combine_decode_partials"]
 
 NEG_INF = -1e30
 
@@ -109,3 +110,35 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     p = torch.softmax(logits, dim=-1)
     out = torch.einsum("bhgk,bkhd->bhgd", p.to(v_cache.dtype), v_cache)
     return out.reshape(bsz, 1, hq, d)
+
+
+def decode_attention_partial(q: torch.Tensor, k_cache: torch.Tensor,
+                             v_cache: torch.Tensor, pos: int, offset: int):
+    """One shard's part of :func:`decode_attention` when the cache's
+    sequence is split: the cache holds positions ``offset ..`` of the
+    whole. Returns the online-softmax partials (running max ``m`` and sum
+    ``l`` (1, B, Hkv, G, 1), unnormalised output ``acc`` (1, B, Hkv, G,
+    D)), all zero where the shard holds no position ≤ ``pos``."""
+    bsz, _, hq, d = q.shape
+    hkv = k_cache.shape[2]
+    g = hq // hkv
+    qr = q.reshape(bsz, hkv, g, d)
+    logits = torch.einsum("bhgd,bkhd->bhgk", qr.float(),
+                          k_cache.float()) / (d ** 0.5)
+    idx = offset + torch.arange(k_cache.shape[1], device=q.device)
+    live = idx[None, None, None] <= pos
+    logits = torch.where(live, logits, NEG_INF)
+    m = logits.amax(dim=-1, keepdim=True)
+    p = torch.where(live, torch.exp(logits - m), 0.0)
+    acc = torch.einsum("bhgk,bkhd->bhgd", p, v_cache.float())
+    return m[None], p.sum(dim=-1, keepdim=True)[None], acc[None]
+
+
+def combine_decode_partials(m, l, acc, dtype) -> torch.Tensor:
+    """The shards' partials (leading shard axis) combined into
+    :func:`decode_attention`'s (B, 1, Hq, D)."""
+    top = m.amax(dim=0, keepdim=True)
+    alpha = torch.exp(m - top)
+    out = (acc * alpha).sum(dim=0) / (l * alpha).sum(dim=0)
+    bsz, hkv, g, d = out.shape
+    return out.reshape(bsz, 1, hkv * g, d).to(dtype)

@@ -9,6 +9,10 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.distributed.sharding import (active_rules, constrain,
+                                              is_dtensor, local_apply,
+                                              local_shape_offset)
+
 __all__ = ["rmsnorm", "swiglu", "rope_cos_sin", "m_rope_cos_sin",
            "apply_rope", "softmax_cross_entropy", "ParamGroup",
            "normal_init"]
@@ -24,9 +28,17 @@ def rmsnorm(x: torch.Tensor, w: torch.Tensor,
     return (x * (1.0 + w.float())).to(dt)
 
 
+def _unpinned(x, *spec):
+    return x
+
+
 def swiglu(x: torch.Tensor, wg: torch.Tensor, wu: torch.Tensor,
-           wd: torch.Tensor) -> torch.Tensor:
-    return (F.silu(x @ wg) * (x @ wu)) @ wd
+           wd: torch.Tensor, pin=_unpinned) -> torch.Tensor:
+    """``pin(t, *spec)`` lays out the (B, S, F) hidden halves over
+    ``model`` and the output over the batch (a sharding constraint)."""
+    g = pin(F.silu(x @ wg), None, None, "model")
+    u = pin(x @ wu, None, None, "model")
+    return pin((g * u) @ wd, "data", None, None)
 
 
 def _rope_freq(head_dim: int, theta: float, device) -> torch.Tensor:
@@ -82,13 +94,42 @@ def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
     """Mean CE over non-ignored positions, in fp32; logits (..., V),
     labels (...). An ignored label gathers class 0 (the reference's
     ``maximum(labels, 0)``) and is masked out of the mean."""
-    logits = logits.float()
-    lse = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, torch.clamp(labels.long(), min=0)[
-        ..., None])[..., 0]
+    if is_dtensor(logits) and active_rules() is not None:
+        tok = _vocab_parallel_cross_entropy(logits, labels)
+    else:
+        logits = logits.float()
+        lse = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, torch.clamp(labels.long(), min=0)
+                            .unsqueeze(-1)).squeeze(-1)
+        tok = lse - gold
     mask = (labels != ignore_index).float()
-    return torch.sum((lse - gold) * mask) / torch.clamp(torch.sum(mask),
-                                                        min=1.0)
+    return torch.sum(tok * mask) / torch.clamp(torch.sum(mask), min=1.0)
+
+
+def _vocab_parallel_cross_entropy(logits, labels):
+    """Each position's cross-entropy with the vocab left sharded over
+    ``model`` (the reference's per-shard logits and global softmax): the
+    max, the exponential sum and the gold logit are per-shard partials,
+    combined by small per-position collectives."""
+    r = active_rules()
+    logits = constrain(logits.float(), "data", None, r.model_axis)
+    top = constrain(logits.detach().amax(dim=-1), "data", None)
+    lse = top + torch.log(constrain(
+        torch.exp(logits - top[..., None]).sum(dim=-1), "data", None))
+    start = local_shape_offset(logits.shape, logits.device_mesh,
+                               logits.placements)[1][-1]
+
+    def shard_gold(logits, labels):
+        ids = torch.clamp(labels.long(), min=0) - start
+        hit = (ids >= 0) & (ids < logits.shape[-1])
+        gold = torch.gather(logits, -1, torch.where(hit, ids, 0)
+                            .unsqueeze(-1)).squeeze(-1)
+        return torch.where(hit, gold, 0.0)
+
+    gold = local_apply(shard_gold, (logits, labels),
+                       (("data", None, r.model_axis), ("data", None)),
+                       (("data", None), labels.shape, (r.model_axis,)))
+    return lse - constrain(gold, "data", None)
 
 
 class ParamGroup(nn.Module):

@@ -10,12 +10,18 @@ chunked path (:func:`ssd_chunked`).
 
 Shapes: x (B, S, H, P); dt (B, S, H); A (H,) negative reals via
 -exp(A_log); B/C (B, S, G, N) with G groups broadcast over heads.
+
+The block takes no sharding hint, as the reference's (whose note on the
+scan body's miscompile is an XLA matter); under sharding rules the scan
+runs on each rank's batch rows and heads (:func:`_scan_specs`).
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed.sharding import (active_rules, local_apply,
+                                              pin_grad)
 from repro_torch.kernels.ops import fused_ssd
 from repro_torch.models.layers import ParamGroup, normal_init, rmsnorm
 
@@ -177,7 +183,22 @@ def _project(cfg, p, u):
 
 
 def _gated_norm(y, z, w, eps):
-    return rmsnorm(y * F.silu(z), w, eps)
+    return rmsnorm(pin_grad(y * F.silu(z), "data", None, "model"), w, eps)
+
+
+def _scan_specs(cfg) -> tuple:
+    """(heads axis, groups axis) of the scan's per-rank layout: the heads
+    split over ``model`` when it divides them and each rank's heads keep
+    their own groups (one group, or groups split the same way); whole
+    heads otherwise."""
+    r = active_rules()
+    if r is None:
+        return None, None
+    hax = r.over_model(cfg.ssm_num_heads)
+    gax = r.over_model(cfg.ssm_groups) if cfg.ssm_groups > 1 else None
+    if hax is None or (cfg.ssm_groups > 1 and gax is None):
+        return None, None
+    return hax, gax
 
 
 def mamba2_block(cfg, p: ParamGroup, u: torch.Tensor,
@@ -193,7 +214,12 @@ def mamba2_block(cfg, p: ParamGroup, u: torch.Tensor,
     g, n, hd = cfg.ssm_groups, cfg.ssm_state, cfg.ssm_head_dim
     z, x, b, c, dt = _project(cfg, p, u)
     xbc_raw = torch.cat([x, b, c], dim=-1)
-    xbc = conv1d_causal(xbc_raw, p["conv_w"], p["conv_b"])
+    # on each rank's batch rows, channels whole (a sharded pad is
+    # malformed in torch 2.11's DTensor)
+    whole = ("data", None, None)
+    xbc = local_apply(conv1d_causal, (xbc_raw, p["conv_w"], p["conv_b"]),
+                      (whole, (None, None), (None,)),
+                      (whole, xbc_raw.shape))
     x, b, c = torch.split(xbc, [din, g * n, g * n], dim=-1)
     x = x.reshape(bsz, s, h, hd)
     b = b.reshape(bsz, s, g, n)
@@ -201,12 +227,20 @@ def mamba2_block(cfg, p: ParamGroup, u: torch.Tensor,
     chunk = min(cfg.ssm_chunk, s)
     if s % chunk:
         chunk = s  # short or ragged sequence: a single chunk
-    if use_pallas:
-        y, final_state = fused_ssd(x, dt, p["A_log"], b, c, chunk)
-    else:
-        y, final_state = ssd_chunked(x, dt, p["A_log"], b, c, chunk)
-    y = y + x * p["D_skip"].to(x.dtype)[None, None, :, None]
-    y = y.reshape(bsz, s, din)
+    scan = fused_ssd if use_pallas else ssd_chunked
+
+    def scan_skip(x, dt, a_log, b, c, d_skip):
+        y, st = scan(x, dt, a_log, b, c, chunk)
+        y = y + x * d_skip.to(x.dtype)[None, None, :, None]
+        return y.reshape(*x.shape[:2], -1), st
+
+    hs, gs = _scan_specs(cfg)
+    y, final_state = local_apply(
+        scan_skip, (x, dt, p["A_log"], b, c, p["D_skip"]),
+        (("data", None, hs, None), ("data", None, hs), (hs,),
+         ("data", None, gs, None), ("data", None, gs, None), (hs,)),
+        ((("data", None, hs), (bsz, s, din)),
+         (("data", hs, None, None), (bsz, h, hd, n))))
     y = _gated_norm(y, z, p["gnorm"], cfg.norm_eps)
     out = y @ p["out_proj"]
     if not return_state:
@@ -234,10 +268,19 @@ def mamba2_decode_block(cfg, p: ParamGroup, u: torch.Tensor,
     new_buf = torch.cat([conv_buf[:, 1:], xbc.to(conv_buf.dtype)], dim=1)
     xbc = conv1d_causal(xbc, p["conv_w"], p["conv_b"], buf=conv_buf)
     x, b, c = torch.split(xbc[:, 0], [din, g * n, g * n], dim=-1)
-    y, new_state = ssd_decode_step(
-        ssm_state, x.reshape(bsz, h, hd), dt[:, 0], p["A_log"],
-        b.reshape(bsz, g, n), c.reshape(bsz, g, n))
-    y = y + x.reshape(bsz, h, hd) * p["D_skip"].to(x.dtype)[None, :, None]
-    y = y.reshape(bsz, 1, din)
+
+    def step_skip(state, x, dt, a_log, b, c, d_skip):
+        y, st = ssd_decode_step(state, x, dt, a_log, b, c)
+        y = y + x * d_skip.to(x.dtype)[None, :, None]
+        return y.reshape(y.shape[0], 1, -1), st
+
+    hs, gs = _scan_specs(cfg)
+    y, new_state = local_apply(
+        step_skip, (ssm_state, x.reshape(bsz, h, hd), dt[:, 0], p["A_log"],
+                    b.reshape(bsz, g, n), c.reshape(bsz, g, n), p["D_skip"]),
+        (("data", hs, None, None), ("data", hs, None), ("data", hs), (hs,),
+         ("data", gs, None), ("data", gs, None), (hs,)),
+        ((("data", None, hs), (bsz, 1, din)),
+         (("data", hs, None, None), (bsz, h, hd, n))))
     y = _gated_norm(y, z, p["gnorm"], cfg.norm_eps)
     return y @ p["out_proj"], new_state, new_buf

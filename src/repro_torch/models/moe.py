@@ -12,17 +12,23 @@ expert weight stack is the B operand:
      the pairs past an expert's capacity;
   3. *cluster-wise computation* — one grouped SwiGLU product per expert.
 
-One card has no mesh, so the reference's sharding hints are left out.
-The combine is a gather, not the reference's scatter-add: each (token,
+The reference's three sharding hints sit at the same places
+(:func:`~repro_torch.distributed.sharding.constrain`). The routing, the
+dispatch and the combine are row-local, so under sharding rules they run
+on each rank's batch rows (plain tensors); only the expert products run
+on the expert-sharded layout. The combine is a gather, not the reference's scatter-add: each (token,
 slot) pair finds its place in the sorted order, and a token's k expert
 outputs are summed in ascending sorted position — the order in which the
 reference's scatter adds them — with no atomics.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed.sharding import constrain, local_apply
 from repro_torch.models.layers import ParamGroup, normal_init
 
 __all__ = ["init_moe_params", "moe_route", "moe_ffn", "moe_capacity"]
@@ -87,39 +93,41 @@ def moe_route(cfg, p: ParamGroup, x: torch.Tensor) -> dict:
             "cap": cap}
 
 
-def moe_ffn(cfg, p: ParamGroup, x: torch.Tensor) -> torch.Tensor:
-    """x (B, S, D) → (B, S, D); top-k routing, per-row capacity
-    bucketing, grouped expert products."""
+def _dispatch(cfg, x: torch.Tensor, router: torch.Tensor):
+    """Route x (B, S, D) and gather each expert's slab of tokens: (xe (B,
+    E, C, D), order, slot, keep, sw)."""
     bsz, s, d = x.shape
     e, k = cfg.num_experts_padded, cfg.experts_per_token
-    dev = x.device
-    r = moe_route(cfg, p, x)
-    cap, slot, keep, sw = r["cap"], r["slot"], r["keep"], r["sw"]
+    r = moe_route(cfg, {"router": router}, x)
+    cap, slot, keep = r["cap"], r["slot"], r["keep"]
     # kept pairs own distinct slots; the overflow bin is cut off
     st = torch.div(r["order"], k, rounding_mode="floor")      # sorted tokens
     tok_for_slot = torch.zeros((bsz, e * cap + 1), dtype=torch.long,
-                               device=dev).scatter_(1, slot, st)[:, : e * cap]
+                               device=x.device).scatter_(1, slot, st)[
+        :, : e * cap]
     live = torch.zeros((bsz, e * cap + 1), dtype=torch.bool,
-                       device=dev).scatter_(1, slot, keep)[:, : e * cap]
+                       device=x.device).scatter_(1, slot, keep)[:, : e * cap]
 
     # dispatch: (B, E, C, D)
     xe = x.gather(1, tok_for_slot[..., None].expand(bsz, e * cap, d))
     xe = (xe * live[..., None].to(x.dtype)).reshape(bsz, e, cap, d)
+    return xe, r["order"], slot, keep, r["sw"]
 
-    # ---- 3) cluster-wise computation: grouped SwiGLU per expert ----------
-    g = F.silu(torch.einsum("becd,edf->becf", xe, p["wg"]))
-    u = torch.einsum("becd,edf->becf", xe, p["wu"])
-    ye = torch.einsum("becf,efd->becd", g * u, p["wd"])       # (B, E, C, D)
-    del xe, g, u
 
-    # combine: each token gathers its k pairs' weighted outputs, summed in
-    # ascending sorted position; a dropped pair reads the zero row at E·C
+def _combine(cfg, ye: torch.Tensor, order: torch.Tensor, slot: torch.Tensor,
+             keep: torch.Tensor, sw: torch.Tensor) -> torch.Tensor:
+    """Each token gathers its k pairs' weighted outputs from ye (B, E, C,
+    D), summed in ascending sorted position; a dropped pair reads the zero
+    row at E·C."""
+    bsz, e, cap, d = ye.shape
+    k = cfg.experts_per_token
+    s = order.shape[1] // k
     ye_flat = torch.cat([ye.reshape(bsz, e * cap, d),
                          torch.zeros((bsz, 1, d), dtype=ye.dtype,
-                                     device=dev)], dim=1)
-    where = torch.argsort(r["order"], dim=-1).reshape(bsz, s, k)
+                                     device=ye.device)], dim=1)
+    where = torch.argsort(order, dim=-1).reshape(bsz, s, k)
     where = torch.sort(where, dim=-1).values    # ascending sorted positions
-    zero = torch.zeros((), dtype=sw.dtype, device=dev)
+    zero = torch.zeros((), dtype=sw.dtype, device=ye.device)
     out = None
     for j in range(k):
         pos = where[..., j]                                   # (B, S)
@@ -128,3 +136,34 @@ def moe_ffn(cfg, p: ParamGroup, x: torch.Tensor) -> torch.Tensor:
             bsz, s, d)) * w_j[..., None]
         out = part if out is None else out + part
     return out
+
+
+def moe_ffn(cfg, p: ParamGroup, x: torch.Tensor) -> torch.Tensor:
+    """x (B, S, D) → (B, S, D); top-k routing, per-row capacity
+    bucketing, grouped expert products."""
+    bsz, s, d = x.shape
+    e, k = cfg.num_experts_padded, cfg.experts_per_token
+    cap = moe_capacity(cfg, s)
+    # SP boundary: routing sorts across the whole sequence, so gather the
+    # seq dim here (batch stays data-sharded; dispatch is then row-local)
+    x = constrain(x, "data", None, None)
+    row = (("data", None), (bsz, s * k))
+    xe, order, slot, keep, sw = local_apply(
+        functools.partial(_dispatch, cfg), (x, p["router"]),
+        (("data", None, None), (None, None)),
+        ((("data", None, None, None), (bsz, e, cap, d)), row, row, row, row))
+    # pin the EP all-to-all: batch-sharded → expert-sharded
+    xe = constrain(xe, None, "model", None, None)
+
+    # ---- 3) cluster-wise computation: grouped SwiGLU per expert ----------
+    g = F.silu(torch.einsum("becd,edf->becf", xe, p["wg"]))
+    u = torch.einsum("becd,edf->becf", xe, p["wu"])
+    ye = torch.einsum("becf,efd->becd", g * u, p["wd"])       # (B, E, C, D)
+    del xe, g, u
+
+    rows = ("data", None)
+    out = local_apply(
+        functools.partial(_combine, cfg), (ye, order, slot, keep, sw),
+        (("data", None, None, None), rows, rows, rows, rows),
+        (("data", None, None), (bsz, s, d)))
+    return constrain(out, "data", None, None)

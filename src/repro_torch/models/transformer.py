@@ -24,11 +24,19 @@ The audio and vlm frontends are stubs, as in the reference: the batch
 carries precomputed ``embeddings`` (B, S, D) in place of ``tokens``, and
 the vlm family's M-RoPE takes ``positions3`` (3, B, S). The layers run as
 a Python loop (no scan); ``prefill`` and ``decode_step`` run under
-:func:`torch.inference_mode`. The reference's sharding hints have no
-one-card meaning and are left out. ``decode_step`` updates the cache's
+:func:`torch.inference_mode` (:func:`torch.no_grad` for DTensor
+parameters). ``decode_step`` updates the cache's
 tensors in place and returns the same dict; past the cache's end it
 writes the last slot, as the reference's ``dynamic_update_slice`` clamps
 its start.
+
+The reference's sharding hints sit at the same places
+(:func:`~repro_torch.distributed.sharding.constrain`): no-ops on plain
+tensors, and redistributions when the parameters and batch are DTensors
+under active :class:`~repro_torch.distributed.sharding.Rules` (run those
+under :func:`~torch.distributed.tensor.experimental.implicit_replication`).
+Attention runs on each rank's shards with its heads split over ``model``
+where the KV heads divide it, and whole heads otherwise.
 """
 from __future__ import annotations
 
@@ -36,12 +44,22 @@ import functools
 import itertools
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
-from repro_torch.models.attention import decode_attention, gqa_attention
+from repro_torch.distributed.sharding import (active_rules, constrain,
+                                              constrain_if_fsdp, is_dtensor,
+                                              local_apply,
+                                              local_shape_offset, pin_grad,
+                                              placements,
+                                              spec_from_placements, use_rules)
+from repro_torch.models.attention import (combine_decode_partials,
+                                         decode_attention,
+                                         decode_attention_partial,
+                                         gqa_attention)
 from repro_torch.models.layers import (ParamGroup, apply_rope, m_rope_cos_sin,
                                        normal_init, rmsnorm, rope_cos_sin,
                                        softmax_cross_entropy, swiglu)
@@ -141,16 +159,36 @@ def init_params(cfg: ModelConfig, generator: torch.Generator | int = 0, *,
 # ---------------------------------------------------------------------------
 
 
+def _split_heads(x, heads: int, hd: int):
+    """(B, S, heads·hd) → (B, S, heads, hd). Under sharding rules the
+    projection is first laid out by whole heads (over ``model`` where it
+    divides them, replicated otherwise): DTensor splits no shard across a
+    head."""
+    r = active_rules()
+    if r is not None and is_dtensor(x):
+        x = constrain(x, "data", None, r.over_model(heads))
+    return x.reshape(*x.shape[:2], heads, hd)
+
+
 def _qkv(cfg, p, h):
-    bsz, s, _ = h.shape
     hd = cfg.head_dim
-    q = (h @ p["wq"]).reshape(bsz, s, cfg.num_heads, hd)
-    k = (h @ p["wk"]).reshape(bsz, s, cfg.num_kv_heads, hd)
-    v = (h @ p["wv"]).reshape(bsz, s, cfg.num_kv_heads, hd)
+    q = _split_heads(h @ p["wq"], cfg.num_heads, hd)
+    k = _split_heads(h @ p["wk"], cfg.num_kv_heads, hd)
+    v = _split_heads(h @ p["wv"], cfg.num_kv_heads, hd)
     if cfg.qk_norm:
         q = rmsnorm(q, p["q_norm"], cfg.norm_eps)
         k = rmsnorm(k, p["k_norm"], cfg.norm_eps)
     return q, k, v
+
+
+def _head_spec(cfg) -> tuple:
+    """The layout in which attention runs on each rank's shards: (B, S,
+    H, D) with the batch over the data axes and the heads over ``model``
+    when the KV heads divide it (each rank's query heads then meet their
+    own KV heads), whole heads otherwise."""
+    r = active_rules()
+    hax = r.over_model(cfg.num_kv_heads) if r is not None else None
+    return ("data", None, hax, None)
 
 
 def _attn_full(cfg, p, x, cos, sin, use_pallas):
@@ -158,14 +196,27 @@ def _attn_full(cfg, p, x, cos, sin, use_pallas):
     q, k, v = _qkv(cfg, p, h)
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
-    out = gqa_attention(q, k, v, causal=True, use_pallas=use_pallas)
-    out = out.reshape(*x.shape[:2], -1) @ p["wo"]
+    hs = _head_spec(cfg)
+    out = local_apply(
+        lambda q, k, v: gqa_attention(q, k, v, causal=True,
+                                      use_pallas=use_pallas),
+        (q, k, v), (hs, hs, hs), (hs, q.shape))
+    # the merged heads' gradient keeps whole heads per shard
+    out = pin_grad(out.reshape(*x.shape[:2], -1), *hs[:3])
+    out = out @ p["wo"]
+    # the reference pins this under FSDP only; DTensor needs it always:
+    # left to its cost model, the residual add sequence-shards the stream
+    # ahead of the MLP's products, whose strided layout then takes it a
+    # minute per product to plan
+    out = constrain(out, "data", None, None)
     return out, (k, v)
 
 
 def _mlp_full(cfg, p, x):
     h = rmsnorm(x, p["ln"], cfg.norm_eps)
-    return swiglu(h, p["wg"], p["wu"], p["wd"])
+    # under ZeRO-3 weights, pin the SwiGLU hidden's TP layout and the
+    # batch-sharded output (the reference's FSDP-only pins)
+    return swiglu(h, p["wg"], p["wu"], p["wd"], pin=constrain_if_fsdp)
 
 
 def _positions(batch, bsz, seq, device):
@@ -186,18 +237,54 @@ def _rope_tables(cfg, batch, positions):
 
 def _embed_in(cfg, params, batch):
     if cfg.frontend == "tokens":
-        return params["embed"][batch["tokens"]]
-    return batch["embeddings"]
+        x = _lookup(params["embed"], batch["tokens"])
+    else:
+        x = batch["embeddings"]
+    return constrain(x, "data", None, None)
+
+
+def _lookup(table, tokens):
+    """``table[tokens]``. Under sharding rules a vocab-parallel lookup:
+    each rank looks up the tokens of its batch rows that fall in its
+    vocabulary shard (zeros elsewhere), a result partial over ``model``
+    that the caller's constraint sums (DTensor's own lookup leaves a
+    masked-partial result whose gradient cannot meet a partial one)."""
+    r = active_rules()
+    if r is None or not is_dtensor(table):
+        return table[tokens]
+    start = local_shape_offset(table.shape, table.device_mesh,
+                               table.placements)[1][0]
+
+    def shard_lookup(tokens, table):
+        ids = tokens.long() - start
+        hit = (ids >= 0) & (ids < table.shape[0])
+        x = F.embedding(torch.where(hit, ids, 0), table)
+        return x * hit[..., None].to(x.dtype)
+
+    return local_apply(
+        shard_lookup, (tokens, table),
+        (("data", None), (r.model_axis, None)),
+        (("data", None, None), (*tokens.shape, table.shape[1]),
+         (r.model_axis,)))
 
 
 def _head_out(cfg, params, x):
     """Logits over the *padded* vocab (pad ids masked to -1e30)."""
+    x = constrain(x, "data", None, None)   # SP gather, as at each layer
     x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
     w = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
     logits = x @ w
-    if cfg.padded_vocab != cfg.vocab_size:
+    if cfg.padded_vocab != cfg.vocab_size and is_dtensor(logits):
+        # out of place, as the reference: a sharded tensor takes no
+        # in-place slice fill
+        pad = torch.arange(cfg.padded_vocab,
+                           device=logits.device) >= cfg.vocab_size
+        logits = torch.where(pad, torch.tensor(-1e30, dtype=logits.dtype,
+                                               device=logits.device), logits)
+    elif cfg.padded_vocab != cfg.vocab_size:
+        # in place: no second full-vocabulary tensor
         logits[..., cfg.vocab_size:] = -1e30
-    return logits
+    return constrain(logits, "data", None, "model")
 
 
 def _ffn(cfg, lp, h):
@@ -209,6 +296,7 @@ def _ffn(cfg, lp, h):
 
 
 def _ssm_layer(cfg, lp, h, collect_kv, use_pallas):
+    h = constrain(h, "data", None, None)   # SP gather (see attn_layer)
     out = mamba2_block(cfg, lp, rmsnorm(h, lp["ln"], cfg.norm_eps),
                        return_state=collect_kv, use_pallas=use_pallas)
     if collect_kv:
@@ -224,10 +312,21 @@ def _ssm_layer(cfg, lp, h, collect_kv, use_pallas):
 
 def _remat(fn, on: bool):
     """``fn`` with its activations recomputed in the backward pass (the
-    reference's ``jax.checkpoint``) when ``on``; ``fn`` itself otherwise."""
+    reference's ``jax.checkpoint``) when ``on``; ``fn`` itself otherwise.
+    The recompute runs under the sharding rules active now: the backward
+    pass may run on another thread (the card's), which does not see them
+    (``implicit_replication`` is a process-wide flag, which it does)."""
     if not on:
         return fn
-    return functools.partial(checkpoint, fn, use_reentrant=False)
+    rules = active_rules()
+    if rules is None:
+        return functools.partial(checkpoint, fn, use_reentrant=False)
+
+    def under_rules(*args):
+        with use_rules(rules):
+            return fn(*args)
+
+    return functools.partial(checkpoint, under_rules, use_reentrant=False)
 
 
 def forward(cfg: ModelConfig, params: ParamGroup, batch: dict, *,
@@ -263,10 +362,21 @@ def forward(cfg: ModelConfig, params: ParamGroup, batch: dict, *,
 
     ssm_fn = _remat(ssm, rm)
 
+    def ssm_layer(h, lp):
+        h, st = ssm(h, lp)
+        return constrain(h, "data", "model", None), st
+
+    ssm_layer_fn = _remat(ssm_layer, rm)
+
     def attn_layer(h, lp, cos, sin):
+        # Megatron-SP: the residual stream is sequence-sharded over
+        # `model` between layers; gather the sequence here so the model
+        # axis is free for the TP products
+        h = constrain(h, "data", None, None)
         a, kv = _attn_full(cfg, lp["attn"], h, cos, sin, use_pallas)
         h = h + a
-        return h + _ffn(cfg, lp, h), kv
+        h = h + _ffn(cfg, lp, h)
+        return constrain(h, "data", "model", None), kv
 
     def group(h, layers, shared, cos, sin):
         # the shared attention block after every k SSM blocks
@@ -274,13 +384,15 @@ def forward(cfg: ModelConfig, params: ParamGroup, batch: dict, *,
         for lp in layers:
             h, st = ssm_fn(h, lp)
             sts.append(st)
+        h = constrain(h, "data", None, None)
         a, kv = _attn_full(cfg, shared["attn"], h, cos, sin, use_pallas)
         h = h + a
-        return h + _mlp_full(cfg, shared["mlp"], h), kv, sts
+        h = h + _mlp_full(cfg, shared["mlp"], h)
+        return constrain(h, "data", "model", None), kv, sts
 
     if cfg.family == "ssm":
         for lp in params["layers"]:
-            x, st = ssm_fn(x, lp)
+            x, st = ssm_layer_fn(x, lp)
             if collect_kv:
                 states.append(st)
     else:
@@ -364,10 +476,65 @@ def _attn_decode(cfg, p, x, kc, vc, pos, cos, sin):
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
     slot = min(pos, kc.shape[1] - 1)
-    kc[:, slot] = k[:, 0].to(kc.dtype)
-    vc[:, slot] = v[:, 0].to(vc.dtype)
-    out = decode_attention(q, kc, vc, pos)
+    _write_slot(kc, slot, k[:, 0])
+    _write_slot(vc, slot, v[:, 0])
+    if is_dtensor(kc):
+        out = _sharded_decode_attention(q, kc, vc, pos)
+    else:
+        out = decode_attention(q, kc, vc, pos)
     return out.reshape(*x.shape[:2], -1) @ p["wo"]
+
+
+def _sharded_decode_attention(q, kc, vc, pos):
+    """:func:`decode_attention` over a DTensor cache, as flash-decoding:
+    each rank attends over its own batch rows, heads and sequence shard,
+    and the shards' online-softmax partials are combined."""
+    mesh = kc.device_mesh
+    bat, seq, kv_ax, _ = spec_from_placements(mesh, kc.placements, 4)
+    _, off = local_shape_offset(kc.shape, mesh,
+                                                   kc.placements)
+    bsz, _, hq, d = q.shape
+    hkv = kc.shape[2]
+    seq_axes = seq if isinstance(seq, tuple) else (seq,) * (seq is not None)
+    n = 1
+    for a in seq_axes:
+        n *= mesh.size(list(mesh.mesh_dim_names).index(a))
+    cache_spec = (bat, seq, kv_ax, None)
+    part = ((seq, bat, kv_ax, None, None), (n, bsz, hkv, hq // hkv, 1))
+    m, l, acc = local_apply(
+        lambda q, kc, vc: decode_attention_partial(q, kc, vc, pos, off[1]),
+        (q, kc, vc), ((bat, None, kv_ax, None), cache_spec, cache_spec),
+        (part, part, ((seq, bat, kv_ax, None, None),
+                      (n, bsz, hkv, hq // hkv, d))))
+    return combine_decode_partials(m, l, acc, q.dtype)
+
+
+def _write_slot(cache_t, slot: int, val):
+    """``cache_t[:, slot] = val`` in place: cache_t (B, Smax, Hkv, Dh),
+    val (B, Hkv, Dh). A DTensor cache is written on the rank whose shard
+    holds ``slot`` (its sequence may be sharded), from ``val`` laid out
+    like the cache's other dimensions."""
+    if not is_dtensor(cache_t):
+        cache_t[:, slot] = val.to(cache_t.dtype)
+        return
+    mesh = cache_t.device_mesh
+    spec = spec_from_placements(mesh, cache_t.placements, 4)
+    want = placements(mesh, (spec[0], spec[2], spec[3]))
+    if tuple(val.placements) != want:
+        val = val.redistribute(mesh, want)
+    shape, off = local_shape_offset(
+        cache_t.shape, mesh, cache_t.placements)
+    if off[1] <= slot < off[1] + shape[1]:
+        local = cache_t.to_local()
+        local[:, slot - off[1]] = val.to_local().to(local.dtype)
+
+
+def _no_autograd(params):
+    """:func:`torch.inference_mode` — or :func:`torch.no_grad` for DTensor
+    parameters, which inference mode does not take."""
+    if is_dtensor(params["final_norm"]):
+        return torch.no_grad()
+    return torch.inference_mode()
 
 
 def decode_step(cfg: ModelConfig, params: ParamGroup, batch: dict,
@@ -377,7 +544,7 @@ def decode_step(cfg: ModelConfig, params: ParamGroup, batch: dict,
     (B,1,V), cache) — the cache's tensors updated in place, ``pos``
     advanced."""
     check_family(cfg)
-    with torch.inference_mode():
+    with _no_autograd(params):
         x = _embed_in(cfg, params, batch)
         pos = int(cache["pos"])
         bsz = x.shape[0]
@@ -430,7 +597,7 @@ def prefill(cfg: ModelConfig, params: ParamGroup, batch: dict, max_len: int,
     norm = params["final_norm"]
     cache = init_cache(cfg, bsz, max_len, dtype=norm.dtype,
                        device=norm.device)
-    with torch.inference_mode():
+    with _no_autograd(params):
         logits, ck = forward(cfg, params, batch, use_pallas=use_pallas,
                              collect_kv=True)
         if cfg.num_attn_layers:

@@ -10,6 +10,12 @@ microbatch. Parameters and moments are updated in place (see
 :func:`~repro_torch.optim.adamw.adamw_update`); whether the step is taken
 is decided before they are touched, so no second copy of the model is
 needed.
+
+With DTensor parameters (see :mod:`repro_torch.distributed.sharding`), run
+the step under the sharding rules and ``implicit_replication()``: a
+sharded batch is gathered before it is split into microbatches (the
+model's first constraint re-shards each one), and each gradient is laid
+out as its parameter before the update.
 """
 from __future__ import annotations
 
@@ -19,6 +25,7 @@ from typing import Optional
 import torch
 
 from repro_torch.distributed.compression import ef_compress_grads
+from repro_torch.distributed.sharding import is_dtensor
 from repro_torch.models.transformer import loss_fn
 from repro_torch.optim.adamw import (AdamWConfig, OptState, adamw_update,
                                      global_norm, named_tensors,
@@ -46,6 +53,10 @@ def _split_micro(batch: dict, n: int) -> dict:
         return x[None].expand(n, *x.shape)
     out = {}
     for k, v in batch.items():
+        if is_dtensor(v):
+            from torch.distributed.tensor import Replicate
+            mesh = v.device_mesh
+            v = v.redistribute(mesh, [Replicate()] * mesh.ndim)
         if k == "positions3":   # (3, B, S) — batch is axis 1
             v = v.movedim(1, 0)
             v = v.reshape(n, v.shape[0] // n, *v.shape[1:])
@@ -87,6 +98,8 @@ def microbatch_grads(cfg, tcfg: TrainConfig, params, batch: dict):
         if g is None:         # a parameter the loss does not reach
             g = torch.zeros_like(p, dtype=torch.float32 if n > 1
                                  else p.dtype)
+        if is_dtensor(g) and tuple(g.placements) != tuple(p.placements):
+            g = g.redistribute(p.device_mesh, p.placements)
         grads[name] = g.div_(n) if n > 1 else g
         p.grad = None
     return grads, lsum / n

@@ -1372,3 +1372,85 @@ def test_pipeline_apply_in_a_world_of_one_nccl_rank(card, tmp_path):
     finally:
         dist.destroy_process_group()
     assert torch.equal(got, x + torch.tanh(x @ w[0]))
+
+
+def test_flop_counter_on_the_card_equals_trace_cost(card):
+    """FlopCounterMode around a smoke zamba2 train step on the card counts
+    what trace_cost counts of the same step on fake tensors."""
+    import copy
+    from torch.utils.flop_counter import FlopCounterMode
+    from repro_torch.data.pipeline import DataConfig, make_batch
+    from repro_torch.launch.flop_cost import trace_cost
+    from repro_torch.models.transformer import init_params
+    from repro_torch.optim.adamw import AdamWConfig, init_opt_state
+    from repro_torch.train.step import TrainConfig, make_train_step
+    cfg = smoke_config("zamba2-2.7b")
+    ocfg = AdamWConfig()
+    step = make_train_step(cfg, TrainConfig(microbatches=2,
+                                            skip_nonfinite=False,
+                                            optimizer=ocfg))
+    dcfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=64, global_batch=4)
+    cpu = init_params(cfg, 0, device="cpu")
+    want = trace_cost(step, copy.deepcopy(cpu),
+                      init_opt_state(cpu, ocfg, device="cpu"),
+                      make_batch(dcfg, 0, device="cpu"))["flops"]
+    params = copy.deepcopy(cpu).to(card)
+    with FlopCounterMode(display=False) as fc:
+        step(params, init_opt_state(params, ocfg, device=card),
+             make_batch(dcfg, 0, device=card))
+    assert fc.get_total_flops() == want
+
+
+def test_dtensor_train_step_on_a_one_rank_nccl_mesh(card, tmp_path):
+    """The sharding rules' DTensor train step on a 1 × 1 × 1 mesh over
+    NCCL equals the plain step on the card: loss within 1e-5 relative,
+    parameters within 1e-5 but for at most 1e-3 of the elements (a
+    gradient near Adam's ε), those within 2 lr — the bounds of
+    ``tests/test_torch_distributed.py``."""
+    import copy
+    import datetime
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor.experimental import implicit_replication
+    from repro_torch.data.pipeline import DataConfig, make_batch
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.models.transformer import init_params
+    from repro_torch.optim.adamw import AdamWConfig, init_opt_state
+    from repro_torch.train.step import TrainConfig, make_train_step
+    dist.init_process_group(
+        "nccl", store=dist.FileStore(str(tmp_path / "store"), 1), rank=0,
+        world_size=1, timeout=datetime.timedelta(seconds=60))
+    try:
+        mesh = init_device_mesh("cuda", (1, 1, 1),
+                                mesh_dim_names=("pod", "data", "model"))
+        rules = shd.Rules(mesh=mesh, data_axes=("pod", "data"))
+        cfg = smoke_config("qwen3-14b")
+        ocfg = AdamWConfig(lr_peak=1e-3, warmup_steps=1, total_steps=5)
+        step = make_train_step(cfg, TrainConfig(microbatches=2,
+                                                optimizer=ocfg))
+        batch = make_batch(DataConfig(vocab_size=cfg.vocab_size, seq_len=32,
+                                      global_batch=4), 0, device=card)
+        start = init_params(cfg, 0, device=card)
+        ref = copy.deepcopy(start)
+        ref, _, m_ref = step(ref, init_opt_state(ref, ocfg, device=card),
+                             batch)
+        params = copy.deepcopy(start)
+        opt = shd.shard_opt_state(init_opt_state(params, ocfg, device=card),
+                                  mesh, shd.param_specs(cfg, rules,
+                                                        fsdp=True))
+        shd.shard_params(params, mesh, shd.param_specs(cfg, rules))
+        sp = shd.batch_specs(cfg, rules, "train")
+        with shd.use_rules(rules), implicit_replication():
+            params, _, m = step(params, opt, {
+                k: shd.shard_tensor(v, mesh, sp[k]) for k, v in
+                batch.items()})
+        assert float(m["loss"].full_tensor()) == pytest.approx(
+            float(m_ref["loss"]), rel=1e-5)
+        want = dict(ref.named_parameters())
+        errs = torch.cat([(p.detach().full_tensor()
+                           - want[name].detach()).abs().flatten()
+                          for name, p in params.named_parameters()])
+        assert int((errs > 1e-5).sum()) <= 1e-3 * errs.numel()
+        assert float(errs.max()) <= 2 * float(m["lr"])
+    finally:
+        dist.destroy_process_group()
