@@ -154,10 +154,10 @@ class DriftAuditor:
                     for fp, r in self._fp_residual.items() if abs(r) > th}
 
     def summary(self) -> dict:
-        """Per-scheme rolling drift table (the ``stats()`` /
-        ``trace_report`` view): sample count, mean |residual|, one-sided
-        regret (mean positive residual — "slower than predicted"), plus
-        totals and the flagged set."""
+        """Per-scheme rolling drift table (the ``stats()`` view):
+        sample count, mean |residual|, one-sided regret (mean positive
+        residual — "slower than predicted"), plus totals and the flagged
+        set."""
         per_scheme = {}
         with self._lock:
             for scheme, resid in sorted(self._scheme_residuals.items()):

@@ -18,11 +18,10 @@ and histogram the serving stack emits. Two name spaces, one table:
   across launches; ratio-unit entries are gauges (last value wins).
 
 Computing device counters costs host time (O(pairs) numpy work), so the
-kernel layer only emits them when ``registry.device_emission`` is on —
-``tools/trace_report.py --generate`` and the benchmarks flip it.
+kernel layer only emits them when ``registry.device_emission`` is on.
 
-Histograms keep count/sum/min/max plus a bounded reservoir of recent
-values for percentiles — memory stays bounded on a long-running server.
+Histograms keep count/sum/min/max only — constant memory on a
+long-running server; percentiles are the reader's, over its own window.
 
 Labels: ``registry.counter("serve_requests", tenant="team-x")`` keys the
 instrument by name + sorted labels; empty-string label values are
@@ -31,9 +30,6 @@ dropped (the default tenant does not clutter the snapshot).
 from __future__ import annotations
 
 import threading
-from collections import deque
-
-import numpy as np
 
 from repro_torch.core.formats import COUNTER_UNITS
 
@@ -72,6 +68,8 @@ _HOST_METRICS: dict[str, tuple[str, str]] = {
         "gauge", "PlanCache budget usage, memory + disk (bytes)"),
     "exec_cache_packs": (
         "counter", "operand packings on exec-cache misses (count)"),
+    "exec_cache_hits": (
+        "counter", "packed operands found in the exec cache (count)"),
     "exec_cache_entries": (
         "gauge", "packed operand sets resident in the exec cache (count)"),
     "exec_cache_bytes": (
@@ -184,16 +182,15 @@ class Gauge:
 
 
 class Histogram:
-    """count/sum/min/max + a bounded reservoir for percentiles."""
+    """count/sum/min/max of the observed values."""
 
-    __slots__ = ("count", "total", "min", "max", "_recent", "_lock")
+    __slots__ = ("count", "total", "min", "max", "_lock")
 
-    def __init__(self, reservoir: int = 1024):
+    def __init__(self):
         self.count = 0
         self.total = 0.0
         self.min = float("inf")
         self.max = float("-inf")
-        self._recent: deque[float] = deque(maxlen=reservoir)
         self._lock = threading.Lock()
 
     def observe(self, value: float) -> None:
@@ -203,18 +200,14 @@ class Histogram:
             self.total += v
             self.min = min(self.min, v)
             self.max = max(self.max, v)
-            self._recent.append(v)
 
     def snapshot(self) -> dict:
         with self._lock:
             if not self.count:
                 return {"count": 0}
             count, total, lo, hi = self.count, self.total, self.min, self.max
-            recent = np.asarray(self._recent, dtype=np.float64)
         return {"count": count, "sum": total, "mean": total / count,
-                "min": lo, "max": hi,
-                "p50": float(np.percentile(recent, 50)),
-                "p95": float(np.percentile(recent, 95))}
+                "min": lo, "max": hi}
 
 
 _KINDS = {"counter": Counter, "gauge": Gauge, "histogram": Histogram}

@@ -15,14 +15,20 @@ Design goals, in priority order:
 3. **Bounded memory.** Finished spans land in a ring buffer
    (``capacity`` spans, oldest dropped first; drops are counted), so a
    long-running server with tracing left on cannot grow without bound.
+4. **The profiler's clock.** While a ``torch.profiler`` run records, a
+   live span also opens a profiler range of its own name, so the
+   profiler's trace shows the program's spans beside the kernels with
+   no clock offset to compute. The range is a function-scope record
+   (``_RecordFunctionFast``), not a user annotation: a user annotation
+   is mirrored onto the device's timeline as an event of its own, which
+   a reader of device activity would count as busy time.
 
-Exporters: :meth:`Tracer.export_jsonl` (one JSON object per span — the
-input of ``tools/trace_report.py``) and :meth:`Tracer.export_chrome`
-(Chrome trace-event format: load the file in ``chrome://tracing`` or
-https://ui.perfetto.dev to see the nested timeline).
+Exporter: :meth:`Tracer.export_chrome` (Chrome trace-event format: load
+the file in ``chrome://tracing`` or https://ui.perfetto.dev to see the
+nested timeline).
 
-Timing is ``time.perf_counter()`` (monotonic); timestamps in exports are
-seconds (JSONL) / microseconds (Chrome) relative to the tracer's epoch.
+Timing is ``time.perf_counter()`` (monotonic); timestamps in the export
+are microseconds relative to the tracer's epoch.
 """
 from __future__ import annotations
 
@@ -34,6 +40,8 @@ import threading
 import time
 from collections import deque
 from typing import Optional
+
+import torch
 
 __all__ = ["Span", "Tracer", "get_tracer", "span", "NOOP_SPAN"]
 
@@ -50,11 +58,6 @@ class Span:
     duration: float         # seconds
     attrs: dict
     thread_id: int = 0
-
-    def to_json(self) -> dict:
-        return {"name": self.name, "trace_id": self.trace_id,
-                "span_id": self.span_id, "parent_id": self.parent_id,
-                "ts": self.t0, "dur": self.duration, "attrs": self.attrs}
 
 
 class _NoopSpan:
@@ -91,7 +94,7 @@ class _LiveSpan:
     """
 
     __slots__ = ("_tracer", "name", "attrs", "trace_id", "span_id",
-                 "parent_id", "_t0", "_stack_ref")
+                 "parent_id", "_t0", "_stack_ref", "_range")
 
     def __init__(self, tracer: "Tracer", name: str, attrs: dict):
         self._tracer = tracer
@@ -101,6 +104,7 @@ class _LiveSpan:
         self.span_id = 0
         self.parent_id = 0
         self._t0 = 0.0
+        self._range = None
 
     def set(self, **attrs) -> "_LiveSpan":
         """Attach/overwrite attributes on the open span."""
@@ -119,11 +123,14 @@ class _LiveSpan:
             self.trace_id = tr._new_trace_id()
         self.span_id = next(tr._ids)
         stack.append(self)
+        self._range = _profiler_range(self.name)
         self._t0 = time.perf_counter()
         return self
 
     def __exit__(self, *exc) -> bool:
         t1 = time.perf_counter()
+        if self._range is not None:
+            self._range.__exit__(None, None, None)
         stack = self._stack_ref
         # tolerate exceptions unwinding multiple frames at once
         while stack and stack[-1] is not self:
@@ -135,6 +142,16 @@ class _LiveSpan:
                     self.parent_id, self._t0 - tr._epoch, t1 - self._t0,
                     self.attrs, threading.get_ident() & 0x7FFFFFFF))
         return False
+
+
+def _profiler_range(name: str):
+    """An open ``torch.profiler`` range named ``name`` while a profiler
+    records, else ``None`` (one flag read)."""
+    if not torch.autograd.profiler._is_profiler_enabled:
+        return None
+    rng = torch._C._profiler._RecordFunctionFast(name)
+    rng.__enter__()
+    return rng
 
 
 class Tracer:
@@ -166,11 +183,6 @@ class Tracer:
         if not self.enabled:
             return NOOP_SPAN
         return _LiveSpan(self, name, attrs)
-
-    def current(self):
-        """The innermost open span of this thread (None outside any)."""
-        stack = self._stack()
-        return stack[-1] if stack else None
 
     # -- state ---------------------------------------------------------------
 
@@ -215,17 +227,7 @@ class Tracer:
             self.dropped += 1
         self._buf.append(rec)
 
-    # -- exporters -----------------------------------------------------------
-
-    def export_jsonl(self, path: str) -> int:
-        """Write the buffered spans as JSON-lines; returns the count."""
-        spans = self.spans()
-        os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
-        with open(path, "w") as f:
-            for sp in spans:
-                f.write(json.dumps(sp.to_json(), sort_keys=True))
-                f.write("\n")
-        return len(spans)
+    # -- exporter ------------------------------------------------------------
 
     def export_chrome(self, path: str) -> int:
         """Write Chrome trace-event JSON (Perfetto/chrome://tracing).

@@ -305,12 +305,14 @@ class Planner:
         the circuit breaker has quarantined is planned around, not
         evicted.
         """
-        fp = fingerprint(a)
+        tracer = get_tracer()
+        with tracer.span("fingerprint"):
+            fp = fingerprint(a)
         if reuse_hint is None:
             reuse_hint = (self.hint_provider(fp)
                           if self.hint_provider is not None else 1)
-        with get_tracer().span("plan", workload=workload,
-                               measure=measure) as sp:
+        with tracer.span("plan", workload=workload,
+                         measure=measure) as sp:
             with self._plan_flight.lock((fp, workload)):
                 plan = self._plan_impl(a, reuse_hint, fp=fp,
                                        measure=measure,
@@ -653,9 +655,10 @@ class Planner:
         ``output`` site corrupts here, and a non-finite result raises (one
         float64 sum on the host)."""
         out = self._execute_impl(plan, a, b)
-        out = _faults.corrupt_output("output", out)
-        if not np.isfinite(np.sum(out, dtype=np.float64)):
-            raise NonFiniteOutputError(plan.scheme)
+        with get_tracer().span("guard"):
+            out = _faults.corrupt_output("output", out)
+            if not np.isfinite(np.sum(out, dtype=np.float64)):
+                raise NonFiniteOutputError(plan.scheme)
         return out
 
     @staticmethod
@@ -831,23 +834,26 @@ class Planner:
         if squared and a.nrows != a.ncols:
             raise ValueError("A² workload needs a square matrix")
         dev = self.device
+        tracer = get_tracer()
         # the plan fingerprint is value-independent; the packed operands
         # are not — key them by the operand values (and for a second
         # sparse operand, its pattern too) AND by the plan's layout
-        vk = _value_digest(a) if squared or dense_b \
-            else f"{_value_digest(a)}|{fingerprint(b)}|{_value_digest(b)}"
-        ck = f"{plan.fingerprint}|{_plan_digest(plan)}" \
-             f"|{'sq' if squared else 'ab'}" \
-             f"|{'dense' if dense_b else 'csr'}|{vk}"
+        with tracer.span("digest"):
+            vk = (_value_digest(a) if squared or dense_b else
+                  f"{_value_digest(a)}|{fingerprint(b)}|{_value_digest(b)}")
+            ck = f"{plan.fingerprint}|{_plan_digest(plan)}" \
+                 f"|{'sq' if squared else 'ab'}" \
+                 f"|{'dense' if dense_b else 'csr'}|{vk}"
         cached = self._exec_get(ck)
         perm = plan.perm
 
         if dense_b:
-            bd = torch.from_numpy(np.ascontiguousarray(
-                b, dtype=np.float32)).to(dev)
+            with tracer.span("upload"):
+                bd = torch.from_numpy(np.ascontiguousarray(
+                    b, dtype=np.float32)).to(dev)
             if cached is None:
-                with get_tracer().span("pack", fingerprint=plan.fingerprint,
-                                       scheme=plan.scheme, kind="dense_b"):
+                with tracer.span("pack", fingerprint=plan.fingerprint,
+                                 scheme=plan.scheme, kind="dense_b"):
                     _faults.maybe_fault("pack")
                     ap = _apply_plan_perm(a, plan, symmetric=False)
                     if plan.scheme == "rowwise":
@@ -882,9 +888,9 @@ class Planner:
             return self._unpermuted(out, perm, rows_only=True)
 
         if cached is None:
-            with get_tracer().span("pack", fingerprint=plan.fingerprint,
-                                   scheme=plan.scheme,
-                                   kind="sq" if squared else "ab"):
+            with tracer.span("pack", fingerprint=plan.fingerprint,
+                             scheme=plan.scheme,
+                             kind="sq" if squared else "ab"):
                 _faults.maybe_fault("pack")
                 if squared:
                     ap = _apply_plan_perm(a, plan, symmetric=True)
@@ -953,9 +959,14 @@ class Planner:
         return self._unpermuted(out, perm, rows_only=not squared)
 
     def _exec_get(self, key: str):
-        """The packed operands kept under ``key``, or ``None``."""
+        """The packed operands kept under ``key``, or ``None``; a find
+        counts in ``exec_cache_hits`` (a miss counts in
+        ``exec_cache_packs`` once packed)."""
         with self._state_lock:
-            return self._exec_cache.get(key, (None, 0))[0]
+            packed = self._exec_cache.get(key, (None, 0))[0]
+        if packed is not None:
+            obs_metrics.get_registry().counter("exec_cache_hits").inc()
+        return packed
 
     def _exec_put(self, key: str, packed: tuple) -> None:
         """Keep ``packed`` under ``key``, evicting the oldest entries until
@@ -1005,15 +1016,18 @@ class Planner:
         """Wrap a device runner: sync the card, copy the result to host
         numpy and undo the plan's permutation there."""
         dev = self.device
+        tracer = get_tracer()
 
         def host() -> np.ndarray:
-            out = run()
-            synchronize(dev)
+            with tracer.span("product"):
+                out = run()
+                synchronize(dev)
             # the padded grid returns B's dtype: bf16 widens to float32 on
             # the host, values equal to the JAX package's bfloat16 result
             # (numpy has no bfloat16, and ml_dtypes is not a dependency;
             # the README's port section records this divergence)
-            return out.cpu().float().numpy()
+            with tracer.span("copy"):
+                return out.cpu().float().numpy()
 
         if perm is None:
             return host
@@ -1021,11 +1035,12 @@ class Planner:
 
         def wrapped() -> np.ndarray:
             cp = host()
-            out = np.empty_like(cp)
-            if rows_only:
-                out[p] = cp
-            else:
-                out[np.ix_(p, p)] = cp
+            with tracer.span("unpermute"):
+                out = np.empty_like(cp)
+                if rows_only:
+                    out[p] = cp
+                else:
+                    out[np.ix_(p, p)] = cp
             return out
         return wrapped
 

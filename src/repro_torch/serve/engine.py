@@ -220,19 +220,22 @@ class SpGEMMServer:
         reg = obs_metrics.get_registry()
         reg.counter("serve_requests", tenant=self.tenant).inc()
         policy = self.planner.resilience
-        if policy.validate:
-            try:
-                validate_request_pair(a, b, skip=policy.is_validated)
-            except InvalidOperandError as e:
-                policy.rejects += 1
-                reg.counter("serve_rejects", tenant=self.tenant,
-                            field=e.field).inc()
-                raise
-            policy.mark_validated(a)
-            if b is not None and hasattr(b, "indptr"):
-                policy.mark_validated(b)
-        with get_tracer().span("request", tenant=self.tenant,
-                               workload=workload) as root:
+        tracer = get_tracer()
+        with tracer.span("request", tenant=self.tenant,
+                         workload=workload) as root:
+            if policy.validate:
+                with tracer.span("validate"):
+                    try:
+                        validate_request_pair(a, b,
+                                              skip=policy.is_validated)
+                    except InvalidOperandError as e:
+                        policy.rejects += 1
+                        reg.counter("serve_rejects", tenant=self.tenant,
+                                    field=e.field).inc()
+                        raise
+                    policy.mark_validated(a)
+                    if b is not None and hasattr(b, "indptr"):
+                        policy.mark_validated(b)
             resp = self._submit_impl(a, b, hint=hint, hops=hops,
                                      workload=workload)
             resp.trace_id = root.trace_id
