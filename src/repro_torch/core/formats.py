@@ -12,7 +12,10 @@ Two tiers, as in the JAX package:
 Every ``*_from_host`` packer works on the host with numpy exactly as the
 JAX package's packers do (same layout, field for field) and makes its
 tensors once, at the end, on the ``device`` the caller names — there is
-no default device.
+no default device. The CSR and CSR_Cluster packers split into a layout
+(``csr_layout``, ``csr_cluster_layout``: all but the values) and
+``fill_values``, which scatters a values array into it on the device, so
+new values on a packed pattern repack without the host's work.
 """
 from __future__ import annotations
 
@@ -37,7 +40,11 @@ __all__ = [
     "BCC",
     "TiledCSR",
     "CompactedC",
+    "ValueLayout",
+    "fill_values",
+    "csr_layout",
     "csr_from_host",
+    "csr_cluster_layout",
     "csr_cluster_from_host",
     "bcc_from_host",
     "tiled_csr_from_host",
@@ -185,13 +192,18 @@ class HostCSR:
         data_t[:] = self.data[order]
         return HostCSR(indptr_t, indices_t, data_t, (ncols, nrows))
 
-    def permute_rows(self, perm: np.ndarray) -> "HostCSR":
-        """Return A[perm, :] — ``perm[new_row] = old_row``."""
+    def row_gather(self, perm: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+        """``(indptr, gather)`` of A[perm, :]: its row pointer, and for
+        each of its entries the index of that entry in A."""
         perm = np.asarray(perm, dtype=np.int64)
         counts = self.row_nnz()[perm]
         indptr = np.zeros(self.nrows + 1, dtype=np.int64)
         np.cumsum(counts, out=indptr[1:])
-        gather = ragged_gather_indices(self.indptr[perm], counts)
+        return indptr, ragged_gather_indices(self.indptr[perm], counts)
+
+    def permute_rows(self, perm: np.ndarray) -> "HostCSR":
+        """Return A[perm, :] — ``perm[new_row] = old_row``."""
+        indptr, gather = self.row_gather(perm)
         return HostCSR(indptr, self.indices[gather], self.data[gather],
                        self.shape)
 
@@ -581,31 +593,109 @@ def _round_up(x: int, m: int) -> int:
     return (x + m - 1) // m * m
 
 
-def csr_from_host(h: HostCSR, nnz_cap: int | None = None,
-                  dtype: torch.dtype = torch.float32, *, device) -> CSR:
+@dataclasses.dataclass(frozen=True)
+class ValueLayout:
+    """The symbolic half of a packed operand: everything but its values.
+
+    ``structure`` is the packed :class:`CSR` or :class:`CSRCluster` with
+    an empty value array; ``dst[j]`` is the flat index, in the value array
+    of ``shape``, of entry ``j`` of the source HostCSR (``None``: entry
+    ``j`` lands at ``j``). The layout depends on the source's pattern and
+    the packing's parameters only, so one layout serves every values
+    array of that pattern: :func:`fill_values` makes the operand in one
+    scatter on the structure's device.
+    """
+
+    structure: CSR | CSRCluster
+    dst: torch.Tensor | None   # (nnz,) int32 (int64 past 2**31 slots)
+    shape: tuple[int, ...]
+    nnz: int
+
+
+_VALUE_FIELD = {CSR: "data", CSRCluster: "values"}
+
+
+def fill_values(layout: ValueLayout, data: np.ndarray,
+                dtype: torch.dtype = torch.float32) -> CSR | CSRCluster:
+    """The numeric half of a pack: the operand of ``layout`` holding
+    ``data`` (the source's values, in its entry order), equal bit for bit
+    to packing the source in full. One upload of ``data``, a zero fill
+    and one scatter (the layout's slots are distinct)."""
+    if data.shape[0] != layout.nnz:
+        raise ValueError(f"{data.shape[0]} values for a layout of "
+                         f"{layout.nnz} entries")
+    field = _VALUE_FIELD[type(layout.structure)]
+    empty = getattr(layout.structure, field)
+    vals = torch.zeros(int(np.prod(layout.shape)), dtype=dtype,
+                       device=empty.device)
+    if layout.nnz:
+        src = _tensor(data, empty.device, dtype)
+        if layout.dst is None:
+            vals[: layout.nnz] = src
+        else:
+            vals[layout.dst] = src
+    return dataclasses.replace(layout.structure,
+                               **{field: vals.view(layout.shape)})
+
+
+def _permuted_pattern(h: HostCSR, perm
+                      ) -> tuple[np.ndarray, np.ndarray, np.ndarray | None]:
+    """``(indptr, indices, gather)`` of ``h[perm, :]``'s pattern, and for
+    each of its entries the index of that entry in ``h`` (``None``, and
+    ``h``'s own pattern, without ``perm``)."""
+    if perm is None:
+        return h.indptr, h.indices, None
+    indptr, gather = h.row_gather(perm)
+    return indptr, h.indices[gather], gather
+
+
+def _dst_tensor(dst: np.ndarray, gather: np.ndarray | None, size: int,
+                device) -> torch.Tensor:
+    """The permuted entries' destinations, in the source's entry order
+    (``dst_source[gather] = dst``), as int32 where ``size`` slots fit."""
+    if gather is not None:
+        src_order = np.empty_like(dst)
+        src_order[gather] = dst
+        dst = src_order
+    return _tensor(dst.astype(np.int32 if size < 2**31 else np.int64),
+                   device)
+
+
+def csr_layout(h: HostCSR, nnz_cap: int | None = None, *, perm=None,
+               device) -> ValueLayout:
+    """The :func:`csr_from_host` layout of ``h[perm, :]`` (of ``h``
+    without ``perm``), its destinations indexed by ``h``'s entries."""
     cap = _round_up(max(h.nnz, 1), 8) if nnz_cap is None else nnz_cap
     if cap < h.nnz:
         raise ValueError(f"nnz_cap {cap} < nnz {h.nnz}")
+    indptr, cols, gather = _permuted_pattern(h, perm)
     indices = np.full(cap, h.ncols, dtype=np.int32)
-    data = np.zeros(cap, dtype=np.float32)
-    indices[: h.nnz] = h.indices
-    data[: h.nnz] = h.data
-    return CSR(indptr=_tensor(h.indptr.astype(np.int32), device),
-               indices=_tensor(indices, device),
-               data=_tensor(data, device, dtype),
-               nrows=h.nrows, ncols=h.ncols)
+    indices[: h.nnz] = cols
+    structure = CSR(indptr=_tensor(indptr.astype(np.int32), device),
+                    indices=_tensor(indices, device),
+                    data=torch.empty(0, device=device),
+                    nrows=h.nrows, ncols=h.ncols)
+    dst = (None if gather is None else _dst_tensor(
+        np.arange(h.nnz, dtype=np.int64), gather, cap, device))
+    return ValueLayout(structure, dst, (cap,), h.nnz)
 
 
-def csr_cluster_from_host(h: HostCSR, boundaries: Sequence[int],
-                          max_cluster: int, slot_cap: int | None = None,
-                          dtype: torch.dtype = torch.float32, *,
-                          device) -> CSRCluster:
-    """Build CSR_Cluster from consecutive-row clusters.
+def csr_from_host(h: HostCSR, nnz_cap: int | None = None,
+                  dtype: torch.dtype = torch.float32, *, device) -> CSR:
+    return fill_values(csr_layout(h, nnz_cap, device=device), h.data, dtype)
 
-    ``boundaries`` — cluster start rows, ending sentinel nrows implied.
+
+def csr_cluster_layout(h: HostCSR, boundaries: Sequence[int],
+                       max_cluster: int, slot_cap: int | None = None, *,
+                       perm=None, device) -> ValueLayout:
+    """The :func:`csr_cluster_from_host` layout of ``h[perm, :]`` (of
+    ``h`` without ``perm``; ``boundaries`` are rows of the permuted
+    matrix), its destinations indexed by ``h``'s entries.
+
     One searchsorted maps every nonzero to its cluster, one argsort over
     the (cluster, column) key discovers the deduplicated column slots, and
-    the value slab fills with one fancy-indexed assignment.
+    each nonzero's destination is ``slot * max_cluster + (row -
+    row_base[cluster])`` in the flat value slab.
     """
     bounds = np.asarray(list(boundaries) + [h.nrows], dtype=np.int64)
     ncl = bounds.shape[0] - 1
@@ -617,8 +707,9 @@ def csr_cluster_from_host(h: HostCSR, boundaries: Sequence[int],
     row_base = bounds[:-1].astype(np.int32)
     csize = sizes.astype(np.int32)
 
-    rows = expand_indptr(h.indptr)
-    cols = h.indices.astype(np.int64)
+    indptr, indices, gather = _permuted_pattern(h, perm)
+    rows = expand_indptr(indptr)
+    cols = indices.astype(np.int64)
     cl = np.searchsorted(bounds, rows, side="right") - 1
     key = cl * max(h.ncols, 1) + cols
     order = np.argsort(key, kind="stable")
@@ -634,19 +725,32 @@ def csr_cluster_from_host(h: HostCSR, boundaries: Sequence[int],
     if cap < total:
         raise ValueError(f"slot_cap {cap} < required {total}")
     cols_out = np.full(cap, h.ncols, dtype=np.int32)
-    values = np.zeros((cap, max_cluster), dtype=np.float32)
-    if total:
-        cols_out[:total] = (ukey % max(h.ncols, 1)).astype(np.int32)
-        slot = np.empty(h.nnz, dtype=np.int64)
-        slot[order] = slot_sorted
-        values[slot, rows - bounds[cl]] = h.data
-    return CSRCluster(
+    cols_out[:total] = (ukey % max(h.ncols, 1)).astype(np.int32)
+    slot = np.empty(h.nnz, dtype=np.int64)
+    slot[order] = slot_sorted
+    dst = slot * max_cluster + (rows - bounds[cl])
+    structure = CSRCluster(
         cluster_ptr=_tensor(ptr.astype(np.int32), device),
         cols=_tensor(cols_out, device),
-        values=_tensor(values, device, dtype),
+        values=torch.empty((0, max_cluster), device=device),
         row_base=_tensor(row_base, device),
         cluster_size=_tensor(csize, device),
         nrows=h.nrows, ncols=h.ncols, max_cluster=max_cluster)
+    return ValueLayout(structure,
+                       _dst_tensor(dst, gather, cap * max_cluster, device),
+                       (cap, max_cluster), h.nnz)
+
+
+def csr_cluster_from_host(h: HostCSR, boundaries: Sequence[int],
+                          max_cluster: int, slot_cap: int | None = None,
+                          dtype: torch.dtype = torch.float32, *,
+                          device) -> CSRCluster:
+    """Build CSR_Cluster from consecutive-row clusters
+    (``boundaries``: cluster start rows, ending sentinel nrows implied):
+    :func:`csr_cluster_layout`, then :func:`fill_values`."""
+    return fill_values(csr_cluster_layout(h, boundaries, max_cluster,
+                                          slot_cap, device=device),
+                       h.data, dtype)
 
 
 def bcc_from_host(h: HostCSR, block_r: int = 8, block_k: int = 128,

@@ -70,6 +70,9 @@ _HOST_METRICS: dict[str, tuple[str, str]] = {
         "counter", "operand packings on exec-cache misses (count)"),
     "exec_cache_hits": (
         "counter", "packed operands found in the exec cache (count)"),
+    "pack_layout_hits": (
+        "counter", "exec-cache misses packed from their pattern's cached "
+        "value layout: values uploaded and scattered only (count)"),
     "exec_cache_entries": (
         "gauge", "packed operand sets resident in the exec cache (count)"),
     "exec_cache_bytes": (

@@ -39,9 +39,11 @@ from repro_torch.core.clustering import (DEFAULT_MAX_CLUSTER,
                                          fixed_length_clusters,
                                          hierarchical_clusters,
                                          variable_length_clusters)
-from repro_torch.core.formats import (HostCSR, bcc_from_host,
+from repro_torch.core.formats import (HostCSR, ValueLayout, bcc_from_host,
                                       compacted_c_to_host,
-                                      csr_cluster_from_host, csr_from_host,
+                                      csr_cluster_from_host,
+                                      csr_cluster_layout, csr_from_host,
+                                      csr_layout, fill_values,
                                       select_block_k, tiled_csr_from_host)
 from repro_torch.core.reorder import reorder as apply_reorder
 from repro_torch.core.spgemm import (length_bins, slot_rows_host,
@@ -269,8 +271,11 @@ class Planner:
         # (plan key, value digest) -> (packed device operands for
         # execute(), their tensor bytes), capped by entry count and by the
         # bytes held (fresh-valued traffic adds an entry per request);
-        # oldest entries go first, an entry over the byte cap is not kept
-        self._exec_cache: dict[str, tuple[tuple, int]] = {}
+        # oldest entries go first, an entry over the byte cap is not kept.
+        # A dense-B gather-tier pack also keeps its pattern's ValueLayout
+        # under the plan key alone (an entry's bytes count tensors it
+        # shares with the layout again)
+        self._exec_cache: dict[str, tuple[object, int]] = {}
         self._exec_cache_cap = 64
         self._exec_cache_bytes_cap = _default_exec_cache_bytes(self.device)
         # the front-end's worker threads share one planner: this lock
@@ -841,8 +846,8 @@ class Planner:
         with tracer.span("digest"):
             vk = (_value_digest(a) if squared or dense_b else
                   f"{_value_digest(a)}|{fingerprint(b)}|{_value_digest(b)}")
-            ck = f"{plan.fingerprint}|{_plan_digest(plan)}" \
-                 f"|{'sq' if squared else 'ab'}" \
+            pk = f"{plan.fingerprint}|{_plan_digest(plan)}"
+            ck = f"{pk}|{'sq' if squared else 'ab'}" \
                  f"|{'dense' if dense_b else 'csr'}|{vk}"
         cached = self._exec_get(ck)
         perm = plan.perm
@@ -853,25 +858,25 @@ class Planner:
                     b, dtype=np.float32)).to(dev)
             if cached is None:
                 with tracer.span("pack", fingerprint=plan.fingerprint,
-                                 scheme=plan.scheme, kind="dense_b"):
+                                 scheme=plan.scheme, kind="dense_b") as sp:
                     _faults.maybe_fault("pack")
-                    ap = _apply_plan_perm(a, plan, symmetric=False)
-                    if plan.scheme == "rowwise":
-                        cached = ("spmm_row", csr_from_host(ap, device=dev))
-                    elif plan.scheme == "pallas":
+                    if plan.scheme == "pallas":
                         # keep the compact stream and its slabs' live
                         # columns only: the launch reads nothing else of
                         # the padded BCC
+                        ap = _apply_plan_perm(a, plan, symmetric=False)
                         stream = kernel_ops.bcc_compact_stream(
                             bcc_from_host(ap, device=dev),
                             cover_all_blocks=True)
                         cached = ("spmm_pallas", ap.nrows, stream,
                                   kernel_ops.slab_columns(stream[2]))
                     else:
-                        cc = csr_cluster_from_host(
-                            ap, self._bounds(plan, ap),
-                            max_cluster=plan.max_cluster, device=dev)
-                        cached = ("spmm_cluster", cc)
+                        kind = ("spmm_row" if plan.scheme == "rowwise"
+                                else "spmm_cluster")
+                        layout, hit = self._value_layout(
+                            f"{pk}|layout|{kind}", plan, a)
+                        sp.set(layout_hit=hit)
+                        cached = (kind, fill_values(layout, a.data))
                     self._exec_put(ck, cached)
                 self._note_pack()
             kind = cached[0]
@@ -926,7 +931,7 @@ class Planner:
                         srows = slot_rows_host(ap.indptr, dev_a.nnz_cap)
                         cached = ("row", dev_a, dev_b, bins, srows)
                     else:
-                        bounds = self._bounds(plan, ap)
+                        bounds = self._bounds(plan)
                         cc = csr_cluster_from_host(
                             ap, bounds, max_cluster=plan.max_cluster,
                             device=dev)
@@ -958,6 +963,31 @@ class Planner:
                 op_a, op_b, bins, sclust)
         return self._unpermuted(out, perm, rows_only=not squared)
 
+    def _value_layout(self, key: str, plan: Plan, a: HostCSR
+                      ) -> tuple[ValueLayout, bool]:
+        """The layout of ``a``'s pattern packed under ``plan`` for a dense
+        B, and whether the exec cache held it under ``key`` (no value
+        digest in it: every values array of the pattern shares it). A find
+        counts in ``pack_layout_hits`` and moves the layout to the newest
+        end, ahead of the per-value entries it outlives; a miss builds and
+        keeps it."""
+        with self._state_lock:
+            entry = self._exec_cache.pop(key, None)
+            if entry is not None:
+                self._exec_cache[key] = entry
+        layout = None if entry is None else entry[0]
+        if layout is not None and layout.nnz == a.nnz:
+            obs_metrics.get_registry().counter("pack_layout_hits").inc()
+            return layout, True
+        if plan.scheme == "rowwise":
+            layout = csr_layout(a, perm=plan.perm, device=self.device)
+        else:
+            layout = csr_cluster_layout(
+                a, self._bounds(plan), max_cluster=plan.max_cluster,
+                perm=plan.perm, device=self.device)
+        self._exec_put(key, layout)
+        return layout, False
+
     def _exec_get(self, key: str):
         """The packed operands kept under ``key``, or ``None``; a find
         counts in ``exec_cache_hits`` (a miss counts in
@@ -968,7 +998,7 @@ class Planner:
             obs_metrics.get_registry().counter("exec_cache_hits").inc()
         return packed
 
-    def _exec_put(self, key: str, packed: tuple) -> None:
+    def _exec_put(self, key: str, packed) -> None:
         """Keep ``packed`` under ``key``, evicting the oldest entries until
         both caps hold; an entry over the byte cap alone is not kept."""
         nbytes = _tensor_nbytes(packed)
@@ -1006,7 +1036,7 @@ class Planner:
         obs_metrics.get_registry().counter("probe_skips").inc()
 
     @staticmethod
-    def _bounds(plan: Plan, ap: HostCSR) -> list[int]:
+    def _bounds(plan: Plan) -> list[int]:
         if plan.boundaries is None:
             raise ValueError(f"plan scheme {plan.scheme} has no boundaries")
         return np.asarray(plan.boundaries, dtype=np.int64).tolist()

@@ -1234,6 +1234,45 @@ def test_time_fn_waits_for_the_card(card):
     assert best * 1e3 >= min(device_ms) > 0
 
 
+@pytest.mark.parametrize("scheme", ["rowwise", "fixed"])
+def test_value_only_repack_on_the_card_equals_the_cpus_full_pack(card,
+                                                                 scheme):
+    """A served sequence of fresh values on one pattern: the first request
+    packs in full, the rest fill the cached layout on the card (one
+    scatter), each operand bit for bit the CPU's full pack."""
+    from repro_torch.core.formats import csr_cluster_from_host, csr_from_host
+    from repro_torch.obs import metrics as obs_metrics
+    from repro_torch.planner.cost_model import Candidate
+    from repro_torch.planner.service import _materialize
+    h = _host(300, 300, 0.03, 61)
+    perm, bounds, mc, _ = _materialize(h, Candidate("degree", "fixed"))
+    cache = PlanCache()
+    cache.put(Plan(fingerprint=fingerprint(h), reorder="degree",
+                   scheme=scheme, reuse_hint=20, max_cluster=mc, perm=perm,
+                   boundaries=None if scheme == "rowwise" else bounds,
+                   workload="spmm"))
+    srv = SpGEMMServer(Planner(cache=cache, device=card))
+    b = np.random.default_rng(62).integers(-2, 3, (300, 16)).astype(
+        np.float32)
+    hits = obs_metrics.get_registry().counter("pack_layout_hits")
+    before = hits.value
+    for seed in range(3):
+        hv = HostCSR(h.indptr, h.indices, np.random.default_rng(
+            63 + seed).integers(1, 4, h.nnz).astype(np.float32), h.shape)
+        assert np.array_equal(srv.submit(hv, b).result, hv.to_dense() @ b)
+        ((kind, op),) = [v for k, (v, _) in srv.planner._exec_cache.items()
+                         if "|layout|" not in k][-1:]
+        ap = hv.permute_rows(perm)
+        want = (csr_from_host(ap, device="cpu") if scheme == "rowwise" else
+                csr_cluster_from_host(ap, [int(x) for x in bounds],
+                                      max_cluster=mc, device="cpu"))
+        for f in (("indptr", "indices", "data") if scheme == "rowwise" else
+                  ("cluster_ptr", "cols", "values", "row_base",
+                   "cluster_size")):
+            assert torch.equal(getattr(op, f).cpu(), getattr(want, f)), f
+    assert hits.value - before == 2
+
+
 @pytest.mark.parametrize("scheme", ["rowwise", "fixed", "variable",
                                     "hierarchical"])
 def test_bench_fields_on_the_card_equal_the_cpus(card, scheme, monkeypatch,
