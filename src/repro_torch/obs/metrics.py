@@ -78,6 +78,13 @@ _HOST_METRICS: dict[str, tuple[str, str]] = {
     "exec_cache_bytes": (
         "gauge", "tensor bytes the exec cache's packed operands hold "
         "(bytes)"),
+    "kernel_tier_products": (
+        "counter", "products executed by a plan of scheme pallas, on the "
+        "hand-written kernels; ladder rungs, batched launches and chain "
+        "hops each under their own plan (count)"),
+    "gather_tier_products": (
+        "counter", "products executed by a plan of scheme rowwise, fixed, "
+        "variable or hierarchical, on the gather/scatter tier (count)"),
     "kernel_launches": (
         "counter", "Sp×Sp kernel dispatches, by variant label "
         "(count)"),

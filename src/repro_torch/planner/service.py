@@ -160,6 +160,14 @@ def _plan_digest(plan: Plan) -> str:
     return out
 
 
+def _count_product(plan: Plan) -> None:
+    """Count one executed product under its plan's tier:
+    ``kernel_tier_products`` for the ``pallas`` scheme (the hand-written
+    kernels), ``gather_tier_products`` for the other four."""
+    tier = "kernel" if plan.scheme == "pallas" else "gather"
+    obs_metrics.get_registry().counter(f"{tier}_tier_products").inc()
+
+
 class _SingleFlight:
     """Per-key mutual exclusion with refcounted cleanup: concurrent
     planners of the same (fingerprint, workload) serialize, so a burst on
@@ -702,6 +710,7 @@ class Planner:
                 t0 = time.perf_counter()
                 out = runner()      # device-synced inside the runner
                 kernel_s = time.perf_counter() - t0
+            _count_product(plan)
             rec = self.auditor.record(plan, kernel_s)
             if tracer.enabled:
                 sp.set(kernel_s=kernel_s)
@@ -823,6 +832,7 @@ class Planner:
             cc = kernel_ops.bcc_spgemm_sparse_c(None, tiled, pack=pack)
             synchronize(dev)
             kernel_s = time.perf_counter() - t0
+        _count_product(plan)
         self.auditor.record(plan, kernel_s)
         host = compacted_c_to_host(cc)
         if plan.perm is not None:

@@ -1,0 +1,147 @@
+"""The product-tier counters of the port, on the CPU.
+
+Every product ``Planner._execute_impl`` runs counts once under its
+plan's tier: ``kernel_tier_products`` for the ``pallas`` scheme,
+``gather_tier_products`` for ``rowwise``, ``fixed``, ``variable`` and
+``hierarchical``. A ladder rung, a batched launch and a chain hop each
+count under their own plan.
+"""
+import numpy as np
+import pytest
+
+from repro_torch.core.formats import HostCSR, block_diag_csr
+from repro_torch.obs import metrics as obs_metrics
+from repro_torch.planner.cost_model import Candidate
+from repro_torch.planner.features import fingerprint
+from repro_torch.planner.plan_cache import Plan, PlanCache
+from repro_torch.planner.service import Planner, _materialize
+from repro_torch.resilience import faults, reset_policy
+from repro_torch.serve.engine import SpGEMMServer
+
+TIERS = ("kernel_tier_products", "gather_tier_products")
+
+
+@pytest.fixture(autouse=True)
+def _fresh_state():
+    reset_policy()
+    faults.disarm()
+    yield
+    reset_policy()
+    faults.disarm()
+
+
+def _matrix(n=64, seed=3) -> HostCSR:
+    rng = np.random.default_rng(seed)
+    mask = rng.random((n, n)) < 0.08
+    mask = mask | mask.T | np.eye(n, dtype=bool)
+    vals = rng.integers(1, 4, (n, n)).astype(np.float32)
+    return HostCSR.from_dense(np.where(mask, vals, 0.0).astype(np.float32))
+
+
+def _plan(a: HostCSR, reorder: str, scheme: str,
+          workload: str = "a2") -> Plan:
+    if scheme in ("pallas", "rowwise"):
+        perm = bounds = None
+        mc = 8
+    else:
+        perm, bounds, mc, _ = _materialize(a, Candidate(reorder, scheme))
+    return Plan(fingerprint=fingerprint(a), reorder=reorder, scheme=scheme,
+                reuse_hint=20, max_cluster=mc, perm=perm, boundaries=bounds,
+                workload=workload)
+
+
+def _server(a: HostCSR, reorder: str, scheme: str) -> SpGEMMServer:
+    """A server whose plan cache holds ``a``'s A² plan."""
+    cache = PlanCache()
+    cache.put(_plan(a, reorder, scheme))
+    return SpGEMMServer(Planner(cache=cache, device="cpu"))
+
+
+def _counts() -> tuple[int, int]:
+    snap = obs_metrics.get_registry().snapshot()
+    return tuple(snap.get(k, 0) for k in TIERS)
+
+
+def _moved(before: tuple[int, int]) -> tuple[int, int]:
+    return tuple(x - y for x, y in zip(_counts(), before))
+
+
+@pytest.mark.parametrize("reorder,scheme,want", [
+    ("original", "pallas", (1, 0)),
+    ("original", "rowwise", (0, 1)),
+    ("degree", "fixed", (0, 1)),
+    ("rcm", "variable", (0, 1)),
+    ("original", "hierarchical", (0, 1))])
+def test_an_a2_request_counts_once_under_its_tier(reorder, scheme, want):
+    a = _matrix()
+    srv = _server(a, reorder, scheme)
+    for _ in range(2):              # a pack, then an executor-cache hit
+        before = _counts()
+        resp = srv.submit(a)
+        assert resp.plan_cache_hit and resp.scheme == scheme
+        assert not resp.degraded
+        np.testing.assert_array_equal(resp.result,
+                                      a.to_dense() @ a.to_dense())
+        assert _moved(before) == want
+
+
+def test_a_ladder_rung_counts_under_its_own_tier():
+    a = _matrix()
+    srv = _server(a, "original", "pallas")
+    before = _counts()
+    # the pallas pack fails: the product runs on the fixed rung only
+    with faults.injected(faults.FaultPlan(0, sites=["pack"])):
+        resp = srv.submit(a)
+    assert resp.degraded and resp.fallback_scheme == "fixed"
+    np.testing.assert_array_equal(resp.result, a.to_dense() @ a.to_dense())
+    assert _moved(before) == (0, 1)
+
+
+def test_a_failed_guard_counts_the_product_and_its_rung():
+    a = _matrix()
+    srv = _server(a, "original", "pallas")
+    before = _counts()
+    # the product runs, its output is corrupted after it: the pallas
+    # product counts, then the fixed rung's, then the rowwise rung's
+    with faults.injected(faults.FaultPlan(0, sites=["output"],
+                                          max_fires=2)):
+        resp = srv.submit(a)
+    assert resp.degraded and resp.fallback_scheme == "rowwise"
+    assert _moved(before) == (1, 2)
+
+
+@pytest.mark.parametrize("scheme,want", [("pallas", (1, 0)),
+                                         ("fixed", (0, 1))])
+def test_a_batched_launch_counts_once(scheme, want):
+    members = [_matrix(32, seed=s) for s in range(3)]
+    pack = block_diag_csr(members).host
+    plan = _plan(pack, "original", scheme, workload="batch")
+    planner = Planner(cache=PlanCache(), device="cpu")
+    before = _counts()
+    out = planner.execute_batch(plan, pack)
+    np.testing.assert_array_equal(out, pack.to_dense() @ pack.to_dense())
+    assert _moved(before) == want
+
+
+@pytest.mark.parametrize("schemes,want", [
+    (("pallas", "pallas"), (2, 0)), (("rowwise", "rowwise"), (0, 2)),
+    (("pallas", "fixed"), (1, 1))])
+def test_chain_hops_count_by_their_own_plans(schemes, want):
+    """A pallas hop runs the sparse-C route, another hop the dense
+    ``execute`` path: each counts once, under its own plan's tier."""
+    a = _matrix()
+    d = a.to_dense()
+    cache = PlanCache()
+    for left, scheme in zip((a, HostCSR.from_dense(d @ d)), schemes):
+        cache.put(_plan(left, "original", scheme, workload="chain"))
+    planner = Planner(cache=cache, device="cpu")
+    before = _counts()
+    c, plans = planner.execute_chain(a, hops=2, reuse_hint=20)
+    assert tuple(p.scheme for p in plans) == schemes
+    np.testing.assert_array_equal(c.to_dense(), d @ d @ d)
+    assert _moved(before) == want
+
+
+def test_the_tier_counters_are_declared_as_counters():
+    for name in TIERS:
+        assert obs_metrics.METRIC_CATALOG[name][0] == "counter"
