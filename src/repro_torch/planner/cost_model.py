@@ -20,13 +20,16 @@ The ``pallas`` scheme (the hand-written Sp×Sp kernel tier) keys on the
 planner's device: on the CPU it carries the JAX package's off-TPU
 interpret penalty, so CPU plans match the JAX package's; on a card an
 unmeasured ``pallas`` candidate is priced by the JAX package's
-on-accelerator traffic model, term for term — the bytes of B and A the
-tiled kernels move per B nonzero against the gather tier's, from the
-formats' own byte counts — and a cold plan takes the kernels where that
-price wins. The model charges whole tiles ÷ fill, while the card's
-kernels read only A's live slab columns' B rows, so it prices them far
-above what they measure; measured mode corrects it per pattern. The
-TPU's shard-efficiency constant is left out.
+on-accelerator traffic model — the bytes of B and A the tiled kernels
+move per B nonzero, from the formats' own byte counts — against what the
+gather tier pays per gathered element, and a cold plan takes the kernels
+where that price wins. For a sparse B (``a2``, ``chain``, ``batch``) that
+divisor is the card's own: its gather passes accumulate through a
+sort-based ``index_put_`` far below the memory rate the JAX package
+assumes, so a cold A² plans the kernels. A dense-B SpMM keeps the JAX
+package's price, whose whole-tile B term prices the card's K4 above what
+it measures; measured mode corrects it per pattern. The TPU's
+shard-efficiency constant is left out.
 """
 from __future__ import annotations
 
@@ -60,6 +63,14 @@ PALLAS_INTERPRET_REL = 50.0
 # plus an fp32 value (8 B) per gathered element, × ~1.3 for the binned
 # passes' power-of-two width padding, re-fetched per nonzero
 PALLAS_GATHER_BYTES = 10.4
+# the card's gather tier on a sparse B (A², chain hops, batch packs) in the
+# same unit: its passes scatter each scalar product through a sort-based
+# index_put_(accumulate=True), far below the memory rate. Their H100 time
+# × 3.35 TB/s ÷ the products they gather, for original+rowwise A², read
+# 1.5–5.2 × 10⁵ B a product over the quick tier's eight matrices and
+# 2.5 × 10⁵ on a Graph500 kron-14; this is the median of the nine. The
+# dense-B passes (index_add_) keep PALLAS_GATHER_BYTES.
+PALLAS_CARD_SPGEMM_GATHER_BYTES = 2.5e5
 # the tiled kernels' B term: the TiledCSR store's dense fp32 live tiles,
 # 4 B per slot and no index, read once — ÷ the live tiles' fill gives
 # bytes per B nonzero (a bf16 tile store would move 2 B; the served path
@@ -321,11 +332,13 @@ class CostModel:
         """(kernel_rel, preprocess_rel) from structural features alone.
 
         ``workload`` matters only to an unmeasured ``pallas`` candidate on
-        the card: a product the serving path would shard (``a2``,
-        ``chain`` or a block-diagonal ``batch`` pack on the live-pair
-        grid) divides its traffic terms by the shard count, as the JAX
-        package's per-core term does (without that package's TPU
-        shard-efficiency constant). With one shard —
+        the card. A sparse B (``a2``, ``chain`` or a block-diagonal
+        ``batch`` pack) is priced against the card's gather cost
+        (``PALLAS_CARD_SPGEMM_GATHER_BYTES``), a dense B (``spmm``)
+        against the JAX package's. A product the serving path would shard
+        (a sparse B on the live-pair grid) divides its traffic terms by
+        the shard count, as the JAX package's per-core term does (without
+        that package's TPU shard-efficiency constant). With one shard —
         :func:`~repro_torch.kernels.ops.pallas_shard_count` — nothing
         changes."""
         # disorder: how far the current order is from a banded layout —
@@ -365,24 +378,29 @@ class CostModel:
             if self.device_type == "cpu":
                 kernel_rel = PALLAS_INTERPRET_REL
             else:
-                # traffic per B nonzero relative to the gather tier (both
-                # bound by memory): B's live tiles read once ÷ their fill
-                # (reordering densifies the lattice by at most the
+                # traffic per B nonzero relative to the gather tier's cost
+                # per gathered element: B's live tiles read once ÷ their
+                # fill (reordering densifies the lattice by at most the
                 # recovered-locality factor), one A slab per stream step
                 # ÷ the slab fill, and the residual dead steps
+                sparse_b = workload in ("a2", "chain", "batch")
                 fill = max(f.tile128_fill, 1e-4)
                 fill_eff = min(fill * (1.0 + 2.0 * reorder_gain), 1.0)
                 slab_fill = min(fill_eff * PALLAS_SLAB_FILL_BOOST, 1.0)
                 b_term = PALLAS_B_BYTES_PER_SLOT / fill_eff
                 a_term = PALLAS_A_BYTES_PER_SLOT / slab_fill
-                kernel_rel = ((b_term + a_term) / PALLAS_GATHER_BYTES
-                              + PALLAS_DEAD_STEP_REL)
+                # for a sparse B the price sits at the 0.15 floor on any
+                # fill above ~1.4e-4 (0.21 at the 1e-4 fill floor), so the
+                # B and A terms rank nothing against each other there:
+                # only the comparison with the gather schemes is left
+                gather = (PALLAS_CARD_SPGEMM_GATHER_BYTES if sparse_b
+                          else PALLAS_GATHER_BYTES)
+                kernel_rel = (b_term + a_term) / gather + PALLAS_DEAD_STEP_REL
                 # the sharded kernel splits the live-pair stream across
                 # shards; the padded grid (wide B) and the dense-B SpMM
                 # path are not sharded
                 cores = (max(_pallas_core_count(), 1)
-                         if workload in ("a2", "chain", "batch")
-                         and _pallas_compact_ok(f.ncols) else 1)
+                         if sparse_b and _pallas_compact_ok(f.ncols) else 1)
                 kernel_rel /= cores
                 kernel_rel = min(max(kernel_rel, 0.15 / cores),
                                  PALLAS_INTERPRET_REL)

@@ -463,10 +463,12 @@ class Planner:
         return self.measurer(a, cand)
 
     def _probe_first(self, s: ScoredCandidate) -> bool:
-        """An unmeasured kernel-tier candidate on the card. Its prior, the
-        JAX package's traffic model, charges whole tiles where the card's
-        kernels read only live columns, and ranks them far behind the
-        gather tier; measured mode probes it first and lets the
+        """An unmeasured kernel-tier candidate on the card. Its prior
+        charges whole tiles where the card's kernels read only live
+        columns: for a dense-B SpMM, priced against the JAX package's
+        gather cost, that ranks it far behind the gather tier; for a
+        sparse B, priced against the card's own gather cost, it ranks
+        first. Either way measured mode probes it first and lets the
         measurement decide."""
         return (self.device.type == "cuda" and not s.measured
                 and s.candidate.scheme == "pallas")
@@ -477,7 +479,7 @@ class Planner:
 
         Two gates keep probing cheap: non-amortizing candidates are never
         measured (the break-even rule) — except the kernel tier on the
-        card, whose prior overprices it and which goes first — and the
+        card, whose SpMM prior overprices it and which goes first — and the
         cumulative *predicted* preprocessing of the shortlist is capped
         at ``measure_budget`` SpGEMM-equivalents.
         """

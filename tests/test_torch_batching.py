@@ -535,23 +535,35 @@ def test_batch_workload_is_planned_apart_and_takes_the_discount(monkeypatch):
     with pytest.raises(ValueError, match="unknown workload"):
         planner.plan(h, 1, workload="bogus")
     model = port_cost.CostModel(device="cuda")
-    # a 32-row pack fills a 128 × 128 tile too thinly for the traffic
-    # prior to leave its ceiling: a mid-range fill shows the divisor
-    feats = dataclasses.replace(port_features.extract_features(h),
-                                tile128_fill=0.5)
     pallas = port_cost.Candidate("original", "pallas")
+    card = port_cost.PALLAS_CARD_SPGEMM_GATHER_BYTES
 
-    def rels():
+    def rels(fill):
+        # a 32-row pack fills a 128 × 128 tile too thinly for either
+        # price to leave a clamp: set fills show the divisor — the
+        # features' floor for the sparse-B price (the card's gather
+        # cost), a mid-range fill for SpMM's (the JAX package's)
+        feats = dataclasses.replace(port_features.extract_features(h),
+                                    tile128_fill=fill)
         return {w: model.score(feats, pallas, 20, workload=w).kernel_rel
                 for w in ("a2", "batch", "spmm")}
 
-    one = rels()
-    assert one["batch"] == one["a2"] == one["spmm"]
+    one, one_mid = rels(1e-4), rels(0.5)
+    assert one["batch"] == one["a2"] == (
+        (port_cost.PALLAS_B_BYTES_PER_SLOT / 1e-4
+         + port_cost.PALLAS_A_BYTES_PER_SLOT
+         / (1e-4 * port_cost.PALLAS_SLAB_FILL_BOOST)) / card
+        + port_cost.PALLAS_DEAD_STEP_REL)
     assert 0.15 < one["a2"] < port_cost.PALLAS_INTERPRET_REL
+    assert one_mid["spmm"] == (
+        (port_cost.PALLAS_B_BYTES_PER_SLOT / 0.5
+         + port_cost.PALLAS_A_BYTES_PER_SLOT)
+        / port_cost.PALLAS_GATHER_BYTES + port_cost.PALLAS_DEAD_STEP_REL)
+    assert 0.15 < one_mid["spmm"] < port_cost.PALLAS_INTERPRET_REL
     monkeypatch.setattr(port_cost, "_pallas_core_count", lambda: 4)
-    four = rels()
+    four, four_mid = rels(1e-4), rels(0.5)
     assert four["batch"] == four["a2"] == one["a2"] / 4
-    assert four["spmm"] == one["spmm"]
+    assert four_mid["spmm"] == one_mid["spmm"]
 
 
 def test_execute_batch_disbands_instead_of_laddering():

@@ -2,11 +2,16 @@
 
 * ``CostModel(device="cuda")`` prices an unmeasured ``pallas`` candidate
   as the JAX package prices it on its accelerator (``_pallas_on_tpu``
-  patched to ``True``, one core in both packages): the same
+  patched to ``True``, one core in both packages) with one change: a
+  sparse B (``a2``, ``chain``, ``batch``) is priced against the card's
+  gather cost, ``PALLAS_CARD_SPGEMM_GATHER_BYTES``, where the JAX package
+  divides by ``PALLAS_GATHER_BYTES``; a dense B (``spmm``) keeps the JAX
+  price. So the card's score equals the JAX package's with that constant
+  patched in for a sparse B, and as it is for ``spmm``: the same
   ``kernel_rel`` within 1e-12 on every quick-tier spec (and on three
-  denser patterns, where the prior sits between its floor and its
-  ceiling), for ``original`` and ``rcm``, under ``a2``, ``spmm`` and
-  ``batch`` — and so the same ranking and choice at every reuse count.
+  denser patterns), for ``original`` and ``rcm`` — and so the same
+  ranking and choice at every reuse count. On kron_10_8 the card plans
+  the kernel tier for a sparse B and the JAX package's plan for SpMM.
 * On the CPU every candidate's score is the JAX package's off-TPU score,
   unchanged.
 * ``fit_calibration()`` without ``samples=`` reads the port's sweep cache
@@ -41,6 +46,8 @@ DENSER = {"kron_8_16": lambda: ref_suite.gen_kron(8, 16, seed=0),
               (np.random.default_rng(0).random((128, 128)) < 0.5)
               .astype(np.float32))}
 WORKLOADS = ("a2", "spmm", "batch")
+# the workloads whose B is sparse, priced by the card's gather cost
+SPARSE_B = ("a2", "chain", "batch")
 _FEATS: dict = {}
 
 
@@ -68,13 +75,24 @@ def one_core_accelerator(monkeypatch):
     monkeypatch.setattr(port_cost, "_pallas_core_count", lambda: 1)
 
 
+def _jax_card_price(monkeypatch, workload):
+    """The JAX package's accelerator branch as the card prices
+    ``workload``: the card's gather cost for a sparse B, the JAX
+    package's own for a dense B."""
+    monkeypatch.setattr(ref_cost, "PALLAS_GATHER_BYTES",
+                        port_cost.PALLAS_CARD_SPGEMM_GATHER_BYTES
+                        if workload in SPARSE_B
+                        else port_cost.PALLAS_GATHER_BYTES)
+
+
 @pytest.mark.parametrize("spec", QUICK + list(DENSER))
 def test_card_prior_matches_the_jax_accelerator_branch(one_core_accelerator,
-                                                       spec):
+                                                       monkeypatch, spec):
     f_ref, f_port = _features(spec)
     ref, port = ref_cost.CostModel(), port_cost.CostModel(device="cuda")
-    for reorder in ("original", "rcm"):
-        for workload in WORKLOADS:
+    for workload in SPARSE_B + ("spmm",):
+        _jax_card_price(monkeypatch, workload)
+        for reorder in ("original", "rcm"):
             want = ref.score(f_ref, ref_cost.Candidate(reorder, "pallas"), 20,
                              workload=workload)
             got = port.score(f_port, port_cost.Candidate(reorder, "pallas"),
@@ -83,8 +101,7 @@ def test_card_prior_matches_the_jax_accelerator_branch(one_core_accelerator,
             assert got.preprocess_rel == want.preprocess_rel
             assert got.amortizes == want.amortizes
             assert 0.15 <= got.kernel_rel <= port_cost.PALLAS_INTERPRET_REL
-    for reuse in (1, 20, 10000):
-        for workload in WORKLOADS:
+        for reuse in (1, 20, 10000):
             want = [(s.candidate.key, s.amortizes) for s in
                     ref.rank(f_ref, reuse, workload=workload)]
             got = [(s.candidate.key, s.amortizes) for s in
@@ -109,21 +126,73 @@ def test_cpu_scores_are_unchanged(spec):
 
 
 def test_prior_terms_and_the_shard_divisor(monkeypatch):
-    """The prior by hand on a dense 128 × 128 tile (fill 1: every term
-    at its floor) and the per-shard divisor for the live-pair grid's
-    workloads only."""
+    """The prior by hand at the two ends of the tile fill — a dense 128 ×
+    128 tile (fill 1: every term at its floor) and the features' floor,
+    1e-4 — priced against the card's gather cost for a sparse B and the
+    JAX package's for SpMM, both clamps where they bind, and the
+    per-shard divisor for the live-pair grid's workloads only."""
     f = _features("half_dense_128")[1]
-    dense = dataclasses.replace(f, tile128_fill=1.0)
     model = port_cost.CostModel(device="cuda")
     cand = port_cost.Candidate("original", "pallas")
-    want = ((port_cost.PALLAS_B_BYTES_PER_SLOT
-             + port_cost.PALLAS_A_BYTES_PER_SLOT)
-            / port_cost.PALLAS_GATHER_BYTES + port_cost.PALLAS_DEAD_STEP_REL)
-    assert model.score(dense, cand, 20).kernel_rel == want
+    card = port_cost.PALLAS_CARD_SPGEMM_GATHER_BYTES
+    jax = port_cost.PALLAS_GATHER_BYTES
+
+    def rel(fill, workload):
+        return model.score(dataclasses.replace(f, tile128_fill=fill), cand,
+                           20, workload=workload).kernel_rel
+
+    dense = port_cost.PALLAS_B_BYTES_PER_SLOT \
+        + port_cost.PALLAS_A_BYTES_PER_SLOT
+    sparse = port_cost.PALLAS_B_BYTES_PER_SLOT / 1e-4 \
+        + port_cost.PALLAS_A_BYTES_PER_SLOT \
+        / (1e-4 * port_cost.PALLAS_SLAB_FILL_BOOST)
+    dead = port_cost.PALLAS_DEAD_STEP_REL
+    assert rel(1.0, "spmm") == dense / jax + dead
+    assert rel(1e-4, "spmm") == port_cost.PALLAS_INTERPRET_REL
+    one = sparse / card + dead
+    assert 0.15 < one < port_cost.PALLAS_INTERPRET_REL
+    for workload in SPARSE_B:
+        assert rel(1.0, workload) == max(dense / card + dead, 0.15)
+        assert rel(1e-4, workload) == one
     monkeypatch.setattr(port_cost, "_pallas_core_count", lambda: 4)
-    assert model.score(dense, cand, 20, workload="batch").kernel_rel \
-        == want / 4
-    assert model.score(dense, cand, 20, workload="spmm").kernel_rel == want
+    for workload in SPARSE_B:
+        assert rel(1e-4, workload) == one / 4
+        assert rel(1.0, workload) == max(dense / card + dead, 0.15) / 4
+    assert rel(1.0, "spmm") == dense / jax + dead
+    assert rel(1e-4, "spmm") == port_cost.PALLAS_INTERPRET_REL
+
+
+def test_card_plans_the_kernel_tier_for_a_sparse_b_only(
+        one_core_accelerator):
+    """kron_10_8 on the card, unmeasured: ``original+pallas`` ranks first
+    and amortizes for every sparse-B workload at the server's reuse of
+    20, while SpMM ranks as the JAX package ranks it on its accelerator;
+    a planner on the card plans the kernels for A² and the JAX package's
+    choice for SpMM of the same pattern."""
+    import torch
+
+    from repro_torch.planner.plan_cache import PlanCache
+    from repro_torch.planner.service import Planner
+    f_ref, f_port = _features("kron_10_8")
+    model = port_cost.CostModel(device="cuda")
+    for workload in SPARSE_B:
+        first = model.rank(f_port, 20, workload=workload)[0]
+        assert first.candidate.key == "original+pallas" and first.amortizes
+    want = [(s.candidate.key, s.kernel_rel, s.amortizes) for s in
+            ref_cost.CostModel().rank(f_ref, 20, workload="spmm")]
+    got = [(s.candidate.key, s.kernel_rel, s.amortizes)
+           for s in model.rank(f_port, 20, workload="spmm")]
+    assert got == want
+    h_ref = ref_suite.generate(next(s for s in ref_suite.SUITE
+                                    if s.name == "kron_10_8"))
+    h = HostCSR(h_ref.indptr, h_ref.indices, h_ref.data, h_ref.shape)
+    planner = Planner(cache=PlanCache(), device="cpu")
+    planner.device = torch.device("cuda")       # plans key on the device
+    planner.cost_model = model
+    a2 = planner.plan(h, 20)
+    spmm = planner.plan(h, 20, workload="spmm")
+    assert f"{a2.reorder}+{a2.scheme}" == "original+pallas"
+    assert f"{spmm.reorder}+{spmm.scheme}" == want[0][0] == "degree+fixed"
 
 
 # ---------------------------------------------------------------------------

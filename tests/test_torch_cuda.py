@@ -266,18 +266,49 @@ def test_sharded_kernel_one_cta_per_window_equals_window_kernel(
 
 
 def test_server_ladder_degrades_to_the_fixed_rung_on_the_card(card):
+    from repro_torch.obs import metrics as obs_metrics
     a = _host(256, 256, 0.03, 11)
     cache = PlanCache()
     cache.put(Plan(fingerprint=fingerprint(a), reorder="original",
                    scheme="pallas", reuse_hint=20))
     server = SpGEMMServer(Planner(cache=cache, device=card,
                                   resilience=ResiliencePolicy()))
+    want = a.to_dense() @ a.to_dense()
+    reg = obs_metrics.get_registry()
+    kernel, gather = (reg.counter("kernel_tier_products"),
+                      reg.counter("gather_tier_products"))
+
+    def tiers():
+        return kernel.value, gather.value
+
     with faults.injected(faults.FaultPlan(0, sites=["kernel_launch"])):
         resp = server.submit(a)
     assert resp.degraded and resp.fallback_scheme == "fixed"
-    assert np.array_equal(resp.result, a.to_dense() @ a.to_dense())
+    assert np.array_equal(resp.result, want)
+    # the breaker quarantines the failed (fingerprint, scheme, reorder)
+    # triple; the re-plan takes the card prior's next candidate for a
+    # sparse B, the kernel tier under rcm, and runs on it
+    k0, g0 = tiers()
     nxt = server.submit(a)
-    assert nxt.scheme != "pallas" and not nxt.degraded
+    assert (nxt.reorder, nxt.scheme) == ("rcm", "pallas")
+    assert not nxt.degraded
+    assert tiers() == (k0 + 1, g0)
+    assert np.array_equal(nxt.result, want)
+    # a fault that persists in the kernel tier costs one degraded request
+    # per reorder: rcm+pallas degrades in turn, and with both kernel-tier
+    # triples quarantined the next plan is the prior's first gather scheme
+    with faults.injected(faults.FaultPlan(0, sites=["kernel_launch"],
+                                          max_fires=None)):
+        third = server.submit(a)
+    assert (third.reorder, third.scheme) == ("rcm", "pallas")
+    assert third.degraded and third.fallback_scheme == "fixed"
+    assert tiers() == (k0 + 1, g0 + 1)
+    assert np.array_equal(third.result, want)
+    last = server.submit(a)
+    assert (last.reorder, last.scheme) == ("degree", "rowwise")
+    assert not last.degraded
+    assert tiers() == (k0 + 1, g0 + 2)
+    assert np.array_equal(last.result, want)
 
 
 @pytest.mark.parametrize("n_cols", [64, 40, 5])
@@ -1319,6 +1350,37 @@ def test_cold_kron_request_plans_what_the_prior_ranks_first(card):
     assert not resp.degraded and not resp.plan_cache_hit
     s = sp.csr_matrix((h.data, h.indices, h.indptr), shape=h.shape)
     assert np.array_equal(resp.result, (s @ s).toarray().astype(np.float32))
+
+
+@pytest.mark.parametrize("scale", [12, 14])
+def test_cold_kron_a2_runs_on_the_kernel_tier(card, scale):
+    """An unmeasured server (``measure=False``) on a Graph500-style kron
+    graph: the card prices the kernel tier for a sparse B by its own
+    gather cost, so A² plans ``original+pallas``, counts its products in
+    ``kernel_tier_products`` (never ``gather_tier_products``), and each
+    answer equals scipy's float64 square exactly."""
+    import scipy.sparse as sp
+
+    from repro_torch.core.suite import gen_kron
+    from repro_torch.obs import metrics as obs_metrics
+    pattern = gen_kron(scale, 16, seed=scale)
+    vals = np.random.default_rng(scale).integers(1, 4, pattern.nnz)
+    h = HostCSR(pattern.indptr, pattern.indices, vals.astype(np.float32),
+                pattern.shape)
+    s = sp.csr_matrix((h.data.astype(np.float64), h.indices, h.indptr),
+                      shape=h.shape)
+    want = (s @ s).toarray()
+    reg = obs_metrics.get_registry()
+    kernel, gather = (reg.counter("kernel_tier_products"),
+                      reg.counter("gather_tier_products"))
+    k0, g0 = kernel.value, gather.value
+    server = SpGEMMServer(device=card, measure=False)
+    for _ in range(2):
+        resp = server.submit(h)
+        assert (resp.reorder, resp.scheme) == ("original", "pallas")
+        assert not resp.degraded
+        assert np.array_equal(resp.result, want)
+    assert (kernel.value - k0, gather.value - g0) == (2, 0)
 
 
 # ---------------------------------------------------------------------------

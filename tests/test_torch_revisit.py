@@ -240,7 +240,10 @@ def test_card_cost_model_shard_term_is_inert_at_one_shard(monkeypatch):
     """The port's counterpart of the JAX package's per-core pallas term:
     the card's traffic prior divides by the shard count for products the
     serving path would shard (A² and chain hops on the live-pair grid) —
-    and with one shard, the default, nothing changes."""
+    and with one shard, the default, nothing changes. A² and chain hops
+    are priced against the card's gather cost (at the features' floor
+    fill, so that neither clamp binds), SpMM against the JAX package's
+    (at the pattern's own fill)."""
     from repro_torch.planner import cost_model as pcm
     from repro_torch.planner.features import extract_features
     h = PF.HostCSR.from_dense(integer_dense(64, 64, 0.08, 3))
@@ -249,18 +252,29 @@ def test_card_cost_model_shard_term_is_inert_at_one_shard(monkeypatch):
     cand = pcm.Candidate("original", "pallas")
 
     def rel(workload, ncols=None):
-        f = feats if ncols is None else dataclasses.replace(feats,
-                                                            ncols=ncols)
+        f = feats if workload == "spmm" else dataclasses.replace(
+            feats, tile128_fill=1e-4)
+        if ncols is not None:
+            f = dataclasses.replace(f, ncols=ncols)
         return model.score(f, cand, 20, workload=workload).kernel_rel
 
     assert pcm._pallas_core_count() == 1
-    base = {w: rel(w) for w in ("a2", "chain", "spmm")}
-    one = base["a2"]
-    assert base == {w: one for w in base}
-    assert 0.15 < one < pcm.PALLAS_INTERPRET_REL     # neither clamp binds
+    one = rel("a2")
+    assert rel("chain") == one == (
+        (pcm.PALLAS_B_BYTES_PER_SLOT / 1e-4
+         + pcm.PALLAS_A_BYTES_PER_SLOT / (1e-4 * pcm.PALLAS_SLAB_FILL_BOOST))
+        / pcm.PALLAS_CARD_SPGEMM_GATHER_BYTES + pcm.PALLAS_DEAD_STEP_REL)
+    spmm = rel("spmm")
+    fill = feats.tile128_fill
+    assert spmm == ((pcm.PALLAS_B_BYTES_PER_SLOT / fill
+                     + pcm.PALLAS_A_BYTES_PER_SLOT
+                     / min(fill * pcm.PALLAS_SLAB_FILL_BOOST, 1.0))
+                    / pcm.PALLAS_GATHER_BYTES + pcm.PALLAS_DEAD_STEP_REL)
+    for r in (one, spmm):
+        assert 0.15 < r < pcm.PALLAS_INTERPRET_REL    # neither clamp binds
     monkeypatch.setattr(pcm, "_pallas_core_count", lambda: 4)
     assert rel("a2") == rel("chain") == one / 4
-    assert rel("spmm") == one                          # not sharded
+    assert rel("spmm") == spmm                         # not sharded
     assert rel("a2", ncols=10 ** 6) == one             # padded
     cpu = pcm.CostModel(device="cpu")
     assert cpu.score(feats, cand, 20, workload="a2").kernel_rel \

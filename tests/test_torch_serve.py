@@ -40,6 +40,7 @@ from repro_torch.core.formats import HostCSR
 from repro_torch.planner.cost_model import (DEFAULT_CANDIDATES, IDENTITY,
                                             PALLAS_A_BYTES_PER_SLOT,
                                             PALLAS_B_BYTES_PER_SLOT,
+                                            PALLAS_CARD_SPGEMM_GATHER_BYTES,
                                             PALLAS_DEAD_STEP_REL,
                                             PALLAS_GATHER_BYTES, Candidate,
                                             CostModel)
@@ -248,10 +249,12 @@ def test_cpu_cost_model_scores_like_the_reference():
 
 
 def test_card_cost_model_needs_a_measurement_to_pick_pallas(monkeypatch):
-    """On kron_10_8 the card's traffic prior — the JAX package's
+    """On kron_10_8 the card's SpMM prior — the JAX package's
     on-accelerator score at one core — ranks the kernel tier far behind
-    the gather tier at every reuse count, so only a measurement routes
-    the pattern to it."""
+    the gather tier at every reuse count, so only a measurement routes a
+    dense-B product to it. A sparse B is priced against the card's own
+    gather cost instead: A² takes the kernel tier unmeasured wherever
+    preprocessing can amortize."""
     import repro.planner.cost_model as ref_cost
     monkeypatch.setattr(ref_cost, "_pallas_on_tpu", lambda: True)
     monkeypatch.setattr(ref_cost, "_pallas_core_count", lambda: 1)
@@ -259,67 +262,90 @@ def test_card_cost_model_needs_a_measurement_to_pick_pallas(monkeypatch):
     f, f_ref = extract_features(h), ref_features(h_ref)
     model, ref = CostModel(device="cuda"), RefCostModel()
     for reuse in (1, 100, 10000):
-        assert model.choose(f, reuse).candidate.scheme != "pallas"
-        for s in model.rank(f, reuse):
+        assert model.choose(f, reuse, workload="spmm").candidate.scheme \
+            != "pallas"
+        for s in model.rank(f, reuse, workload="spmm"):
             if s.candidate.scheme == "pallas":
-                want = ref.score(f_ref, s.candidate, reuse)
+                want = ref.score(f_ref, s.candidate, reuse, workload="spmm")
                 assert s.kernel_rel == want.kernel_rel > 1.0
                 assert not s.amortizes and not want.amortizes
-    fp = fingerprint(h)
+    assert model.choose(f, 1).candidate == IDENTITY      # single-shot
+    for reuse in (100, 10000):
+        assert model.choose(f, reuse).candidate.key == "original+pallas"
+    fp = f"{fingerprint(h)}|spmm"
     model.observe(fp, IDENTITY, kernel_s=1.0, preprocess_s=0.0)
     model.observe(fp, Candidate("original", "pallas"), kernel_s=0.2,
                   preprocess_s=0.1)
-    assert model.choose(f, 20, fingerprint=fp).candidate.key \
-        == "original+pallas"
+    assert model.choose(f, 20, fingerprint=fp,
+                        workload="spmm").candidate.key == "original+pallas"
 
 
 def test_card_prior_on_a_dense_pattern_amortizes_but_ranks_behind(
         monkeypatch):
-    """On a 90%-full pattern the prior sits near its one-shard floor
+    """On a 90%-full pattern the SpMM prior sits near its one-shard floor
     ((4 + 4) / 10.4 + 0.01 B-traffic ratio, fill 1): the kernel tier
     amortizes at the server's reuse of 20, yet the clustered gather
-    schemes rank ahead of it — the cold plan is the JAX package's
-    on-accelerator plan, and not the kernels."""
+    schemes rank ahead of it — the cold SpMM plan is the JAX package's
+    on-accelerator plan, and not the kernels. Priced against the card's
+    gather cost, A² of the same pattern sits at the 0.15 floor and plans
+    ``original+pallas``."""
     import repro.planner.cost_model as ref_cost
     monkeypatch.setattr(ref_cost, "_pallas_on_tpu", lambda: True)
     monkeypatch.setattr(ref_cost, "_pallas_core_count", lambda: 1)
     h_ref, h = _pair(integer_dense(128, 128, 0.9, 7))
     f, f_ref = extract_features(h), ref_features(h_ref)
     model, ref = CostModel(device="cuda"), RefCostModel()
-    floor = ((PALLAS_B_BYTES_PER_SLOT + PALLAS_A_BYTES_PER_SLOT)
-             / PALLAS_GATHER_BYTES + PALLAS_DEAD_STEP_REL)
-    for s in model.rank(f, 20):
+    terms = PALLAS_B_BYTES_PER_SLOT + PALLAS_A_BYTES_PER_SLOT
+    floor = terms / PALLAS_GATHER_BYTES + PALLAS_DEAD_STEP_REL
+    for s in model.rank(f, 20, workload="spmm"):
         if s.candidate.scheme == "pallas":
             assert floor <= s.kernel_rel < 0.97 and s.amortizes
-    best = model.choose(f, 20)
+    best = model.choose(f, 20, workload="spmm")
     assert best.candidate.scheme != "pallas"
-    assert best.candidate.key == ref.choose(f_ref, 20).candidate.key
+    assert best.candidate.key == ref.choose(f_ref, 20,
+                                            workload="spmm").candidate.key
+    assert terms / PALLAS_CARD_SPGEMM_GATHER_BYTES + PALLAS_DEAD_STEP_REL \
+        < 0.15
+    for s in model.rank(f, 20):
+        if s.candidate.scheme == "pallas":
+            assert s.kernel_rel == 0.15 and s.amortizes
+    assert model.choose(f, 20).candidate.key == "original+pallas"
     planner = Planner(device="cpu")
     planner.device = torch.device("cuda")    # plans key on the device
     planner.cost_model = model
-    plan = planner.plan(h, 20)
+    plan = planner.plan(h, 20, workload="spmm")
     assert (plan.reorder, plan.scheme) == (best.candidate.reorder,
                                            best.candidate.scheme)
+    plan = planner.plan(h, 20)
+    assert (plan.reorder, plan.scheme) == ("original", "pallas")
 
 
 def test_card_planner_probes_the_kernel_tier_first():
-    """The prior ranks both kernel-tier candidates last on kron_10_8 (they
-    do not amortize); measured mode on the card still probes them first,
-    right after the identity baseline, because the prior overprices the
-    card's kernels. On the CPU they are never probed."""
+    """The SpMM prior ranks both kernel-tier candidates last on kron_10_8
+    (they do not amortize); the A² prior, priced against the card's
+    gather cost, ranks them first. Measured mode on the card probes them
+    first either way, right after the identity baseline. On the CPU they
+    are never probed."""
     _, h = family_pair("kron_10_8")
     planner = Planner(device="cpu")
     ranked_cpu = planner.cost_model.rank(extract_features(h), 20)
     assert all(s.candidate.scheme != "pallas"
                for s in planner._shortlist(ranked_cpu))
     planner.device = torch.device("cuda")      # the rule keys on the device
-    ranked = CostModel(device="cuda").rank(extract_features(h), 20)
-    assert [s.candidate.scheme for s in ranked[-2:]] == ["pallas", "pallas"]
-    assert not any(s.amortizes for s in ranked[-2:])
-    short = planner._shortlist(ranked)
-    assert short[0].candidate == IDENTITY
-    assert [s.candidate.scheme for s in short[1:3]] == ["pallas", "pallas"]
-    assert sum(s.preprocess_rel for s in short) <= planner.measure_budget
+    model = CostModel(device="cuda")
+    spmm = model.rank(extract_features(h), 20, workload="spmm")
+    assert [s.candidate.scheme for s in spmm[-2:]] == ["pallas", "pallas"]
+    assert not any(s.amortizes for s in spmm[-2:])
+    a2 = model.rank(extract_features(h), 20)
+    assert [s.candidate.key for s in a2[:2]] == ["original+pallas",
+                                                 "rcm+pallas"]
+    assert all(s.amortizes for s in a2[:2])
+    for ranked in (spmm, a2):
+        short = planner._shortlist(ranked)
+        assert short[0].candidate == IDENTITY
+        assert [s.candidate.scheme for s in short[1:3]] == ["pallas",
+                                                            "pallas"]
+        assert sum(s.preprocess_rel for s in short) <= planner.measure_budget
 
 
 def test_measured_mode_serves_on_cpu():
