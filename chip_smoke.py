@@ -1373,6 +1373,7 @@ def serve_phase(mats, device, rng, spmm_cols):
     from repro_torch.obs import metrics as obs_metrics
     from repro_torch.obs.trace import get_tracer
     from repro_torch.planner.cost_model import Candidate
+    from repro_torch.planner.executor import KernelSpGEMM, KernelSpMM
     from repro_torch.planner.features import fingerprint
     from repro_torch.planner.plan_cache import Plan, PlanCache
     from repro_torch.planner.service import Planner, _materialize
@@ -1426,17 +1427,21 @@ def serve_phase(mats, device, rng, spmm_cols):
                 + [("wide", "a2", "padded", False),
                    ("wide", "a2", "padded", True)]
                 + [("cave", "chain", "chain", False)])
+    # the chaos request: a kernel_launch fault on a kron-14 request of a
+    # server with its own resilience policy, degraded to the fixed rung;
+    # the next request plans around the quarantined (original, pallas)
+    # plan: on the card the prior's next candidate for a sparse B is the
+    # kernel tier under rcm (one dense-strip launch), on the CPU a gather
+    # scheme
+    card = device.type == "cuda"
     want_launch = {"dense": (1, 0, 0), "sparse": (1, 0, 0),
                    "spmm": (0, 1, 0), "padded": (0, 0, 1),
                    "chain": (2, 0, 0), "chaos": (0, 0, 0),
-                   "replanned": (0, 0, 0)}
+                   "replanned": (1, 0, 0) if card else (0, 0, 0)}
     want_routes = {"dense": None, "sparse": {"sparse_c": 1},
                    "spmm": {}, "padded": {"padded": 1},
                    "chain": {"sparse_c": 2}, "chaos": {},
-                   "replanned": {}}
-    # the chaos request: a kernel_launch fault on a kron-14 request of a
-    # server with its own resilience policy, degraded to the fixed rung;
-    # the next request plans around the quarantined pallas plan
+                   "replanned": None if card else {}}
     chaos_cache = PlanCache()
     chaos_cache.put(Plan(fingerprint=fingerprint(kron), reorder="original",
                          scheme="pallas", reuse_hint=20))
@@ -1520,8 +1525,9 @@ def serve_phase(mats, device, rng, spmm_cols):
             ok = (resp.degraded and resp.fallback_scheme == "fixed"
                   and chaos_policy.stats["quarantined"] == 1)
         elif route == "replanned":
-            ok = (resp.scheme != "pallas" and not resp.plan_cache_hit
-                  and not resp.degraded)
+            ok = (((resp.reorder, resp.scheme) == ("rcm", "pallas") if card
+                   else resp.scheme != "pallas")
+                  and not resp.plan_cache_hit and not resp.degraded)
         else:
             ok = (resp.scheme == "pallas" and resp.plan_cache_hit
                   and not resp.degraded)
@@ -1540,17 +1546,17 @@ def serve_phase(mats, device, rng, spmm_cols):
     planner = server.planner
     held = {"exec_entries": planner.stats["exec_entries"],
             "exec_bytes": planner.stats["exec_bytes"],
-            "exec_cap_bytes": planner._exec_cache_bytes_cap,
+            "exec_cap_bytes": planner.exec_cache.bytes_cap,
             "peak_device_bytes": (torch.cuda.max_memory_allocated(device)
                                   if device.type == "cuda" else None)}
     # the kept packs of the window and SpMM routes carry A's live columns
     # (built once per packed operand); the padded grid reads slabs
     kinds = {}
-    for e, _ in planner._exec_cache.values():
-        if e[0] == "spmm_pallas":
-            kind, cols = e[0], e[3]
-        elif e[0] in ("pallas", "chain"):
-            kind, cols = f"{e[0]}:{e[2].route}", e[2].cols
+    for _, e in planner.exec_cache.items():
+        if isinstance(e, KernelSpMM):
+            kind, cols = "KernelSpMM", e.cols
+        elif isinstance(e, KernelSpGEMM):
+            kind, cols = f"KernelSpGEMM:{e.pack.route}", e.pack.cols
         else:
             continue
         kinds.setdefault(kind, []).append(cols is not None)
@@ -1561,7 +1567,9 @@ def serve_phase(mats, device, rng, spmm_cols):
     if not all(ok for k, ok in held["live_columns_kept"].items()
                if not k.endswith(":padded")):
         raise SystemExit(f"a kept pack lacks its live columns: {held}")
-    if device.type == "cuda" and launches != {"cluster_spgemm_windows": 8,
+    # the window launches: 8 on the seeded plans, 1 on the re-plan after
+    # the chaos request (rcm+pallas)
+    if device.type == "cuda" and launches != {"cluster_spgemm_windows": 9,
                                               "cluster_spmm_compact": 1,
                                               "cluster_spgemm_padded": 2}:
         raise SystemExit(f"launch counts off the main path: {launches}")

@@ -14,12 +14,14 @@ Two exports matter downstream:
 * :func:`fingerprint` — a stable *pattern* digest (shape + indptr +
   indices; values excluded) keying the plan cache. Two matrices with the
   same sparsity pattern but different values share a plan: reordering and
-  clustering decisions depend only on structure.
+  clustering decisions depend only on structure. With the values' digest
+  (:func:`value_digest`) it makes an operand's identity.
 """
 from __future__ import annotations
 
 import dataclasses
 import hashlib
+import weakref
 
 import numpy as np
 
@@ -29,7 +31,8 @@ from repro_torch.core.similarity import (jaccard_pairs_topk,
                                    pairwise_jaccard_consecutive)
 
 __all__ = ["MatrixFeatures", "extract_features", "fingerprint",
-           "FINGERPRINT_VERSION"]
+           "FINGERPRINT_VERSION", "value_digest", "array_digest",
+           "IdentityMemo"]
 
 # bump when the digest recipe changes — a stale on-disk plan keyed by an
 # old recipe must never match a new fingerprint
@@ -49,6 +52,46 @@ def fingerprint(a: HostCSR) -> str:
     h.update(np.ascontiguousarray(a.indptr, dtype=np.int64).tobytes())
     h.update(np.ascontiguousarray(a.indices, dtype=np.int32).tobytes())
     return f"{FINGERPRINT_VERSION}-{h.hexdigest()[:24]}"
+
+
+def array_digest(x) -> str:
+    """Cheap digest of an array's values, taken as float32."""
+    d = hashlib.blake2b(digest_size=8)
+    d.update(np.ascontiguousarray(x, dtype=np.float32).tobytes())
+    return d.hexdigest()
+
+
+def value_digest(a: HostCSR) -> str:
+    """Cheap digest of a matrix's numeric values (pattern excluded)."""
+    return array_digest(a.data)
+
+
+class IdentityMemo:
+    """A value per live object (serving treats operands as immutable),
+    keyed by ``id()`` beside a weak reference: a hit proves the object
+    alive, so its id was not reused, and an entry goes with its object.
+    An object that takes no weak reference is never remembered."""
+
+    def __init__(self):
+        self._entries: dict[int, tuple[weakref.ref, object]] = {}
+
+    def get(self, obj, default=None):
+        ref, value = self._entries.get(id(obj), (None, default))
+        return value if ref is not None and ref() is obj else default
+
+    def put(self, obj, value) -> None:
+        oid, entries = id(obj), self._entries
+
+        def drop(ref):          # a later object may hold the id by now
+            if entries.get(oid, (None,))[0] is ref:
+                entries.pop(oid, None)
+        try:
+            entries[oid] = (weakref.ref(obj, drop), value)
+        except TypeError:
+            pass
+
+    def __len__(self) -> int:
+        return len(self._entries)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1,14 +1,14 @@
-"""The planner service: ``plan_spgemm(A, reuse_hint) -> Plan`` and
-``execute(plan, A, B)``, on the device the planner was built for.
+"""The planner service: ``Planner.plan(A, reuse_hint) -> Plan`` and
+``Planner.execute(plan, A, B)``, on the device the planner was built for.
 
 Extract features, rank candidates with the amortization-aware cost model,
 optionally measure a shortlist on the real matrix, materialize the winner
 (permutation + cluster boundaries), and cache the plan under the matrix's
 pattern fingerprint so its cost is paid once per pattern. ``execute``
-packs the device operands once per (plan, operand values), runs the
-product — the ``pallas`` scheme through the hand-written window kernel,
-the other four through the gather/scatter tier — and returns host numpy
-in the *original* row/column order.
+packs the device operands once per (plan, operand values) (see
+:mod:`repro_torch.planner.executor`), runs the product — the ``pallas``
+scheme through the hand-written kernels, the other four through the
+gather/scatter tier — and returns host numpy in the *original* order.
 
 ``execute`` accepts ``b=None`` (the paper's A² workload), a second
 ``HostCSR`` (general SpGEMM) or a dense ``(ncols, width)`` array (the
@@ -25,9 +25,7 @@ and, on pallas hops, runs the sparse-C route so the intermediate goes
 from __future__ import annotations
 
 import contextlib
-import dataclasses
 import hashlib
-import inspect
 import threading
 import time
 from typing import Callable, Optional, Sequence
@@ -39,26 +37,19 @@ from repro_torch.core.clustering import (DEFAULT_MAX_CLUSTER,
                                          fixed_length_clusters,
                                          hierarchical_clusters,
                                          variable_length_clusters)
-from repro_torch.core.formats import (HostCSR, ValueLayout, bcc_from_host,
-                                      compacted_c_to_host,
-                                      csr_cluster_from_host,
-                                      csr_cluster_layout, csr_from_host,
-                                      csr_layout, fill_values,
-                                      select_block_k, tiled_csr_from_host)
+from repro_torch.core.formats import HostCSR, compacted_c_to_host
 from repro_torch.core.reorder import reorder as apply_reorder
-from repro_torch.core.spgemm import (length_bins, slot_rows_host,
-                                     spgemm_clusterwise_dense_binned,
-                                     spgemm_rowwise_dense_binned,
-                                     spmm_clusterwise, spmm_rowwise)
 from repro_torch.device import resolve_device, synchronize
 from repro_torch.kernels import ops as kernel_ops
 from repro_torch.obs import audit as obs_audit
 from repro_torch.obs import metrics as obs_metrics
 from repro_torch.obs.trace import get_tracer
+from repro_torch.planner import executor
 from repro_torch.planner.cost_model import (Candidate, CostModel,
                                             DEFAULT_CANDIDATES, IDENTITY,
                                             Measurement, ScoredCandidate)
-from repro_torch.planner.features import extract_features, fingerprint
+from repro_torch.planner.features import (extract_features, fingerprint,
+                                          value_digest)
 from repro_torch.planner.plan_cache import (DEFAULT_CACHE_DIR,
                                             DEFAULT_MAX_BYTES, Plan,
                                             PlanCache)
@@ -69,8 +60,17 @@ from repro_torch.resilience.errors import (LadderExhaustedError,
 from repro_torch.resilience.policy import (ResiliencePolicy, fallback_chain,
                                            get_policy)
 
-__all__ = ["Planner", "plan_spgemm", "execute", "execute_chain",
-           "default_planner", "reset_default_planner"]
+__all__ = ["Planner", "default_planner"]
+
+# measured mode probes at most MEASURE_TOP shortlisted candidates, whose
+# summed predicted preprocessing stays within MEASURE_BUDGET
+# SpGEMM-equivalents; a probe past PROBE_TIMEOUT_S seconds is skipped
+MEASURE_TOP = 4
+MEASURE_BUDGET = 1.3
+PROBE_TIMEOUT_S = 30.0
+
+# the executor cache's key reads the values' digest through this name
+_value_digest = value_digest
 
 
 # ---------------------------------------------------------------------------
@@ -114,34 +114,6 @@ def _materialize(a: HostCSR, cand: Candidate,
     return perm, boundaries, max_cluster, time.perf_counter() - t0
 
 
-def _tensor_nbytes(obj) -> int:
-    """Bytes of the tensors an exec-cache entry holds (walking tuples and
-    dataclasses of tensors; host numpy arrays and scalars count 0)."""
-    if isinstance(obj, torch.Tensor):
-        return obj.numel() * obj.element_size()
-    if isinstance(obj, (tuple, list)):
-        return sum(_tensor_nbytes(x) for x in obj)
-    if dataclasses.is_dataclass(obj) and not isinstance(obj, type):
-        return sum(_tensor_nbytes(getattr(obj, f.name))
-                   for f in dataclasses.fields(obj))
-    return 0
-
-
-def _default_exec_cache_bytes(device: torch.device) -> int:
-    """A quarter of the card's memory on CUDA; 4 GiB of host memory on
-    the CPU."""
-    if device.type == "cuda":
-        return torch.cuda.get_device_properties(device).total_memory // 4
-    return 4 * 2**30
-
-
-def _value_digest(h: HostCSR) -> str:
-    """Cheap digest of a matrix's numeric values (pattern excluded)."""
-    d = hashlib.blake2b(digest_size=8)
-    d.update(np.ascontiguousarray(h.data, dtype=np.float32).tobytes())
-    return d.hexdigest()
-
-
 def _plan_digest(plan: Plan) -> str:
     """Digest of what determines a plan's packed layout: scheme params,
     the permutation and the cluster boundaries (memoized on the plan)."""
@@ -158,14 +130,6 @@ def _plan_digest(plan: Plan) -> str:
     out = d.hexdigest()
     plan._layout_digest = out
     return out
-
-
-def _count_product(plan: Plan) -> None:
-    """Count one executed product under its plan's tier:
-    ``kernel_tier_products`` for the ``pallas`` scheme (the hand-written
-    kernels), ``gather_tier_products`` for the other four."""
-    tier = "kernel" if plan.scheme == "pallas" else "gather"
-    obs_metrics.get_registry().counter(f"{tier}_tier_products").inc()
 
 
 class _SingleFlight:
@@ -196,14 +160,6 @@ class _SingleFlight:
                     self._locks.pop(key, None)
 
 
-def _apply_plan_perm(a: HostCSR, plan: Plan, *, symmetric: bool) -> HostCSR:
-    if plan.perm is None:
-        return a
-    if symmetric and a.nrows == a.ncols:
-        return a.permute_symmetric(plan.perm)
-    return a.permute_rows(plan.perm)
-
-
 # ---------------------------------------------------------------------------
 # the planner
 # ---------------------------------------------------------------------------
@@ -216,11 +172,6 @@ class Planner:
       cache: a :class:`PlanCache` (defaults to in-memory only).
       cost_model: shared :class:`CostModel` (default: one for ``device``);
         measurements accumulate here.
-      measurer: ``(a, candidate[, workload]) -> Measurement`` used by
-        measured mode; defaults to timing the candidate on ``device``.
-      measure_top / measure_budget: how many shortlisted candidates
-        measured mode probes, and the cap on their summed predicted
-        preprocessing (in SpGEMM-equivalents).
       calibration: optional fitted
         :class:`~repro_torch.planner.calibration.Calibration` forwarded
         into a default-constructed cost model (ignored when
@@ -229,8 +180,6 @@ class Planner:
         (``None``: float32; ``torch.bfloat16`` halves B's bytes at the
         documented 2e-2 relative bound, fp32 accumulation either way).
       auditor: drift auditor executed plans are recorded into.
-      probe_timeout_s: per-candidate wall-clock cap on measured-mode
-        probes (``None`` disables it).
       hint_provider: optional ``fingerprint -> int`` resolving
         ``reuse_hint=None``.
       resilience: the :class:`ResiliencePolicy` (ladder, breaker,
@@ -242,14 +191,10 @@ class Planner:
 
     def __init__(self, cache: Optional[PlanCache] = None,
                  cost_model: Optional[CostModel] = None,
-                 measurer: Optional[Callable[..., Measurement]] = None,
-                 measure_top: int = 4,
-                 measure_budget: float = 1.3,
                  candidates: Sequence[Candidate] = DEFAULT_CANDIDATES,
                  calibration=None,
                  pallas_b_dtype: Optional[torch.dtype] = None,
                  auditor: Optional[obs_audit.DriftAuditor] = None,
-                 probe_timeout_s: Optional[float] = 30.0,
                  hint_provider: Optional[Callable[[str], int]] = None,
                  resilience: Optional[ResiliencePolicy] = None, *,
                  device="cuda"):
@@ -262,12 +207,8 @@ class Planner:
                                           calibration=calibration))
         self.pallas_b_dtype = (pallas_b_dtype if pallas_b_dtype is not None
                                else torch.float32)
-        self.measurer = measurer if measurer is not None else self._measure
-        self.measure_top = measure_top
-        self.measure_budget = measure_budget
         self.candidates = tuple(candidates)
         self._resilience = resilience
-        self.probe_timeout_s = probe_timeout_s
         self.hint_provider = hint_provider
         self.probe_skips = 0
         # (fingerprint, candidate.key) -> materialization artifacts, so a
@@ -276,18 +217,10 @@ class Planner:
         # fingerprint -> {reorder: (matrix, perm)} shared across one
         # planning pass's probes (dropped with the artifacts)
         self._reorders: dict[str, dict] = {}
-        # (plan key, value digest) -> (packed device operands for
-        # execute(), their tensor bytes), capped by entry count and by the
-        # bytes held (fresh-valued traffic adds an entry per request);
-        # oldest entries go first, an entry over the byte cap is not kept.
-        # A dense-B gather-tier pack also keeps its pattern's ValueLayout
-        # under the plan key alone (an entry's bytes count tensors it
-        # shares with the layout again)
-        self._exec_cache: dict[str, tuple[object, int]] = {}
-        self._exec_cache_cap = 64
-        self._exec_cache_bytes_cap = _default_exec_cache_bytes(self.device)
+        # (plan key, operand values) -> packed device operands
+        self.exec_cache = executor.ExecCache(self.device)
         # the front-end's worker threads share one planner: this lock
-        # guards the exec cache and the measured-mode artifacts (the plan
+        # guards the measured-mode artifacts (the plan cache, the exec
         # cache and the drift auditor guard themselves)
         self._state_lock = threading.Lock()
         self._plan_flight = _SingleFlight()
@@ -395,11 +328,13 @@ class Planner:
                                                    cand_p) is not None:
                         continue
                     try:
-                        m = self._call_measurer(a, cand_p, workload)
+                        m = self._measure(a, cand_p, workload=workload)
                     except ProbeTimeoutError:
                         # skip-and-score-heuristically: a pathological
                         # candidate must not wedge the request
-                        self._note_probe_skip()
+                        self.probe_skips += 1
+                        obs_metrics.get_registry().counter(
+                            "probe_skips").inc()
                         continue
                     self.cost_model.observe(fp_w, cand_p,
                                             m.kernel_s, m.preprocess_s)
@@ -447,21 +382,6 @@ class Planner:
             self.cache.put(plan)
         return plan
 
-    def _call_measurer(self, a: HostCSR, cand: Candidate,
-                       workload: str) -> Measurement:
-        """Invoke the (possibly injected) measurer, passing ``workload``
-        only when its signature takes one."""
-        if getattr(self.measurer, "__func__", None) is Planner._measure:
-            return self._measure(a, cand, workload=workload)
-        try:
-            takes_workload = "workload" in inspect.signature(
-                self.measurer).parameters
-        except (TypeError, ValueError):
-            takes_workload = False
-        if takes_workload:
-            return self.measurer(a, cand, workload=workload)
-        return self.measurer(a, cand)
-
     def _probe_first(self, s: ScoredCandidate) -> bool:
         """An unmeasured kernel-tier candidate on the card. Its prior
         charges whole tiles where the card's kernels read only live
@@ -481,39 +401,37 @@ class Planner:
         measured (the break-even rule) — except the kernel tier on the
         card, whose SpMM prior overprices it and which goes first — and the
         cumulative *predicted* preprocessing of the shortlist is capped
-        at ``measure_budget`` SpGEMM-equivalents.
+        at ``MEASURE_BUDGET`` SpGEMM-equivalents.
         """
         out = [s for s in ranked if s.candidate.key == IDENTITY.key]
         spent = 0.0
         for s in sorted(ranked, key=lambda s: not self._probe_first(s)):
-            if len(out) >= self.measure_top:
+            if len(out) >= MEASURE_TOP:
                 break
             if s.candidate.key == IDENTITY.key:
                 continue
             if not (s.amortizes or self._probe_first(s)):
                 continue
-            if spent + s.preprocess_rel > self.measure_budget:
+            if spent + s.preprocess_rel > MEASURE_BUDGET:
                 continue
             spent += s.preprocess_rel
             out.append(s)
         return out
 
-    # -- direct measurement (default measurer) -------------------------------
+    # -- direct measurement --------------------------------------------------
 
     def _measure(self, a: HostCSR, cand: Candidate, *,
-                 reps: int = 2, workload: str = "a2") -> Measurement:
-        """Time preprocessing + one-call execution of ``cand`` on ``a``,
-        device-synced. Past ``probe_timeout_s`` with no timed rep yet,
-        :class:`ProbeTimeoutError` tells the planning loop to skip the
-        candidate; with one rep banked the measurement is cut short."""
+                 workload: str = "a2") -> Measurement:
+        """Time preprocessing + ``cand``'s best of two device-synced calls
+        on ``a`` after a warm one. Past ``PROBE_TIMEOUT_S`` with no timed
+        call yet, :class:`ProbeTimeoutError` tells the planning loop to skip
+        the candidate; with one call timed the measurement is cut short."""
         t_start = time.perf_counter()
-        cap = self.probe_timeout_s
 
-        def _over() -> float | None:
-            if cap is None:
-                return None
+        def check_time() -> None:
             el = time.perf_counter() - t_start
-            return el if el > cap else None
+            if el > PROBE_TIMEOUT_S:
+                raise ProbeTimeoutError(cand.key, el, PROBE_TIMEOUT_S)
 
         fp = fingerprint(a)
         fp_w = fp if workload == "a2" else f"{fp}|{workload}"
@@ -524,9 +442,7 @@ class Planner:
         with self._state_lock:
             self._artifacts[(fp_w, cand.key)] = (perm, boundaries,
                                                  max_cluster, t_pre)
-        el = _over()
-        if el is not None:
-            raise ProbeTimeoutError(cand.key, el, cap)
+        check_time()
         plan = Plan(fingerprint=fp, reorder=cand.reorder, scheme=cand.scheme,
                     reuse_hint=1, max_cluster=max_cluster, perm=perm,
                     boundaries=boundaries, workload=workload)
@@ -539,15 +455,13 @@ class Planner:
                 dtype=np.float32)
         runner = self._build_runner(plan, a, probe_b)
         runner()                                        # build + warm
-        el = _over()
-        if el is not None:
-            raise ProbeTimeoutError(cand.key, el, cap)
+        check_time()
         best = float("inf")
-        for _ in range(reps):
+        for _ in range(2):
             t0 = time.perf_counter()
             runner()
             best = min(best, time.perf_counter() - t0)
-            if _over() is not None:
+            if time.perf_counter() - t_start > PROBE_TIMEOUT_S:
                 break                    # one rep banked: cut short, keep it
         return Measurement(kernel_s=best, preprocess_s=t_pre)
 
@@ -578,14 +492,13 @@ class Planner:
         policy = self.resilience
         if not policy.ladder:
             return self._execute_impl(plan, a, b)
-        key = policy.triple(plan.fingerprint, plan.scheme, plan.reorder)
         try:
             out = self._guarded_execute(plan, a, b)
         except Exception as e:           # noqa: BLE001 — ladder catches all
             primary = e                  # outlives the except block
-            policy.breaker.record_failure(key)
         else:
-            policy.breaker.record_success(key)
+            policy.breaker.record_success(policy.triple(
+                plan.fingerprint, plan.scheme, plan.reorder))
             return out
         return self._run_ladder(plan, a, b, primary)
 
@@ -607,29 +520,21 @@ class Planner:
         policy = self.resilience
         if not policy.ladder:
             return self._execute_impl(plan, a, b)
-        key = policy.triple(plan.fingerprint, plan.scheme, plan.reorder)
         try:
             out = self._guarded_execute(plan, a, b)
         except Exception as e:           # noqa: BLE001 — batcher disbands
-            policy.breaker.record_failure(key)
-            policy.record_incident(
-                fingerprint=plan.fingerprint, workload=plan.workload,
-                scheme=plan.scheme, reorder=plan.reorder,
-                site=self._classify_failure(e), error=e,
-                fallback="unbatch")
-            obs_metrics.get_registry().counter(
-                "serve_fallbacks", scheme=plan.scheme).inc()
+            self._degraded(plan, e, "unbatch")
             raise
-        policy.breaker.record_success(key)
+        policy.breaker.record_success(policy.triple(
+            plan.fingerprint, plan.scheme, plan.reorder))
         return out
 
     def _run_ladder(self, plan: Plan, a: HostCSR,
                     b: HostCSR | np.ndarray | None,
                     primary: Exception) -> np.ndarray:
         """Walk the fallback rungs below ``plan.scheme`` after ``primary``
-        failed; records the incident and the ``serve_fallbacks`` metric
-        on the rung that recovers the request."""
-        policy = self.resilience
+        failed; books the failure (:meth:`_degraded`) with the rung that
+        recovers the request, or with none."""
         tracer = get_tracer()
         site = self._classify_failure(primary)
         causes: list[tuple[str, Exception]] = [(plan.scheme, primary)]
@@ -638,31 +543,37 @@ class Planner:
             with tracer.span("fallback", fingerprint=plan.fingerprint,
                              from_scheme=plan.scheme, to_scheme=rung,
                              site=site) as sp:
+                # the identity rung is the guaranteed-safe floor: under the
+                # fault harness it runs fault-suppressed
                 try:
-                    if rung == "rowwise":
-                        # the identity rung is the guaranteed-safe floor:
-                        # under the fault harness it runs fault-suppressed
-                        with _faults.suppressed():
-                            out = self._guarded_execute(fb, a, b)
-                    else:
+                    with (_faults.suppressed() if rung == "rowwise"
+                          else contextlib.nullcontext()):
                         out = self._guarded_execute(fb, a, b)
                 except Exception as e:   # noqa: BLE001 — ladder walks on
                     causes.append((rung, e))
                     sp.set(recovered=False)
                     continue
                 sp.set(recovered=True)
-            policy.record_incident(
-                fingerprint=plan.fingerprint, workload=plan.workload,
-                scheme=plan.scheme, reorder=plan.reorder, site=site,
-                error=primary, fallback=rung)
-            obs_metrics.get_registry().counter(
-                "serve_fallbacks", scheme=plan.scheme).inc()
+            self._degraded(plan, primary, rung)
             return out
+        self._degraded(plan, primary, "")
+        raise LadderExhaustedError(plan.scheme, causes) from primary
+
+    def _degraded(self, plan: Plan, error: Exception, fallback: str) -> None:
+        """Book a failed execution of ``plan``: the breaker's failure on its
+        triple, the incident with ``fallback`` (what served the request
+        instead, ``""`` if nothing did) and then ``serve_fallbacks``."""
+        policy = self.resilience
+        policy.breaker.record_failure(policy.triple(
+            plan.fingerprint, plan.scheme, plan.reorder))
         policy.record_incident(
             fingerprint=plan.fingerprint, workload=plan.workload,
-            scheme=plan.scheme, reorder=plan.reorder, site=site,
-            error=primary, fallback="")
-        raise LadderExhaustedError(plan.scheme, causes) from primary
+            scheme=plan.scheme, reorder=plan.reorder,
+            site=self._classify_failure(error), error=error,
+            fallback=fallback)
+        if fallback:
+            obs_metrics.get_registry().counter(
+                "serve_fallbacks", scheme=plan.scheme).inc()
 
     def _guarded_execute(self, plan: Plan, a: HostCSR,
                          b: HostCSR | np.ndarray | None) -> np.ndarray:
@@ -712,7 +623,7 @@ class Planner:
                 t0 = time.perf_counter()
                 out = runner()      # device-synced inside the runner
                 kernel_s = time.perf_counter() - t0
-            _count_product(plan)
+            executor.count_product(plan)
             rec = self.auditor.record(plan, kernel_s)
             if tracer.enabled:
                 sp.set(kernel_s=kernel_s)
@@ -773,27 +684,17 @@ class Planner:
         With the ladder armed, a failing sparse-C route degrades to the
         dense :meth:`execute` path (itself ladder-guarded), recording the
         incident and quarantining the triple like any execution failure."""
-        policy = self.resilience
         if plan.scheme == "pallas":
             try:
                 host = self._chain_hop_sparse(plan, cur, b)
             except Exception as e:       # noqa: BLE001 — ladder catches all
-                if not policy.ladder:
+                if not self.resilience.ladder:
                     raise
-                policy.breaker.record_failure(policy.triple(
-                    plan.fingerprint, plan.scheme, plan.reorder))
-                policy.record_incident(
-                    fingerprint=plan.fingerprint, workload=plan.workload,
-                    scheme=plan.scheme, reorder=plan.reorder,
-                    site=self._classify_failure(e), error=e,
-                    fallback="dense_route")
-                obs_metrics.get_registry().counter(
-                    "serve_fallbacks", scheme=plan.scheme).inc()
+                self._degraded(plan, e, "dense_route")
                 host = None
             if host is not None:
                 return host
-        dense = self.execute(plan, cur, b)
-        return HostCSR.from_dense(dense)
+        return HostCSR.from_dense(self.execute(plan, cur, b))
 
     def _chain_hop_sparse(self, plan: Plan, cur: HostCSR,
                           b: Optional[HostCSR]) -> Optional[HostCSR]:
@@ -809,32 +710,18 @@ class Planner:
               f"{_value_digest(cur)}|{fingerprint(b)}|{_value_digest(b)}")
         ck = (f"{plan.fingerprint}|{_plan_digest(plan)}|chain"
               f"|{'sq' if b is None else 'ab'}|{vk}")
-        tracer = get_tracer()
-        cached = self._exec_get(ck)
-        if cached is None:
-            with tracer.span("pack", fingerprint=plan.fingerprint,
-                             scheme=plan.scheme, kind="sparse_c"):
-                _faults.maybe_fault("pack")
-                ap = _apply_plan_perm(cur, plan, symmetric=b is None)
-                bh = ap if b is None else b
-                bk = select_block_k(bh)
-                bcc = bcc_from_host(ap, block_k=bk, device=dev)
-                tiled = tiled_csr_from_host(bh, block_k=bk,
-                                            dtype=self.pallas_b_dtype,
-                                            device=dev)
-                if not kernel_ops.compact_grid_ok(bcc, tiled):
-                    return None
-                cached = ("chain", tiled,
-                          kernel_ops.pack_spgemm(bcc, tiled, sparse_c=True))
-                self._exec_put(ck, cached)
-            self._note_pack()
-        _, tiled, pack = cached
-        with tracer.span("kernel", scheme=plan.scheme, variant="sparse_c"):
+        packed = self.exec_cache.operand(ck, lambda: executor.pack_sparse_b(
+            plan, cur, b, device=dev, b_dtype=self.pallas_b_dtype,
+            sparse_c=True))
+        if packed is None:
+            return None
+        with get_tracer().span("kernel", scheme=plan.scheme,
+                               variant="sparse_c"):
             t0 = time.perf_counter()
-            cc = kernel_ops.bcc_spgemm_sparse_c(None, tiled, pack=pack)
+            cc = packed.run(compacted=True)
             synchronize(dev)
             kernel_s = time.perf_counter() - t0
-        _count_product(plan)
+        executor.count_product(plan)
         self.auditor.record(plan, kernel_s)
         host = compacted_c_to_host(cc)
         if plan.perm is not None:
@@ -845,8 +732,9 @@ class Planner:
 
     def _build_runner(self, plan: Plan, a: HostCSR,
                       b: HostCSR | np.ndarray | None):
-        dense_b = isinstance(b, np.ndarray) or (
-            b is not None and not isinstance(b, HostCSR))
+        """The product's runner: the packed operands from the exec cache,
+        or packed and kept there, launched under :meth:`_unpermuted`."""
+        dense_b = b is not None and not isinstance(b, HostCSR)
         squared = b is None
         if squared and a.nrows != a.ncols:
             raise ValueError("A² workload needs a square matrix")
@@ -861,197 +749,18 @@ class Planner:
             pk = f"{plan.fingerprint}|{_plan_digest(plan)}"
             ck = f"{pk}|{'sq' if squared else 'ab'}" \
                  f"|{'dense' if dense_b else 'csr'}|{vk}"
-        cached = self._exec_get(ck)
-        perm = plan.perm
-
+        bd = None
         if dense_b:
             with tracer.span("upload"):
                 bd = torch.from_numpy(np.ascontiguousarray(
                     b, dtype=np.float32)).to(dev)
-            if cached is None:
-                with tracer.span("pack", fingerprint=plan.fingerprint,
-                                 scheme=plan.scheme, kind="dense_b") as sp:
-                    _faults.maybe_fault("pack")
-                    if plan.scheme == "pallas":
-                        # keep the compact stream and its slabs' live
-                        # columns only: the launch reads nothing else of
-                        # the padded BCC
-                        ap = _apply_plan_perm(a, plan, symmetric=False)
-                        stream = kernel_ops.bcc_compact_stream(
-                            bcc_from_host(ap, device=dev),
-                            cover_all_blocks=True)
-                        cached = ("spmm_pallas", ap.nrows, stream,
-                                  kernel_ops.slab_columns(stream[2]))
-                    else:
-                        kind = ("spmm_row" if plan.scheme == "rowwise"
-                                else "spmm_cluster")
-                        layout, hit = self._value_layout(
-                            f"{pk}|layout|{kind}", plan, a)
-                        sp.set(layout_hit=hit)
-                        cached = (kind, fill_values(layout, a.data))
-                    self._exec_put(ck, cached)
-                self._note_pack()
-            kind = cached[0]
-            if kind == "spmm_row":
-                op = cached[1]
-                out = lambda: spmm_rowwise(op, bd)         # noqa: E731
-            elif kind == "spmm_pallas":
-                _, nrows, stream, cols = cached
-                out = lambda: kernel_ops.spmm_compact_stream(  # noqa: E731
-                    stream, bd, nrows=nrows, cols=cols)
-            else:
-                op = cached[1]
-                out = lambda: spmm_clusterwise(op, bd)     # noqa: E731
-            return self._unpermuted(out, perm, rows_only=True)
-
-        if cached is None:
-            with tracer.span("pack", fingerprint=plan.fingerprint,
-                             scheme=plan.scheme,
-                             kind="sq" if squared else "ab"):
-                _faults.maybe_fault("pack")
-                if squared:
-                    ap = _apply_plan_perm(a, plan, symmetric=True)
-                    bh = ap
-                else:
-                    ap = _apply_plan_perm(a, plan, symmetric=False)
-                    bh = b
-                if plan.scheme == "pallas":
-                    # BCC(A) × TiledCSR(B) through the kernel tier: the
-                    # adaptive k-tile height, the compact A stream, the
-                    # route (live-pair grid, or the padded grid for wide
-                    # B) and its device launch are packed once per cached
-                    # operand pair — a cache hit goes straight to the
-                    # kernel. The entry keeps B's tiles and the pack,
-                    # which holds all the launch reads of A (not the
-                    # padded BCC)
-                    bk = select_block_k(bh)
-                    tiled = tiled_csr_from_host(bh, block_k=bk,
-                                                dtype=self.pallas_b_dtype,
-                                                device=dev)
-                    cached = ("pallas", tiled, kernel_ops.pack_spgemm(
-                        bcc_from_host(ap, block_k=bk, device=dev), tiled))
-                else:
-                    dev_b = csr_from_host(bh, device=dev)
-                    b_lens = bh.row_nnz()
-                    if plan.scheme == "rowwise":
-                        dev_a = csr_from_host(ap, device=dev)
-                        fetch = np.zeros(dev_a.nnz_cap, dtype=np.int64)
-                        fetch[: ap.nnz] = b_lens[
-                            ap.indices.astype(np.int64)]
-                        bins = length_bins(fetch,
-                                           pad_sentinel=dev_a.nnz_cap)
-                        srows = slot_rows_host(ap.indptr, dev_a.nnz_cap)
-                        cached = ("row", dev_a, dev_b, bins, srows)
-                    else:
-                        bounds = self._bounds(plan)
-                        cc = csr_cluster_from_host(
-                            ap, bounds, max_cluster=plan.max_cluster,
-                            device=dev)
-                        cptr = cc.cluster_ptr.cpu().numpy()
-                        total = int(cptr[-1])
-                        slot_cols = cc.cols.cpu().numpy()[:total].astype(
-                            np.int64)
-                        fetch = np.zeros(cc.slot_cap, dtype=np.int64)
-                        fetch[:total] = np.where(
-                            slot_cols < bh.nrows, b_lens[
-                                np.clip(slot_cols, 0, bh.nrows - 1)], 0)
-                        bins = length_bins(fetch, pad_sentinel=cc.slot_cap)
-                        sclust = slot_rows_host(cptr, cc.slot_cap)
-                        cached = ("cluster", cc, dev_b, bins, sclust)
-                self._exec_put(ck, cached)
-            self._note_pack()
-        kind = cached[0]
-        if kind == "pallas":
-            _, tiled, pack = cached
-            out = lambda: kernel_ops.bcc_spgemm_tiled(  # noqa: E731
-                None, tiled, pack=pack)
-        elif kind == "row":
-            _, op_a, op_b, bins, srows = cached
-            out = lambda: spgemm_rowwise_dense_binned(  # noqa: E731
-                op_a, op_b, bins, srows)
-        else:
-            _, op_a, op_b, bins, sclust = cached
-            out = lambda: spgemm_clusterwise_dense_binned(  # noqa: E731
-                op_a, op_b, bins, sclust)
-        return self._unpermuted(out, perm, rows_only=not squared)
-
-    def _value_layout(self, key: str, plan: Plan, a: HostCSR
-                      ) -> tuple[ValueLayout, bool]:
-        """The layout of ``a``'s pattern packed under ``plan`` for a dense
-        B, and whether the exec cache held it under ``key`` (no value
-        digest in it: every values array of the pattern shares it). A find
-        counts in ``pack_layout_hits`` and moves the layout to the newest
-        end, ahead of the per-value entries it outlives; a miss builds and
-        keeps it."""
-        with self._state_lock:
-            entry = self._exec_cache.pop(key, None)
-            if entry is not None:
-                self._exec_cache[key] = entry
-        layout = None if entry is None else entry[0]
-        if layout is not None and layout.nnz == a.nnz:
-            obs_metrics.get_registry().counter("pack_layout_hits").inc()
-            return layout, True
-        if plan.scheme == "rowwise":
-            layout = csr_layout(a, perm=plan.perm, device=self.device)
-        else:
-            layout = csr_cluster_layout(
-                a, self._bounds(plan), max_cluster=plan.max_cluster,
-                perm=plan.perm, device=self.device)
-        self._exec_put(key, layout)
-        return layout, False
-
-    def _exec_get(self, key: str):
-        """The packed operands kept under ``key``, or ``None``; a find
-        counts in ``exec_cache_hits`` (a miss counts in
-        ``exec_cache_packs`` once packed)."""
-        with self._state_lock:
-            packed = self._exec_cache.get(key, (None, 0))[0]
-        if packed is not None:
-            obs_metrics.get_registry().counter("exec_cache_hits").inc()
-        return packed
-
-    def _exec_put(self, key: str, packed) -> None:
-        """Keep ``packed`` under ``key``, evicting the oldest entries until
-        both caps hold; an entry over the byte cap alone is not kept."""
-        nbytes = _tensor_nbytes(packed)
-        if nbytes > self._exec_cache_bytes_cap:
-            return
-        with self._state_lock:
-            while self._exec_cache and (
-                    len(self._exec_cache) >= self._exec_cache_cap
-                    or self._exec_nbytes_locked() + nbytes
-                    > self._exec_cache_bytes_cap):
-                self._exec_cache.pop(next(iter(self._exec_cache)))
-            self._exec_cache[key] = (packed, nbytes)
-
-    def _exec_nbytes_locked(self) -> int:
-        return sum(n for _, n in self._exec_cache.values())
-
-    def _exec_cache_nbytes(self) -> int:
-        """Tensor bytes the exec cache holds now."""
-        with self._state_lock:
-            return self._exec_nbytes_locked()
-
-    def _note_pack(self) -> None:
-        """Account one exec-cache packing miss in the metrics registry."""
-        reg = obs_metrics.get_registry()
-        reg.counter("exec_cache_packs").inc()
-        with self._state_lock:
-            entries, nbytes = (len(self._exec_cache),
-                               self._exec_nbytes_locked())
-        reg.gauge("exec_cache_entries").set(entries)
-        reg.gauge("exec_cache_bytes").set(nbytes)
-
-    def _note_probe_skip(self) -> None:
-        """Account one wall-clock-capped probe skip."""
-        self.probe_skips += 1
-        obs_metrics.get_registry().counter("probe_skips").inc()
-
-    @staticmethod
-    def _bounds(plan: Plan) -> list[int]:
-        if plan.boundaries is None:
-            raise ValueError(f"plan scheme {plan.scheme} has no boundaries")
-        return np.asarray(plan.boundaries, dtype=np.int64).tolist()
+        packed = self.exec_cache.operand(ck, lambda: (
+            executor.pack_dense_b(plan, a, cache=self.exec_cache,
+                                  pattern_key=pk, device=dev) if dense_b else
+            executor.pack_sparse_b(plan, a, b, device=dev,
+                                   b_dtype=self.pallas_b_dtype)))
+        return self._unpermuted(lambda: packed.run(bd), plan.perm,
+                                rows_only=not squared)
 
     def _unpermuted(self, run, perm: Optional[np.ndarray], *,
                     rows_only: bool):
@@ -1088,11 +797,8 @@ class Planner:
 
     @property
     def stats(self) -> dict:
-        with self._state_lock:
-            entries, nbytes = (len(self._exec_cache),
-                               self._exec_nbytes_locked())
-        return {**self.cache.stats, "exec_entries": entries,
-                "exec_bytes": nbytes,
+        return {**self.cache.stats, "exec_entries": len(self.exec_cache),
+                "exec_bytes": self.exec_cache.nbytes,
                 "probe_skips": self.probe_skips,
                 "resilience": self.resilience.stats}
 
@@ -1115,27 +821,3 @@ def default_planner() -> Planner:
         _DEFAULT = Planner(cache=PlanCache(path=DEFAULT_CACHE_DIR,
                                            max_bytes=DEFAULT_MAX_BYTES))
     return _DEFAULT
-
-
-def reset_default_planner() -> None:
-    global _DEFAULT
-    _DEFAULT = None
-
-
-def plan_spgemm(a: HostCSR, reuse_hint: int = 1, *,
-                measure: bool = False, **kwargs) -> Plan:
-    """Plan an SpGEMM on ``a`` expected to be reused ``reuse_hint`` times."""
-    return default_planner().plan(a, reuse_hint, measure=measure, **kwargs)
-
-
-def execute(plan: Plan, a: HostCSR,
-            b: HostCSR | np.ndarray | None = None) -> np.ndarray:
-    """Execute a planned product (see :meth:`Planner.execute`)."""
-    return default_planner().execute(plan, a, b)
-
-
-def execute_chain(a: HostCSR, *, hops: int = 2,
-                  **kwargs) -> tuple[HostCSR, list]:
-    """Chained product ``A^(hops+1)`` via the default planner (see
-    :meth:`Planner.execute_chain`)."""
-    return default_planner().execute_chain(a, hops=hops, **kwargs)

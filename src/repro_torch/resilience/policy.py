@@ -23,10 +23,10 @@ from __future__ import annotations
 
 import dataclasses
 import time
-import weakref
 from collections import deque
 from typing import Optional
 
+from repro_torch.planner.features import IdentityMemo
 from repro_torch.resilience.breaker import CircuitBreaker
 
 __all__ = ["FALLBACK_LADDER", "fallback_chain", "Incident", "Watermarks",
@@ -119,15 +119,10 @@ class ResiliencePolicy:
         self.rejects = 0         # operands rejected at the boundary
         self.sheds = 0           # requests shed at the admission boundary
         self.downgrades = 0      # proactive watermark-driven downgrades
-        # operands whose deep content checks already passed. Serving
-        # treats submitted operands as immutable (the exec cache
-        # re-serves packed operands on exactly that assumption), so the
-        # O(nnz) scans run once per object, not once per request — the
-        # same amortization contract as plan/exec caching. Keyed by id()
-        # with the object as the weak value: a hit proves the object is
-        # alive, so its id cannot have been reused.
-        self._validated: weakref.WeakValueDictionary = \
-            weakref.WeakValueDictionary()
+        # operands whose deep content checks already passed: the O(nnz)
+        # scans run once per object (operands are immutable to serving,
+        # as the exec cache assumes), not once per request
+        self._validated = IdentityMemo()
 
     @classmethod
     def disabled(cls) -> "ResiliencePolicy":
@@ -145,13 +140,10 @@ class ResiliencePolicy:
         """Whether ``obj`` (this exact object) already passed its deep
         content checks. Pairwise shape compatibility is re-checked on
         every request regardless."""
-        return self._validated.get(id(obj)) is obj
+        return self._validated.get(obj, False)
 
     def mark_validated(self, obj) -> None:
-        try:
-            self._validated[id(obj)] = obj
-        except TypeError:       # not weak-referenceable: never memoized
-            pass
+        self._validated.put(obj, True)
 
     # -- breaker façade (keyed the way the planner keys) ---------------------
 

@@ -59,15 +59,12 @@ from __future__ import annotations
 import dataclasses
 import threading
 import time
-import weakref
 from typing import Callable, Optional
-
-import numpy as np
 
 from repro_torch.core.formats import HostCSR
 from repro_torch.obs import metrics as obs_metrics
-from repro_torch.planner.features import fingerprint
-from repro_torch.planner.service import _value_digest
+from repro_torch.planner.features import (IdentityMemo, array_digest,
+                                          fingerprint, value_digest)
 from repro_torch.resilience.errors import (DeadlineExceededError,
                                            OverloadError)
 from repro_torch.serve.batcher import (BatchPolicy, Batcher, batchable,
@@ -140,9 +137,7 @@ class AsyncSpGEMMServer:
         self._closed = False
         # fingerprint memo keyed by operand object identity (the same
         # immutability contract as policy validation memoization)
-        self._fp_alive: weakref.WeakValueDictionary = \
-            weakref.WeakValueDictionary()
-        self._fp_memo: dict[int, str] = {}
+        self._fp_memo = IdentityMemo()
         self._threads: list[threading.Thread] = []
         for i in range(int(workers)):
             t = threading.Thread(target=self._worker,
@@ -458,19 +453,10 @@ class AsyncSpGEMMServer:
     def _fingerprint(self, a: HostCSR) -> str:
         """Pattern fingerprint memoized per live operand object (same
         id-with-weak-value discipline as validation memoization)."""
-        oid = id(a)
-        if self._fp_alive.get(oid) is a:
-            return self._fp_memo[oid]
-        fp = fingerprint(a)
-        try:
-            self._fp_alive[oid] = a
-            self._fp_memo[oid] = fp
-            if len(self._fp_memo) > 4096:     # drop dead ids
-                alive = set(self._fp_alive.keys())
-                self._fp_memo = {k: v for k, v in self._fp_memo.items()
-                                 if k in alive}
-        except TypeError:
-            pass
+        fp = self._fp_memo.get(a)
+        if fp is None:
+            fp = fingerprint(a)
+            self._fp_memo.put(a, fp)
         return fp
 
     def _coalesce_key(self, fp: str, a, b, hops) -> str:
@@ -482,16 +468,12 @@ class AsyncSpGEMMServer:
             if b is None:
                 bpart = f"sq|h{hops if hops is not None else 0}"
             elif isinstance(b, HostCSR):
-                bpart = f"csr|{fingerprint(b)}|{_value_digest(b)}"
+                bpart = f"csr|{fingerprint(b)}|{value_digest(b)}"
             else:
-                import hashlib
-                d = hashlib.blake2b(digest_size=8)
-                d.update(np.ascontiguousarray(
-                    np.asarray(b, dtype=np.float32)).tobytes())
-                bpart = f"dense|{d.hexdigest()}"
+                bpart = f"dense|{array_digest(b)}"
         except Exception:                     # un-digestable operand:
             return ""                         # never coalesce, still serve
-        return f"{fp}|{_value_digest(a)}|{bpart}"
+        return f"{fp}|{value_digest(a)}|{bpart}"
 
     # -- calibration refresh -------------------------------------------------
 

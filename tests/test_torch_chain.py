@@ -31,6 +31,7 @@ from repro.serve.engine import SpGEMMServer as RefServer
 from repro_torch.core.formats import HostCSR
 from repro_torch.obs import metrics as port_metrics
 from repro_torch.planner.cost_model import Candidate
+from repro_torch.planner.executor import KernelSpGEMM
 from repro_torch.planner.features import fingerprint
 from repro_torch.planner.plan_cache import Plan, PlanCache
 from repro_torch.planner.service import Planner, _materialize
@@ -205,11 +206,12 @@ def test_chain_pack_stays_within_the_exec_cache_byte_cap():
     _, port_planner = _seeded(dense, 2)
     port_planner.execute_chain(HostCSR.from_dense(dense), hops=2,
                                reuse_hint=20)
-    held = [k for k in port_planner._exec_cache if "|chain|" in k]
+    held = [v for _, v in port_planner.exec_cache.items()
+            if isinstance(v, KernelSpGEMM) and v.pack.sparse_c]
     assert len(held) == 2
     one = port_planner.stats["exec_bytes"] // 2
     _, tight = _seeded(dense, 2)
-    tight._exec_cache_bytes_cap = 1
+    tight.exec_cache.bytes_cap = 1
     out, plans = tight.execute_chain(HostCSR.from_dense(dense), hops=2,
                                      reuse_hint=20)
     assert [p.scheme for p in plans] == ["pallas", "pallas"]

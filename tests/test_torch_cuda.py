@@ -42,6 +42,7 @@ from repro_torch.kernels.ssd_chunk import (ssd_chunk_scan,
 from repro_torch.launch.serve import run_serving
 from repro_torch.models.sparse_linear import SparseLinear
 from repro_torch.models.transformer import init_params, prefill
+from repro_torch.planner.executor import GatherSpMM
 from repro_torch.planner.features import fingerprint
 from repro_torch.planner.plan_cache import Plan, PlanCache
 from repro_torch.planner.service import Planner
@@ -1291,8 +1292,9 @@ def test_value_only_repack_on_the_card_equals_the_cpus_full_pack(card,
         hv = HostCSR(h.indptr, h.indices, np.random.default_rng(
             63 + seed).integers(1, 4, h.nnz).astype(np.float32), h.shape)
         assert np.array_equal(srv.submit(hv, b).result, hv.to_dense() @ b)
-        ((kind, op),) = [v for k, (v, _) in srv.planner._exec_cache.items()
-                         if "|layout|" not in k][-1:]
+        (packed,) = [v for _, v in srv.planner.exec_cache.items()
+                     if isinstance(v, GatherSpMM)][-1:]
+        op = packed.op
         ap = hv.permute_rows(perm)
         want = (csr_from_host(ap, device="cpu") if scheme == "rowwise" else
                 csr_cluster_from_host(ap, [int(x) for x in bounds],

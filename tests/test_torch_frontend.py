@@ -19,6 +19,7 @@ under worker threads.
   changed size during iteration`` or a ``KeyError`` before it took a
   lock.
 """
+import gc
 import sys
 import threading
 
@@ -35,6 +36,7 @@ import repro_torch.planner.calibration as port_calibration
 import repro_torch.planner.cost_model as port_cost
 from repro.planner.features import extract_features as ref_features
 from repro_torch.planner.features import extract_features as port_features
+from repro_torch.planner.features import IdentityMemo
 from repro_torch.obs.audit import DriftAuditor
 from repro_torch.planner.plan_cache import Plan, PlanCache
 from repro_torch.planner.service import Planner
@@ -504,7 +506,7 @@ def test_threaded_burst_every_ticket_exact(batching, short_switch_interval):
     policy = ResiliencePolicy()
     planner = Planner(cache=PlanCache(), device="cpu",
                       auditor=DriftAuditor(), resilience=policy)
-    planner._exec_cache_bytes_cap = 4096
+    planner.exec_cache.bytes_cap = 4096
     dense = [int_dense(16 + 16 * (i % 4), density=0.1, seed=1000 + i)
              for i in range(64)]
     fe = AsyncSpGEMMServer(SpGEMMServer(planner), workers=4, capacity=128,
@@ -552,11 +554,10 @@ def _exec_cache_case():
     import torch
     planner = Planner(cache=PlanCache(), device="cpu",
                       auditor=DriftAuditor())
-    planner._exec_cache_bytes_cap = 16 * 64 * 4
+    planner.exec_cache.bytes_cap = 16 * 64 * 4
 
     def step(k, i):
-        planner._exec_put(f"{k}-{i}", ("row", torch.zeros(16)))
-        planner._note_pack()
+        planner.exec_cache.operand(f"{k}-{i % 50}", lambda: torch.zeros(16))
         planner.stats
     return step, lambda: planner.stats["exec_bytes"] <= 16 * 64 * 4
 
@@ -609,3 +610,26 @@ def test_default_front_end_runs_on_the_card():
     fe = AsyncSpGEMMServer(SpGEMMServer(device="cpu"), workers=0)
     assert fe.server.planner.device.type == "cpu"
     assert counters(PORT) == {}
+
+
+def test_identity_memo_holds_a_value_while_its_object_lives():
+    """The memo behind the front end's fingerprints and the policy's
+    validation: a hit needs the very object (an equal copy misses), an
+    object that takes no weak reference is never remembered, and an
+    entry goes with its object (no table of dead ids grows)."""
+    memo = IdentityMemo()
+    a = PORT.HostCSR.from_dense(int_dense(16, density=0.2, seed=7))
+    memo.put(a, "fp-a")
+    assert memo.get(a) == "fp-a"
+    twin = PORT.HostCSR(a.indptr, a.indices, a.data, a.shape)
+    assert memo.get(twin) is None and memo.get(twin, False) is False
+    memo.put((1, 2), "tuple")
+    assert memo.get((1, 2)) is None and len(memo) == 1
+    del a
+    gc.collect()
+    assert len(memo) == 0
+    for i in range(64):
+        memo.put(PORT.HostCSR.from_dense(int_dense(16, density=0.2,
+                                                   seed=i)), i)
+    gc.collect()
+    assert len(memo) == 0

@@ -38,6 +38,7 @@ from repro_torch.kernels.cluster_spgemm import (cluster_spgemm_padded,
                                                 cluster_spgemm_padded_plain,
                                                 padded_grid)
 from repro_torch.obs import metrics as port_metrics
+from repro_torch.planner.executor import KernelSpGEMM
 from repro_torch.planner.features import fingerprint
 from repro_torch.planner.plan_cache import Plan, PlanCache
 from repro_torch.planner.service import Planner
@@ -260,8 +261,9 @@ def test_wide_request_served_on_the_padded_grid_like_the_reference(
         assert np.array_equal(r_port.result, pa.to_dense() @ pb.to_dense())
     assert (padded(ref_metrics), padded(port_metrics)) == (
         before[0] + 2, before[1] + 2)
-    ((packed, _),) = port.planner._exec_cache.values()
-    assert packed[2].route == "padded"
+    ((_, packed),) = port.planner.exec_cache.items()
+    assert isinstance(packed, KernelSpGEMM)
+    assert packed.pack.route == "padded"
 
 
 def test_wide_bf16_request_is_served_widened_to_float32(monkeypatch):

@@ -98,7 +98,7 @@ class Pair:
 
     def clear_exec(self):
         self.ref.planner._exec_cache.clear()
-        self.port.planner._exec_cache.clear()
+        self.port.planner.exec_cache.clear()
 
 
 def _incidents(policy):

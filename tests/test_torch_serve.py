@@ -20,6 +20,8 @@ and failures propagating when the resilience policy's ladder is off (the
 ladder itself is held against the JAX package in
 ``tests/test_torch_resilience.py``).
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -46,7 +48,10 @@ from repro_torch.planner.cost_model import (DEFAULT_CANDIDATES, IDENTITY,
                                             CostModel)
 from repro_torch.planner.features import extract_features, fingerprint
 from repro_torch.planner.plan_cache import Plan, PlanCache
-from repro_torch.planner.service import Planner, _materialize
+from repro_torch.planner.executor import (GatherSpGEMM, GatherSpMM,
+                                          KernelSpGEMM, KernelSpMM,
+                                          tensor_nbytes)
+from repro_torch.planner.service import MEASURE_BUDGET, Planner, _materialize
 from repro_torch.resilience import ResiliencePolicy, faults
 from repro_torch.resilience import reset_policy as reset_port_policy
 from repro_torch.resilience.errors import (FaultInjectedError,
@@ -345,7 +350,7 @@ def test_card_planner_probes_the_kernel_tier_first():
         assert short[0].candidate == IDENTITY
         assert [s.candidate.scheme for s in short[1:3]] == ["pallas",
                                                             "pallas"]
-        assert sum(s.preprocess_rel for s in short) <= planner.measure_budget
+        assert sum(s.preprocess_rel for s in short) <= MEASURE_BUDGET
 
 
 def test_measured_mode_serves_on_cpu():
@@ -367,7 +372,7 @@ def test_failures_propagate_without_a_ladder():
     with faults.injected(faults.FaultPlan(0, sites=["kernel_launch"])):
         with pytest.raises(FaultInjectedError):
             server.submit(h)
-    server.planner._exec_cache.clear()
+    server.planner.exec_cache.clear()
     with faults.injected(faults.FaultPlan(0, sites=["pack"])):
         with pytest.raises(FaultInjectedError):
             server.submit(h)
@@ -388,18 +393,27 @@ def test_plan_cache_disk_round_trip(tmp_path):
     assert np.array_equal(out, _oracle(h))
 
 
-@pytest.mark.parametrize("workload", ["a2", "spmm"])
-def test_exec_cache_keeps_launch_operands_within_its_byte_cap(workload):
+@pytest.mark.parametrize("workload,scheme,kind", [
+    pytest.param("a2", "pallas", KernelSpGEMM, id="a2"),
+    pytest.param("spmm", "pallas", KernelSpMM, id="spmm"),
+    pytest.param("a2", "fixed", GatherSpGEMM, id="a2-fixed"),
+    pytest.param("spmm", "fixed", GatherSpMM, id="spmm-fixed"),
+    pytest.param("chain", "pallas", KernelSpGEMM, id="chain")])
+def test_exec_cache_keeps_launch_operands_within_its_byte_cap(workload,
+                                                              scheme, kind):
     """Fresh-valued traffic packs anew and adds an exec-cache entry per
-    request. An entry keeps only what the launch reads (no padded BCC),
-    the cache stays within its byte cap by evicting the oldest entries,
-    a repeat of the last values still hits, and an entry larger than the
-    cap is served but not kept."""
-    from repro_torch.core.formats import BCC
+    request, of the route's type. An entry keeps only what the launch
+    reads (no padded BCC), the cache stays within its byte cap by evicting
+    the oldest entries (a gather-tier SpMM also keeps its pattern's
+    layout), a repeat of the last values still hits, and an entry larger
+    than the cap is served but not kept."""
+    from repro_torch.core.formats import BCC, ValueLayout
     from repro_torch.obs import metrics as obs_metrics
     _, h = _pair(integer_dense(96, 96, 0.08, 71))
     bd = (np.random.default_rng(72).integers(-2, 3, (96, 12)).astype(
         np.float32) if workload == "spmm" else None)
+    kw = {"hops": 1, "reuse_hint": 20} if workload == "chain" else {}
+    _, bounds, mc, _ = _materialize(h, Candidate("original", scheme))
 
     def revalued(seed):
         return HostCSR(h.indptr, h.indices, np.random.default_rng(
@@ -408,33 +422,52 @@ def test_exec_cache_keeps_launch_operands_within_its_byte_cap(workload):
     def server(cap=None):
         cache = PlanCache()
         cache.put(Plan(fingerprint=fingerprint(h), reorder="original",
-                       scheme="pallas", reuse_hint=20, workload=workload))
+                       scheme=scheme, reuse_hint=20, max_cluster=mc,
+                       boundaries=bounds, workload=workload))
         planner = Planner(cache=cache, device="cpu")
         if cap is not None:
-            planner._exec_cache_bytes_cap = cap
+            planner.exec_cache.bytes_cap = cap
         return SpGEMMServer(planner)
 
-    probe = server()
-    probe.submit(h, bd)
-    ((packed, one),) = probe.planner._exec_cache.values()
-    assert packed[0] == ("pallas" if workload == "a2" else "spmm_pallas")
-    assert not any(isinstance(x, BCC) for x in packed)
-    assert one > 0
+    def submit(srv, hv):
+        resp = srv.submit(hv, bd, **kw)
+        assert resp.scheme == scheme and resp.plan_cache_hit
+        got = resp.result.to_dense() if workload == "chain" else resp.result
+        assert np.array_equal(got, _oracle(hv, bd))
 
-    srv = server(cap=int(2.5 * one))
+    def held(srv):
+        return [v for _, v in srv.planner.exec_cache.items()
+                if not isinstance(v, ValueLayout)]
+
+    probe = server()
+    submit(probe, h)
+    (packed,) = held(probe)
+    assert type(packed) is kind
+    if workload == "chain":
+        assert packed.pack.sparse_c
+    fields = [getattr(packed, f.name) for f in dataclasses.fields(packed)]
+    assert not any(isinstance(x, BCC) for x in fields)
+    one = tensor_nbytes(packed)
+    assert one > 0
+    layouts = probe.planner.exec_cache.nbytes - one
+    assert layouts == (0 if kind is not GatherSpMM else tensor_nbytes(
+        probe.planner.exec_cache.items()[0][1]))
+
+    cap = layouts + int(2.5 * one)
+    srv = server(cap=cap)
     packs = obs_metrics.get_registry().counter("exec_cache_packs")
     for seed in range(6):
         hv = revalued(seed)
-        resp = srv.submit(hv, bd)
-        assert resp.scheme == "pallas" and resp.plan_cache_hit
-        assert np.array_equal(resp.result, _oracle(hv, bd))
-        stats = srv.planner.stats
-        assert stats["exec_bytes"] <= int(2.5 * one)
-        assert stats["exec_entries"] == min(seed + 1, 2)
+        submit(srv, hv)
+        assert srv.planner.stats["exec_bytes"] <= cap
+        assert len(held(srv)) == min(seed + 1, 2)
+        assert srv.planner.stats["exec_entries"] == (
+            len(held(srv)) + (kind is GatherSpMM))
     before = packs.value
-    assert np.array_equal(srv.submit(hv, bd).result, _oracle(hv, bd))
+    submit(srv, hv)
     assert packs.value == before                 # exec-cache hit
 
     tight = server(cap=one - 1)
-    assert np.array_equal(tight.submit(h, bd).result, _oracle(h, bd))
-    assert tight.planner.stats["exec_entries"] == 0
+    submit(tight, h)
+    assert held(tight) == []                     # the layout alone stays
+    assert tight.planner.stats["exec_entries"] == (kind is GatherSpMM)

@@ -13,13 +13,14 @@ import pytest
 import torch
 
 from repro_torch.core.formats import (CSR, CSRCluster, HostCSR,
-                                      csr_cluster_from_host,
+                                      ValueLayout, csr_cluster_from_host,
                                       csr_cluster_layout, csr_from_host,
                                       csr_layout, fill_values)
 from repro_torch.core.spgemm import spmm_clusterwise, spmm_rowwise
 from repro_torch.obs import metrics as obs_metrics
 from repro_torch.obs.trace import get_tracer
 from repro_torch.planner.cost_model import Candidate
+from repro_torch.planner.executor import GatherSpMM, tensor_nbytes
 from repro_torch.planner.features import fingerprint
 from repro_torch.planner.plan_cache import Plan, PlanCache
 from repro_torch.planner.service import Planner, _materialize
@@ -238,7 +239,7 @@ def test_only_the_served_pattern_and_plan_share_a_layout(monkeypatch):
     # a repeated values array hits the exec cache, with no layout lookup
     def no_lookup(*args, **kwargs):
         raise AssertionError("layout looked up on an exec-cache hit")
-    monkeypatch.setattr(srv.planner, "_value_layout", no_lookup)
+    monkeypatch.setattr(srv.planner.exec_cache, "layout", no_lookup)
     before = _counts()
     np.testing.assert_array_equal(srv.submit(hv, b).result,
                                   hv.to_dense() @ b)
@@ -251,14 +252,16 @@ def test_the_layout_outlives_the_per_value_entries():
     b = _dense_b(h)
     srv = _seeded_server(h, "fixed")
     planner = srv.planner
-    planner._exec_cache_cap = 3
+    planner.exec_cache.cap = 3
     before = _counts()
     for seed in range(6):
         srv.submit(_revalued(h, 10 + seed), b)
-        keys = list(planner._exec_cache)
-        assert len(keys) <= 3
+        held = [v for _, v in planner.exec_cache.items()]
+        assert len(held) <= 3
         # the layout sits second-newest, behind the entry just packed
-        assert "|layout|spmm_cluster" in keys[-2]
+        assert isinstance(held[-2], ValueLayout)
+        assert isinstance(held[-1], GatherSpMM)
+        assert isinstance(held[-1].op, CSRCluster)
     assert _moved(before)["pack_layout_hits"] == 5
 
 
@@ -267,11 +270,12 @@ def test_an_evicted_layout_rebuilds_and_serves_right():
     b = _dense_b(h)
     probe = _seeded_server(h, "fixed")
     probe.submit(_revalued(h, 20), b)
-    sizes = sorted(n for _, n in probe.planner._exec_cache.values())
+    sizes = sorted(tensor_nbytes(v)
+                   for _, v in probe.planner.exec_cache.items())
     srv = _seeded_server(h, "fixed")
     # room for the larger of the layout and a packed operand, not both:
     # each pack evicts the layout the one before it kept
-    srv.planner._exec_cache_bytes_cap = sizes[-1] + sizes[0] // 2
+    srv.planner.exec_cache.bytes_cap = sizes[-1] + sizes[0] // 2
     before = _counts()
     for seed in range(4):
         hv = _revalued(h, 20 + seed)
