@@ -85,6 +85,10 @@ _HOST_METRICS: dict[str, tuple[str, str]] = {
     "gather_tier_products": (
         "counter", "products executed by a plan of scheme rowwise, fixed, "
         "variable or hierarchical, on the gather/scatter tier (count)"),
+    "host_copies": (
+        "counter", "results copied from the device to host numpy, by "
+        "memory — pinned (page-locked, from the card) / pageable "
+        "(count)"),
     "kernel_launches": (
         "counter", "Sp×Sp kernel dispatches, by variant label "
         "(count)"),

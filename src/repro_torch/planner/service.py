@@ -132,6 +132,41 @@ def _plan_digest(plan: Plan) -> str:
     return out
 
 
+def _to_host(out: torch.Tensor, span) -> np.ndarray:
+    """C as float32 host numpy, booked on ``span`` and ``host_copies``.
+
+    The padded grid returns B's dtype: bf16 widens to float32, values
+    equal to the JAX package's bfloat16 result (numpy has no bfloat16,
+    and ml_dtypes is not a dependency; the README's port section records
+    this divergence). From the card, C widens there (exact) and lands in
+    page-locked memory from PyTorch's caching host allocator: the array's
+    base holds the block until the caller drops every view of it, and
+    the next result of its size then reuses the block without a fresh
+    ``cudaHostAlloc`` or first-touch page faults. A block is never handed
+    out while an answer still points into it."""
+    pinned = out.is_cuda
+    if pinned:
+        src = out.float()
+        host = torch.empty(src.shape, dtype=torch.float32, pin_memory=True)
+        host.copy_(src)
+        arr = host.numpy()
+    else:
+        arr = out.cpu().float().numpy()
+    span.set(bytes=arr.nbytes, pinned=pinned)
+    obs_metrics.get_registry().counter(
+        "host_copies", memory="pinned" if pinned else "pageable").inc()
+    return arr
+
+
+def _pinned_host_bytes(dev: torch.device) -> int:
+    """Bytes of page-locked host memory PyTorch's caching host allocator
+    holds, live answers and cached blocks together (0 off the card)."""
+    if dev.type != "cuda":
+        return 0
+    return int(torch.cuda.host_memory_stats().get("allocated_bytes.current",
+                                                  0))
+
+
 class _SingleFlight:
     """Per-key mutual exclusion with refcounted cleanup: concurrent
     planners of the same (fingerprint, workload) serialize, so a burst on
@@ -773,12 +808,8 @@ class Planner:
             with tracer.span("product"):
                 out = run()
                 synchronize(dev)
-            # the padded grid returns B's dtype: bf16 widens to float32 on
-            # the host, values equal to the JAX package's bfloat16 result
-            # (numpy has no bfloat16, and ml_dtypes is not a dependency;
-            # the README's port section records this divergence)
-            with tracer.span("copy"):
-                return out.cpu().float().numpy()
+            with tracer.span("copy") as sp:
+                return _to_host(out, sp)
 
         if perm is None:
             return host
@@ -800,6 +831,7 @@ class Planner:
         return {**self.cache.stats, "exec_entries": len(self.exec_cache),
                 "exec_bytes": self.exec_cache.nbytes,
                 "probe_skips": self.probe_skips,
+                "pinned_host_bytes": _pinned_host_bytes(self.device),
                 "resilience": self.resilience.stats}
 
 

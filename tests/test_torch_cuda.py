@@ -1386,6 +1386,162 @@ def test_cold_kron_a2_runs_on_the_kernel_tier(card, scale):
 
 
 # ---------------------------------------------------------------------------
+# served results copied into page-locked host memory
+# ---------------------------------------------------------------------------
+
+
+def _copies():
+    from repro_torch.obs import metrics as obs_metrics
+    snap = obs_metrics.get_registry().snapshot()
+    return (snap.get("host_copies{memory=pinned}", 0),
+            snap.get("host_copies{memory=pageable}", 0))
+
+
+def _a2_server(card, h, *, policy=None):
+    """A server with an ``original+pallas`` A² plan seeded for ``h``'s
+    pattern: every request runs K1 on the dense route."""
+    cache = PlanCache()
+    cache.put(Plan(fingerprint=fingerprint(h), reorder="original",
+                   scheme="pallas", reuse_hint=20))
+    return SpGEMMServer(Planner(cache=cache, device=card,
+                                resilience=policy or ResiliencePolicy()))
+
+
+def _revalued(h, seed):
+    """``h``'s pattern with fresh integer values."""
+    return HostCSR(h.indptr, h.indices, np.random.default_rng(seed).integers(
+        1, 4, h.nnz).astype(np.float32), h.shape)
+
+
+def test_served_a2_answer_lies_in_page_locked_memory(card):
+    """The answer is the numpy view of a pinned block from PyTorch's
+    caching host allocator: one ``host_copies{memory="pinned"}`` a
+    request, none pageable, the ``copy`` span marked ``pinned``, and
+    ``Planner.stats`` counts the block among the pinned bytes held."""
+    from repro_torch.obs.trace import get_tracer
+    h = _host(512, 512, 0.02, 71)
+    srv = _a2_server(card, h)
+    want = h.to_dense() @ h.to_dense()
+    tracer = get_tracer()
+    tracer.clear()
+    tracer.enable()
+    try:
+        for _ in range(2):
+            before = _copies()
+            resp = srv.submit(h)
+            assert resp.scheme == "pallas" and not resp.degraded
+            assert np.array_equal(resp.result, want)
+            assert torch.from_numpy(resp.result).is_pinned()
+            assert tuple(x - y for x, y in zip(_copies(), before)) == (1, 0)
+        spans = [sp for sp in tracer.spans() if sp.name == "copy"]
+    finally:
+        tracer.disable()
+        tracer.clear()
+    assert [sp.attrs for sp in spans] == [
+        {"bytes": want.nbytes, "pinned": True}] * 2
+    assert srv.planner.stats["pinned_host_bytes"] >= want.nbytes
+
+
+def test_kept_answers_survive_later_requests_of_the_pattern(card):
+    """Three answers kept while seven more requests of the same pattern
+    (fresh values each) are served: no live block is handed out again, so
+    each kept answer still equals its own product."""
+    h = _host(512, 512, 0.02, 72)
+    srv = _a2_server(card, h)
+    kept = []
+    for seed in range(10):
+        hv = _revalued(h, 80 + seed)
+        resp = srv.submit(hv)
+        assert np.array_equal(resp.result, hv.to_dense() @ hv.to_dense())
+        if seed < 3:
+            kept.append((hv, resp.result))
+    assert len({ans.ctypes.data for _, ans in kept}) == 3
+    for hv, ans in kept:
+        assert torch.from_numpy(ans).is_pinned()
+        assert np.array_equal(ans, hv.to_dense() @ hv.to_dense())
+
+
+def test_batched_members_stay_correct_after_the_next_burst(card):
+    """A burst's members are views of one pinned batch answer: a second
+    burst of the same patterns with fresh values leaves them intact, and
+    each batched launch copies once."""
+    mats = [_host(32 + 8 * (i % 5), 32 + 8 * (i % 5), 0.1, 500 + i)
+            for i in range(8)]
+    fe = _burst_server(card, mats, 8)
+    before = _copies()
+    first = _serve_burst(fe, mats)
+    assert tuple(x - y for x, y in zip(_copies(), before)) == (1, 0)
+    again = [_revalued(m, 600 + i) for i, m in enumerate(mats)]
+    second = _serve_burst(fe, again)
+    for resps, ms in ((first, mats), (second, again)):
+        for r, m in zip(resps, ms):
+            assert r.batched and r.batch_size == 8 and not r.degraded
+            assert np.array_equal(r.result, m.to_dense() @ m.to_dense())
+
+
+def test_wide_bf16_answer_is_the_padded_grids_output_widened(card,
+                                                             monkeypatch):
+    """A served wide A·B under ``pallas_b_dtype=bfloat16`` on the padded
+    grid (K6): the bf16 output widens on the card before one pinned copy,
+    and the answer equals that output widened on the host (the copy's
+    former path), value for value."""
+    from repro_torch.planner import service
+    monkeypatch.setattr(ops, "_COMPACT_C_STRIP_BUDGET", 4096)
+    rng = np.random.default_rng(23)
+    a = HostCSR.from_dense(((rng.random((48, 96)) < 0.5)
+                            * rng.integers(1, 16, (48, 96))).astype(
+                                np.float32))
+    b = HostCSR.from_dense(((rng.random((96, 200)) < 0.5)
+                            * rng.integers(1, 16, (96, 200))).astype(
+                                np.float32))
+    cache = PlanCache()
+    cache.put(Plan(fingerprint=fingerprint(a), reorder="original",
+                   scheme="pallas", reuse_hint=20))
+    srv = SpGEMMServer(Planner(cache=cache, device=card,
+                               pallas_b_dtype=torch.bfloat16))
+    outs = []
+    to_host = service._to_host
+
+    def capturing(out, span):
+        outs.append(out.clone())
+        return to_host(out, span)
+    monkeypatch.setattr(service, "_to_host", capturing)
+    launches = cluster_spgemm_padded.launches
+    resp = srv.submit(a, b)
+    assert resp.scheme == "pallas" and not resp.degraded
+    assert cluster_spgemm_padded.launches == launches + 1
+    (out,) = outs
+    assert out.is_cuda and out.dtype == torch.bfloat16
+    assert resp.result.dtype == np.float32
+    assert torch.from_numpy(resp.result).is_pinned()
+    assert np.array_equal(resp.result, out.cpu().float().numpy())
+    exact = a.to_dense() @ b.to_dense()
+    assert np.abs(exact).max() > 256
+    assert not np.array_equal(resp.result, exact)
+
+
+def test_output_guard_raises_on_a_pinned_answer_and_the_ladder_recovers(
+        card):
+    """The ``output`` fault site pokes a NaN into the pinned answer's
+    copy: the guard raises ``NonFiniteOutputError``, and served, the
+    ladder's next rung answers exactly."""
+    from repro_torch.resilience.errors import NonFiniteOutputError
+    h = _host(256, 256, 0.03, 73)
+    srv = _a2_server(card, h)
+    want = h.to_dense() @ h.to_dense()
+    plan = srv.planner.cache.get(fingerprint(h), 20)
+    assert plan is not None and plan.scheme == "pallas"
+    with faults.injected(faults.FaultPlan(0, sites=["output"])):
+        with pytest.raises(NonFiniteOutputError):
+            srv.planner._guarded_execute(plan, h, None)
+    with faults.injected(faults.FaultPlan(0, sites=["output"])):
+        resp = srv.submit(h)
+    assert resp.degraded and resp.fallback_scheme == "fixed"
+    assert np.array_equal(resp.result, want)
+    assert torch.from_numpy(resp.result).is_pinned()
+
+
+# ---------------------------------------------------------------------------
 # the training path (no kernel: the model's own chunked attention and SSD
 # scan, as the reference trains)
 # ---------------------------------------------------------------------------

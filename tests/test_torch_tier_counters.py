@@ -4,10 +4,13 @@ Every product ``Planner._execute_impl`` runs counts once under its
 plan's tier: ``kernel_tier_products`` for the ``pallas`` scheme,
 ``gather_tier_products`` for ``rowwise``, ``fixed``, ``variable`` and
 ``hierarchical``. A ladder rung, a batched launch and a chain hop each
-count under their own plan.
+count under their own plan. Every dense result copied to host numpy
+counts once in ``host_copies``, ``memory="pageable"`` on the CPU, where
+no page-locked allocation is ever tried.
 """
 import numpy as np
 import pytest
+import torch
 
 from repro_torch.core.formats import HostCSR, block_diag_csr
 from repro_torch.obs import metrics as obs_metrics
@@ -19,6 +22,7 @@ from repro_torch.resilience import faults, reset_policy
 from repro_torch.serve.engine import SpGEMMServer
 
 TIERS = ("kernel_tier_products", "gather_tier_products")
+COPIES = ("host_copies{memory=pageable}", "host_copies{memory=pinned}")
 
 
 @pytest.fixture(autouse=True)
@@ -57,13 +61,26 @@ def _server(a: HostCSR, reorder: str, scheme: str) -> SpGEMMServer:
     return SpGEMMServer(Planner(cache=cache, device="cpu"))
 
 
-def _counts() -> tuple[int, int]:
+def _counts(keys=TIERS) -> tuple[int, ...]:
     snap = obs_metrics.get_registry().snapshot()
-    return tuple(snap.get(k, 0) for k in TIERS)
+    return tuple(snap.get(k, 0) for k in keys)
 
 
-def _moved(before: tuple[int, int]) -> tuple[int, int]:
-    return tuple(x - y for x, y in zip(_counts(), before))
+def _moved(before: tuple[int, ...], keys=TIERS) -> tuple[int, ...]:
+    return tuple(x - y for x, y in zip(_counts(keys), before))
+
+
+@pytest.fixture
+def no_pinning(monkeypatch):
+    """Fail any page-locked host allocation."""
+    empty = torch.empty
+
+    def guarded(*args, **kwargs):
+        assert not kwargs.get("pin_memory"), "pinned allocation tried"
+        return empty(*args, **kwargs)
+    monkeypatch.setattr(torch, "empty", guarded)
+    monkeypatch.setattr(torch.Tensor, "pin_memory", lambda self: (
+        pytest.fail("pinned allocation tried")))
 
 
 @pytest.mark.parametrize("reorder,scheme,want", [
@@ -145,3 +162,52 @@ def test_chain_hops_count_by_their_own_plans(schemes, want):
 def test_the_tier_counters_are_declared_as_counters():
     for name in TIERS:
         assert obs_metrics.METRIC_CATALOG[name][0] == "counter"
+
+
+@pytest.mark.parametrize("reorder,scheme", [
+    ("original", "pallas"), ("original", "rowwise"), ("degree", "fixed"),
+    ("rcm", "variable"), ("original", "hierarchical")])
+def test_an_a2_request_copies_once_to_pageable_memory(reorder, scheme,
+                                                      no_pinning):
+    a = _matrix()
+    srv = _server(a, reorder, scheme)
+    for _ in range(2):
+        before = _counts(COPIES)
+        resp = srv.submit(a)
+        np.testing.assert_array_equal(resp.result,
+                                      a.to_dense() @ a.to_dense())
+        assert _moved(before, COPIES) == (1, 0)
+    assert srv.planner.stats["pinned_host_bytes"] == 0
+
+
+@pytest.mark.parametrize("scheme", ["pallas", "fixed"])
+def test_a_batched_launch_copies_once(scheme, no_pinning):
+    members = [_matrix(32, seed=s) for s in range(3)]
+    pack = block_diag_csr(members).host
+    plan = _plan(pack, "original", scheme, workload="batch")
+    planner = Planner(cache=PlanCache(), device="cpu")
+    before = _counts(COPIES)
+    out = planner.execute_batch(plan, pack)
+    np.testing.assert_array_equal(out, pack.to_dense() @ pack.to_dense())
+    assert _moved(before, COPIES) == (1, 0)
+
+
+@pytest.mark.parametrize("schemes,want", [
+    (("pallas", "pallas"), 0), (("rowwise", "rowwise"), 2),
+    (("pallas", "fixed"), 1)])
+def test_a_chain_copies_its_dense_hops_only(schemes, want, no_pinning):
+    """The sparse-C route returns C compacted, without a dense copy."""
+    a = _matrix()
+    d = a.to_dense()
+    cache = PlanCache()
+    for left, scheme in zip((a, HostCSR.from_dense(d @ d)), schemes):
+        cache.put(_plan(left, "original", scheme, workload="chain"))
+    planner = Planner(cache=cache, device="cpu")
+    before = _counts(COPIES)
+    c, _ = planner.execute_chain(a, hops=2, reuse_hint=20)
+    np.testing.assert_array_equal(c.to_dense(), d @ d @ d)
+    assert _moved(before, COPIES) == (want, 0)
+
+
+def test_host_copies_is_declared_as_a_counter():
+    assert obs_metrics.METRIC_CATALOG["host_copies"][0] == "counter"

@@ -58,15 +58,16 @@ def _dense_b(n, seed=4) -> np.ndarray:
         np.float32)
 
 
-def _server(a: HostCSR) -> SpGEMMServer:
-    """A server whose plan cache holds an RCM + fixed-cluster SpMM plan
-    for ``a``: every request hits the plan and un-permutes C's rows."""
+def _server(a: HostCSR, workload: str = "spmm") -> SpGEMMServer:
+    """A server whose plan cache holds an RCM + fixed-cluster plan for
+    ``a`` (SpMM by default): every request hits the plan and un-permutes
+    C's rows (and for A², its columns)."""
     perm, bounds, mc, _ = _materialize(a, Candidate("rcm", "fixed"))
     assert perm is not None and not np.array_equal(perm, np.arange(a.nrows))
     cache = PlanCache()
     cache.put(Plan(fingerprint=fingerprint(a), reorder="rcm", scheme="fixed",
                    reuse_hint=20, max_cluster=mc, perm=perm,
-                   boundaries=bounds, workload="spmm"))
+                   boundaries=bounds, workload=workload))
     return SpGEMMServer(Planner(cache=cache, device="cpu"))
 
 
@@ -128,6 +129,25 @@ def test_span_tree_of_a_plan_hit_dense_b_request(exec_hit):
             up = by_id[sp.parent_id]
             assert up.t0 <= sp.t0
             assert sp.t0 + sp.duration <= up.t0 + up.duration + 1e-9
+
+
+@pytest.mark.parametrize("workload", ["spmm", "a2"])
+def test_the_copy_span_books_pageable_bytes_on_the_cpu(workload):
+    a = _matrix()
+    b = _dense_b(a.nrows) if workload == "spmm" else None
+    srv = _server(a, workload)
+    resp = None
+
+    def go():
+        nonlocal resp
+        resp = srv.submit(a, b)
+    spans = _traced(go)
+    d = a.to_dense()
+    np.testing.assert_array_equal(resp.result, d @ (d if b is None else b))
+    assert _children(spans, _one(spans, "kernel")) == ["product", "copy",
+                                                        "unpermute"]
+    assert _one(spans, "copy").attrs == {"bytes": resp.result.nbytes,
+                                         "pinned": False}
 
 
 def test_a_guard_on_a_ladder_rung_sits_under_its_fallback():
