@@ -925,7 +925,7 @@ def nonfinite_spgemm_case(h, device, rng, *, shards: int = 8):
         got, want = fn(*args, pack.census), plain(*args)
         ok, err = nan_equal(got, want), finite_err(got, want)
         if pack.sparse_c:
-            got = CompactedC(slabs=got, table=pack.table, nrows=h.nrows,
+            got = CompactedC(slabs=got, keys=pack.keys, nrows=h.nrows,
                              ncols=h.ncols, block_r=8, bn=tiled.bn).to_dense()
         dense = got[:h.nrows, :h.ncols].float()
         if base is None:

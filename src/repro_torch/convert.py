@@ -44,14 +44,20 @@ def packed_from_numpy(kind: str, fields: dict, *, device):
     fields: arrays become tensors on ``device``, the static fields
     (``nrows``, ``block_k`` …; 0-d arrays accepted) become ints."""
     cls = PACKED_KINDS[kind]
+    build, names = cls, [f.name for f in dataclasses.fields(cls)]
+    if cls is CompactedC:
+        # the JAX package's CompactedC holds its dense window table, from
+        # which the port's takes its live window keys
+        build, names = CompactedC.from_table, ["slabs", "table",
+                                               *cls._static]
     kwargs = {}
-    for f in dataclasses.fields(cls):
-        value = fields[f.name]
-        if f.name in cls._static:
-            kwargs[f.name] = int(np.asarray(value))
+    for name in names:
+        value = fields[name]
+        if name in cls._static:
+            kwargs[name] = int(np.asarray(value))
         else:
-            kwargs[f.name] = tensor_from_numpy(value, device=device)
-    return cls(**kwargs)
+            kwargs[name] = tensor_from_numpy(value, device=device)
+    return build(**kwargs)
 
 
 def plan_from_numpy(fields: dict) -> Plan:

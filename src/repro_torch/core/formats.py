@@ -57,8 +57,10 @@ __all__ = [
     "partition_balance",
     "revisit_window_blocks",
     "revisit_pair_stream",
+    "compacted_c_keys",
     "compacted_c_table",
     "compacted_c_from_dense",
+    "compacted_c_csr",
     "compacted_c_to_host",
     "compacted_c_counters",
     "COUNTER_UNITS",
@@ -535,24 +537,45 @@ class TiledCSR:
 @dataclasses.dataclass(frozen=True)
 class CompactedC:
     """Sparse-C output format: only the *live* ``(block_r, bn)`` windows of
-    C, as packed value slabs::
+    C, as packed value slabs, and their window keys::
 
         slabs : (slab_cap, block_r, bn)   slabs[0] is the reserved
-                                          all-zero slab; live windows
-                                          occupy 1..nslabs_live
-        table : (nblocks * nnb,) int32    (row block blk, col strip j) →
-                                          slab at table[blk * nnb + j];
-                                          0 = dead (the zero slab)
+                                          all-zero slab; live window
+                                          keys[i] occupies slab i + 1
+        keys  : (nslabs_live,) int64      sorted window keys
+                                          blk * nnb + j (row block blk,
+                                          col strip j)
+
+    Its bookkeeping grows with C's live windows, never with the
+    ``nblocks × nnb`` window lattice; :attr:`table` derives the JAX
+    package's dense window → slab lookup on demand.
     """
 
     _static = ("nrows", "ncols", "block_r", "bn")
 
     slabs: torch.Tensor        # (slab_cap, block_r, bn)
-    table: torch.Tensor        # (nblocks * nnb,) int32, 0 = dead
+    keys: torch.Tensor         # (nslabs_live,) int64, ascending
     nrows: int
     ncols: int
     block_r: int
     bn: int
+
+    @classmethod
+    def from_table(cls, slabs, table, *, nrows: int, ncols: int,
+                   block_r: int, bn: int) -> "CompactedC":
+        """From the JAX package's layout: a dense ``(nblocks * nnb,)``
+        window → slab table, whose live windows hold slabs ``1..L`` in
+        ascending key order (:func:`compacted_c_table`'s numbering, the
+        order its slabs are packed in); any other table raises."""
+        slabs = torch.as_tensor(slabs)
+        table = torch.as_tensor(table).to(slabs.device).long()
+        keys = torch.nonzero(table > 0).view(-1)
+        want = torch.arange(1, keys.shape[0] + 1, device=slabs.device)
+        if not torch.equal(table[keys], want):
+            raise ValueError("the table does not number its live windows "
+                             "1..L in key order")
+        return cls(slabs=slabs, keys=keys, nrows=nrows, ncols=ncols,
+                   block_r=block_r, bn=bn)
 
     @property
     def nblocks(self) -> int:
@@ -569,7 +592,19 @@ class CompactedC:
     @property
     def nslabs_live(self) -> int:
         """Live windows (excludes the reserved zero slab)."""
-        return int((self.table > 0).sum())
+        return int(self.keys.shape[0])
+
+    @property
+    def table(self) -> torch.Tensor:
+        """The dense ``(nblocks * nnb,)`` int32 window → slab lookup (0 =
+        dead, the zero slab), built here: ``nblocks × nnb`` entries, for
+        parity with the JAX package and dense outputs only."""
+        table = torch.zeros(self.nblocks * self.nnb, dtype=torch.int32,
+                            device=self.keys.device)
+        table[self.keys] = torch.arange(1, self.nslabs_live + 1,
+                                        dtype=torch.int32,
+                                        device=self.keys.device)
+        return table
 
     def nbytes_slabs(self) -> int:
         """Device footprint of the slab store."""
@@ -906,26 +941,20 @@ def live_pair_stream(block_ids, tile_ids, table, *, nnb: int, nblocks: int,
     if step_live is None:
         step_live = np.ones(s_total, dtype=bool)
     step_live = np.asarray(step_live, dtype=bool)
-    tbl = table.reshape(-1, nnb)
-    # chunked intersection: bound the dense (chunk, nnb) transient to
-    # ~16 MiB of int32, concatenating only the live pairs (chunks are
-    # s-ascending, so (s, j) order is preserved)
-    chunk = max(1, (1 << 22) // max(nnb, 1))
-    s_parts, j_parts, slot_parts = [], [], []
-    for lo in range(0, s_total, chunk):
-        hi = min(lo + chunk, s_total)
-        slots_c = tbl[tile_ids[lo:hi]]                    # (chunk, nnb)
-        live_c = (slots_c > 0) & step_live[lo:hi, None]
-        sc, jc = np.nonzero(live_c)      # row-major: (s, j) ascending
-        s_parts.append(sc + lo)
-        j_parts.append(jc)
-        slot_parts.append(slots_c[sc, jc].astype(np.int64))
-    s_idx = (np.concatenate(s_parts) if s_parts
-             else np.empty(0, np.int64))
-    j_idx = (np.concatenate(j_parts) if j_parts
-             else np.empty(0, np.int64))
-    slot_vals = (np.concatenate(slot_parts) if slot_parts
-                 else np.empty(0, np.int64))
+    # B's live tiles, (k-block, j) ascending, as the rows of a CSR over
+    # its k-blocks: each live step expands to its k-block's live tiles,
+    # so the work follows the pairs, not steps × nnb
+    live_keys = np.flatnonzero(table > 0)
+    row_ptr = np.zeros(table.shape[0] // nnb + 1, dtype=np.int64)
+    np.cumsum(np.bincount(live_keys // nnb, minlength=row_ptr.shape[0] - 1),
+              out=row_ptr[1:])
+    counts = np.where(step_live, row_ptr[tile_ids + 1] - row_ptr[tile_ids],
+                      0)
+    s_idx = np.repeat(np.arange(s_total, dtype=np.int64), counts)
+    pos = (np.repeat(row_ptr[tile_ids] - (np.cumsum(counts) - counts),
+                     counts) + np.arange(s_idx.shape[0], dtype=np.int64))
+    j_idx = live_keys[pos] % nnb             # (s, j) ascending
+    slot_vals = table[live_keys[pos]].astype(np.int64)
     # first stream step of every block (sentinel anchor)
     first = boundary_mask(block_ids)
     first_step = np.full(nblocks, -1, dtype=np.int64)
@@ -1221,22 +1250,34 @@ def revisit_pair_stream(pairs, *, window_blocks: int, block_base: int = 0
 # ---------------------------------------------------------------------------
 
 
+def compacted_c_keys(pairs, *, nnb: int) -> np.ndarray:
+    """The sorted keys ``blk * nnb + j`` of the distinct ``(blk, j)`` C
+    windows touched by a live pair: a :class:`CompactedC`'s ``keys``.
+
+    >>> compacted_c_keys(([0, 1, 1], [1, 0, 0], [3, 5, 0], [0, 1, 1]),
+    ...                  nnb=2).tolist()
+    [1, 2]
+    """
+    blocks, js, slots, _ = (np.asarray(p) for p in pairs)
+    live = slots > 0
+    return np.unique(blocks[live].astype(np.int64) * nnb
+                     + js[live].astype(np.int64))
+
+
 def compacted_c_table(pairs, *, nblocks: int, nnb: int
                       ) -> tuple[np.ndarray, int]:
     """Slab table of the live C windows: the distinct ``(blk, j)`` windows
     touched by a live pair get slabs ``1..nlive`` in ascending window-key
     order (slab 0 stays the reserved zero slab). Returns
-    ``(table, nslabs_live)``.
+    ``(table, nslabs_live)``: the JAX package's layout, ``nblocks × nnb``
+    entries (the port's packs keep :func:`compacted_c_keys`).
 
     >>> table, n = compacted_c_table(([0, 1], [1, 0], [3, 5], [0, 1]),
     ...                              nblocks=2, nnb=2)
     >>> table.tolist(), n
     ([0, 1, 2, 0], 2)
     """
-    blocks, js, slots, _ = (np.asarray(p) for p in pairs)
-    live = slots > 0
-    key = blocks[live].astype(np.int64) * nnb + js[live].astype(np.int64)
-    ukey = np.unique(key)
+    ukey = compacted_c_keys(pairs, nnb=nnb)
     return key_table(ukey, nblocks * nnb, base=1), int(ukey.size)
 
 
@@ -1244,7 +1285,7 @@ def compacted_c_from_dense(dense: torch.Tensor, table, *, nrows: int,
                            ncols: int, block_r: int, bn: int) -> CompactedC:
     """Gather the live ``(block_r, bn)`` windows of a dense C into packed
     :class:`CompactedC` slabs (values moved, never recomputed), on
-    ``dense``'s device."""
+    ``dense``'s device. ``table`` is :func:`compacted_c_table`'s."""
     table = np.asarray(table, dtype=np.int32)
     nblocks = (nrows + block_r - 1) // block_r
     nnb = (ncols + bn - 1) // bn
@@ -1257,27 +1298,89 @@ def compacted_c_from_dense(dense: torch.Tensor, table, *, nrows: int,
     live_keys = _tensor(np.flatnonzero(table > 0), dense.device)
     slabs = torch.cat([dense.new_zeros((1, block_r, bn)),
                        windows[live_keys]], dim=0)
-    return CompactedC(slabs=slabs, table=_tensor(table, dense.device),
-                      nrows=nrows, ncols=ncols, block_r=block_r, bn=bn)
+    return CompactedC.from_table(slabs, _tensor(table, dense.device),
+                                 nrows=nrows, ncols=ncols, block_r=block_r,
+                                 bn=bn)
+
+
+# segments (window rows) compacted_c_csr takes at a time: 2**18 × 128
+# float32 values are 128 MiB of slabs
+_CSR_CHUNK = 1 << 18
+
+
+def compacted_c_csr(c: CompactedC
+                    ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """C's CSR arrays from the slabs and the keys, on the slabs' device:
+    int64 ``indptr``, int32 ``indices``, float32 ``data``, values moved
+    bit-for-bit (16-bit slabs widened).
+
+    Windows are disjoint and their keys sorted, so C's CSR order needs no
+    sort: a row's entries lie in its block's windows in key (column
+    strip) order, each window row's own in column order. Each segment's
+    (a window's row's) nonzeros are counted, the segments placed
+    row-major by a running sum over (block, row, window), and every
+    nonzero scattered to its place — ``_CSR_CHUNK`` segments at a time
+    (their nonzeros found twice: to count, then to place), so the
+    transients stay small beside the slabs."""
+    chunk = _CSR_CHUNK
+    dev = c.slabs.device
+    keys = c.keys.to(dev).long()
+    nlive = keys.shape[0]
+    br, bn = c.block_r, c.bn
+    segs = c.slabs[1: nlive + 1].reshape(nlive * br, bn)
+    blk, j = keys // c.nnb, keys % c.nnb
+    seg_nnz = torch.zeros(nlive * br, dtype=torch.long, device=dev)
+    for lo in range(0, nlive * br, chunk):
+        part = segs[lo: lo + chunk]
+        seg_nnz[lo: lo + part.shape[0]] = torch.bincount(
+            torch.nonzero(part.reshape(-1)).view(-1) // bn,
+            minlength=part.shape[0])
+    # the CSR rank of segment (slab l, row r): the block's earlier rows,
+    # all its windows each, then row r's earlier windows
+    first = torch.searchsorted(blk, blk)               # block's 1st slab
+    nwin = torch.searchsorted(blk, blk, right=True) - first
+    rank = (br * first[:, None]
+            + torch.arange(br, device=dev)[None, :] * nwin[:, None]
+            + (torch.arange(nlive, device=dev) - first)[:, None]
+            ).reshape(-1)
+    by_rank = torch.zeros(nlive * br, dtype=torch.long, device=dev)
+    by_rank[rank] = seg_nnz
+    # a segment's first entry in CSR order, less its first in slab order
+    seg_first = torch.cumsum(seg_nnz, 0) - seg_nnz
+    shift = (torch.cumsum(by_rank, 0) - by_rank)[rank] - seg_first
+    seg_col = (j * bn).repeat_interleave(br)           # its 1st column
+    nnz = int(seg_nnz.sum())
+    cols = torch.empty(nnz, dtype=torch.int32, device=dev)
+    data = torch.empty(nnz, dtype=torch.float32, device=dev)
+    for lo in range(0, nlive * br, chunk):
+        part = segs[lo: lo + chunk].reshape(-1)
+        flat = torch.nonzero(part).view(-1)            # slab order
+        seg = flat // bn + lo
+        dest = shift[seg] + seg_first[lo] + torch.arange(
+            flat.shape[0], device=dev)
+        cols[dest] = (seg_col[seg] + flat % bn).int()
+        data[dest] = part[flat].float()
+    row_nnz = torch.zeros(c.nblocks * br, dtype=torch.long,
+                          device=dev).index_add_(
+        0, (blk[:, None] * br
+            + torch.arange(br, device=dev)[None, :]).reshape(-1), seg_nnz)
+    if c.nblocks * br > c.nrows or c.nnb * bn > c.ncols:
+        # entries in the windows' padding past C's edge are dropped
+        rows = torch.repeat_interleave(
+            torch.arange(c.nblocks * br, device=dev), row_nnz)
+        keep = (rows < c.nrows) & (cols < c.ncols)
+        rows, cols, data = rows[keep], cols[keep], data[keep]
+        row_nnz = torch.bincount(rows, minlength=c.nrows)
+    indptr = torch.zeros(c.nrows + 1, dtype=torch.long, device=dev)
+    torch.cumsum(row_nnz[: c.nrows], 0, out=indptr[1:])
+    return indptr, cols, data
 
 
 def compacted_c_to_host(c: CompactedC) -> HostCSR:
-    """CompactedC → HostCSR, values moved bit-for-bit. Windows are
-    disjoint, so no duplicate summing happens."""
-    table = c.table.cpu().numpy().reshape(c.nblocks, c.nnb)
-    blk, j = np.nonzero(table > 0)
-    if blk.size == 0:
-        return HostCSR(np.zeros(c.nrows + 1, np.int64),
-                       np.empty(0, np.int32), np.empty(0, np.float32),
-                       (c.nrows, c.ncols))
-    vals = c.slabs.float().cpu().numpy()[table[blk, j]]   # (L, br, bn)
-    lw, rr, cc = np.nonzero(vals)
-    rows = blk[lw] * c.block_r + rr
-    cols = j[lw] * c.bn + cc
-    data = vals[lw, rr, cc]
-    keep = (rows < c.nrows) & (cols < c.ncols)
-    return HostCSR.from_coo(rows[keep], cols[keep], data[keep],
-                            (c.nrows, c.ncols), sum_duplicates=False)
+    """CompactedC → HostCSR (:func:`compacted_c_csr`, copied to host
+    numpy)."""
+    indptr, cols, data = (t.cpu().numpy() for t in compacted_c_csr(c))
+    return HostCSR(indptr, cols, data, (c.nrows, c.ncols))
 
 
 def compacted_c_counters(c: CompactedC, *, c_nnz: int | None = None,

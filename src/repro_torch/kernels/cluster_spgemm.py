@@ -17,7 +17,8 @@ only in VMEM placement and output addressing.
 
 :func:`windows_from_pairs` packs the launch once, from the (block, s, j)
 stream of ``live_pair_stream``, for either output: dense strips, or
-CompactedC slabs placed through the ``compacted_c_table`` lookup table.
+CompactedC slabs placed by C's sorted live window keys
+(``compacted_c_keys``).
 :func:`cluster_spgemm_windows` is the wrapper: on a CUDA tensor it
 launches the kernel (counting the launch in its ``launches`` attribute)
 or raises; on a CPU tensor it runs :func:`cluster_spgemm_windows_plain`,
@@ -128,32 +129,30 @@ def _group(keys, slots, a_idx, device):
 
 def windows_from_pairs(blocks, js, slots, a_idx, *, nblocks: int, nnb: int,
                        block_r: int, bn: int, device,
-                       table=None) -> Windows:
+                       keys=None) -> Windows:
     """Regroup a (block, s, j)-ordered live-pair stream
     (``live_pair_stream``) by ``(blk, j)`` window, s ascending within each.
 
-    Without ``table`` the output is the dense ``(nblocks * block_r,
-    nnb * bn)`` C, window ``(blk, j)`` at its strip tile. With ``table``
-    (``compacted_c_table``'s ``(nblocks * nnb,)`` window → slab lookup)
-    the output is the ``(nslabs, block_r, bn)`` CompactedC slab store,
-    window ``(blk, j)`` in slab ``table[blk * nnb + j]``; slab 0 stays
-    zero."""
-    keys = (torch.as_tensor(blocks, device=device).long() * nnb
-            + torch.as_tensor(js, device=device).long())
-    ukey, win_ptr, sl, ai = _group(keys, slots, a_idx, device)
+    Without ``keys`` the output is the dense ``(nblocks * block_r,
+    nnb * bn)`` C, window ``(blk, j)`` at its strip tile. With ``keys``
+    (``compacted_c_keys``: the sorted live window keys ``blk * nnb + j``)
+    the output is the ``(len(keys) + 1, block_r, bn)`` CompactedC slab
+    store, window ``keys[i]`` in slab ``i + 1``; slab 0 stays zero."""
+    pair_key = (torch.as_tensor(blocks, device=device).long() * nnb
+                + torch.as_tensor(js, device=device).long())
+    ukey, win_ptr, sl, ai = _group(pair_key, slots, a_idx, device)
     # launch strip by strip: (j, blk) order
     order = torch.argsort((ukey % nnb) * nblocks + ukey // nnb,
                           stable=True).int().contiguous()
-    if table is None:
+    if keys is None:
         ldc = nnb * bn
         win_out = (ukey // nnb) * (block_r * ldc) + (ukey % nnb) * bn
         out_shape = (nblocks * block_r, ldc)
     else:
-        table = torch.as_tensor(table, device=device).long()
+        keys = torch.as_tensor(keys, device=device).long()
         ldc = bn
-        win_out = table[ukey] * (block_r * bn)
-        nslabs = int(table.max()) + 1 if table.numel() else 1
-        out_shape = (nslabs, block_r, bn)
+        win_out = (torch.searchsorted(keys, ukey) + 1) * (block_r * bn)
+        out_shape = (keys.shape[0] + 1, block_r, bn)
     return Windows(win_ptr=win_ptr, win_out=win_out, slots=sl, a_idx=ai,
                    out_shape=out_shape, ldc=ldc, block_r=block_r, bn=bn,
                    order=order)

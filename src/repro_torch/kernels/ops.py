@@ -8,7 +8,9 @@ keep the JAX package's selection *rules*:
   strip budget (``compact_grid_ok``); past it — B wider than 65,536
   columns at the serving packing — the product runs on the padded
   per-tile grid (:func:`cluster_spgemm_padded`), whose output has B's
-  dtype;
+  dtype. That is the TPU's rule, kept on every route but one: on the
+  card a product asked for sparse C takes the live-pair grid at any
+  width;
 * the sparse-C output tier runs when the predicted C window density is at
   most 0.5 (:func:`predict_c_window_density`) and the product is not
   sharded;
@@ -48,6 +50,7 @@ import torch
 
 from repro_torch.core.formats import (BCC, CompactedC, TiledCSR,
                                       compacted_c_counters,
+                                      compacted_c_keys,
                                       compacted_c_table, live_pair_counters,
                                       live_pair_stream,
                                       partition_pair_stream,
@@ -89,7 +92,8 @@ __all__ = ["pallas_shard_count", "bcc_spmm", "SpmmPanels", "spmm_panels",
 _RESIDENT_B_BUDGET = 8 * 2**20
 
 # ceiling on the compacted grid's C row-strip window (block_r × nnb·bn
-# fp32): B matrices wide enough to blow it need the padded per-tile grid
+# fp32) in the JAX package's VMEM: B matrices wide enough to blow it need
+# the padded per-tile grid there (compact_grid_ok_ncols)
 _COMPACT_C_STRIP_BUDGET = 2 * 2**20
 
 # predicted C window density (live (blk, j) windows / all windows) at or
@@ -207,18 +211,35 @@ def spmm_compact_stream(stream: tuple, b: torch.Tensor, *, nrows: int,
     return out[:nrows]
 
 
-def compact_grid_ok_ncols(ncols: int, *, block_r: int = 8,
-                          bn: int = 128) -> bool:
-    """ncols-level form of :func:`compact_grid_ok` at the serving path's
-    default packing (one source of truth for the strip-budget rule)."""
+def compact_grid_ok_ncols(ncols: int, *, block_r: int = 8, bn: int = 128,
+                          sparse_c: bool = False, device=None) -> bool:
+    """Whether the live-pair grid applies to a product whose B (and C) is
+    ``ncols`` wide, at the serving path's default packing (one source of
+    truth for the rule).
+
+    Two rules. The TPU's, the JAX package's: its pair kernels hold a
+    whole C row strip ``(block_r, nnb·bn)`` fp32 in VMEM, so the grid
+    applies while the strip fits ``_COMPACT_C_STRIP_BUDGET`` (B up to
+    65,536 columns here); a wider product takes the padded per-tile grid.
+    The card's: its window kernel gives each live ``(block, j)`` window
+    one CTA and holds no strip (``csrc/cluster_spgemm.cu``), so a product
+    asked for sparse C (``sparse_c``) on a CUDA ``device`` takes the grid
+    at any width. Every other product — the dense-C routes, and every
+    route on the CPU, whose plans match the JAX package's — keeps the
+    TPU's rule."""
+    if sparse_c and device is not None \
+            and torch.device(device).type == "cuda":
+        return True
     nnb = (max(ncols, 1) + bn - 1) // bn
     return block_r * nnb * bn * 4 <= _COMPACT_C_STRIP_BUDGET
 
 
-def compact_grid_ok(a: BCC, b: TiledCSR) -> bool:
-    """Whether the live-pair compacted grid applies to this operand pair:
-    its C row strip ``(block_r, nnb*bn)`` must fit the strip budget."""
-    return compact_grid_ok_ncols(b.nnb * b.bn, block_r=a.block_r, bn=b.bn)
+def compact_grid_ok(a: BCC, b: TiledCSR, *, sparse_c: bool = False) -> bool:
+    """Whether the live-pair compacted grid applies to this operand pair
+    (:func:`compact_grid_ok_ncols` on A's device)."""
+    return compact_grid_ok_ncols(b.nnb * b.bn, block_r=a.block_r, bn=b.bn,
+                                 sparse_c=sparse_c,
+                                 device=a.values.device)
 
 
 def build_live_pairs(a: BCC, b: TiledCSR, stream: tuple | None = None
@@ -331,10 +352,10 @@ class SpGEMMPack:
     window-major stream (``dense`` / ``sparse_c``), the shards' windows or
     revisit segments (``sharded`` / ``sharded_revisit``, with the host
     partition in ``shard_pack``) or the padded grid (``padded``, which
-    builds no live pairs). On the sparse-C route ``table`` is the
-    CompactedC table on the device. A caller that keeps the pack (the
-    planner's exec cache) launches from it and B alone, without A's
-    padded slab array. ``cols`` is the live-column form of the stream's
+    builds no live pairs). On the sparse-C route ``keys`` are C's live
+    window keys on the device (:func:`compacted_c_keys`). A caller that
+    keeps the pack (the planner's exec cache) launches from it and B
+    alone, without A's padded slab array. ``cols`` is the live-column form of the stream's
     slabs, which every route's kernel walks; ``census`` lists the B tile
     slots the launch meets through a slab with a dead column, whose
     non-finite values every launch counts (:func:`census_tiles`)."""
@@ -344,7 +365,7 @@ class SpGEMMPack:
     route: str                 # dense | sparse_c | sharded |
     #                            sharded_revisit | padded
     launch: Windows | Segments | PaddedGrid
-    table: torch.Tensor | None  # CompactedC table (sparse_c route only)
+    keys: torch.Tensor | None  # C's live window keys (sparse_c only)
     nrows: int                 # A's rows
     block_r: int
     block_k: int
@@ -371,7 +392,9 @@ def pack_spgemm(a: BCC, b: TiledCSR, *, sparse_c: bool | None = None,
       live-pair stream (:func:`build_shard_pack`; default
       :func:`pallas_shard_count`, i.e. unsharded);
     * ``sparse_c`` — CompactedC slabs; default when the product is not
-      sharded and the predicted C window density is at most 0.5.
+      sharded and the predicted C window density is at most 0.5. Asked
+      for (``True``) on the card, the product takes the live-pair grid
+      at any width (:func:`compact_grid_ok_ncols`).
     """
     if a.block_k != b.block_k:
         raise ValueError(f"A block_k {a.block_k} != B block_k {b.block_k}")
@@ -385,12 +408,13 @@ def pack_spgemm(a: BCC, b: TiledCSR, *, sparse_c: bool | None = None,
     common = dict(stream=stream, nrows=a.nrows, block_r=a.block_r,
                   block_k=a.block_k)
     if compact is None:
-        compact = shard_pack is not None or compact_grid_ok(a, b)
+        compact = shard_pack is not None or compact_grid_ok(
+            a, b, sparse_c=bool(sparse_c))
     if not compact:
         grid = padded_grid(stream[0], stream[1], b.table, nblocks=nblocks,
                            nnb=b.nnb, block_r=a.block_r, bn=b.bn, device=dev)
         return _with_census(SpGEMMPack(pairs=None, route="padded",
-                                       launch=grid, table=None, **common))
+                                       launch=grid, keys=None, **common))
     pairs = build_live_pairs(a, b, stream)
     if shard_pack is None:
         shard_pack = build_shard_pack(a, b, pairs, shards=shards,
@@ -406,18 +430,17 @@ def pack_spgemm(a: BCC, b: TiledCSR, *, sparse_c: bool | None = None,
                                           window_blocks=wb, **geometry)
         return _with_census(SpGEMMPack(
             pairs=pairs, route="sharded" if wb is None else "sharded_revisit",
-            launch=launch, table=None, shard_pack=shard_pack, **common))
+            launch=launch, keys=None, shard_pack=shard_pack, **common))
     if sparse_c is None:
         sparse_c = predict_c_window_density(
             pairs, nblocks=nblocks, nnb=b.nnb) <= _SPARSE_C_DENSITY
-    table = None
+    keys = None
     if sparse_c:
-        table = torch.from_numpy(compacted_c_table(
-            pairs, nblocks=nblocks, nnb=b.nnb)[0]).to(dev)
-    windows = windows_from_pairs(*pairs, table=table, **geometry)
+        keys = torch.from_numpy(compacted_c_keys(pairs, nnb=b.nnb)).to(dev)
+    windows = windows_from_pairs(*pairs, keys=keys, **geometry)
     return _with_census(SpGEMMPack(
         pairs=pairs, route="sparse_c" if sparse_c else "dense",
-        launch=windows, table=table, **common))
+        launch=windows, keys=keys, **common))
 
 
 def _with_census(pack: SpGEMMPack) -> SpGEMMPack:
@@ -443,7 +466,7 @@ def bcc_spgemm_sparse_c(a: BCC | None, b: TiledCSR, *,
                            epilogue="kernel"):
         slabs = cluster_spgemm_windows(pack.launch, pack.stream[2],
                                        b.tiles, pack.cols, pack.census)
-    out = CompactedC(slabs=slabs, table=pack.table, nrows=pack.nrows,
+    out = CompactedC(slabs=slabs, keys=pack.keys, nrows=pack.nrows,
                      ncols=b.ncols, block_r=pack.block_r, bn=b.bn)
     _note_kernel_launch("sparse_c", cc=out)
     return out

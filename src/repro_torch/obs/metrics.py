@@ -94,6 +94,13 @@ _HOST_METRICS: dict[str, tuple[str, str]] = {
         "(count)"),
     "chain_hops": (
         "counter", "chain-workload hops executed (count)"),
+    "sparse_c_slab_bytes": (
+        "counter", "bytes of the live CompactedC slabs the sparse-C "
+        "products of chain hops wrote, one addition per product "
+        "(bytes)"),
+    "sparse_c_entries": (
+        "counter", "entries of C the sparse-C products of chain hops "
+        "returned as CSR, one addition per product (count)"),
     "pipeline_stage_s": (
         "histogram", "planned sparse pipeline stage wall time (seconds)"),
     "audit_records": (

@@ -159,7 +159,7 @@ def pack_sparse_b(plan: Plan, a: HostCSR, b: Optional[HostCSR], *,
     """The operands of ``A @ B`` for a sparse B (``b=None``: A², permuted
     symmetrically). ``sparse_c`` packs a chain hop's kernel-tier operands
     for the sparse-C route, or returns ``None`` where its live-pair grid
-    does not apply."""
+    does not apply (:func:`~repro_torch.kernels.ops.compact_grid_ok`)."""
     squared = b is None
     with _pack_span(plan, "sparse_c" if sparse_c else
                     "sq" if squared else "ab"):
@@ -174,7 +174,8 @@ def pack_sparse_b(plan: Plan, a: HostCSR, b: Optional[HostCSR], *,
             tiled = tiled_csr_from_host(bh, block_k=bk, dtype=b_dtype,
                                         device=device)
             bcc = bcc_from_host(ap, block_k=bk, device=device)
-            if sparse_c and not kernel_ops.compact_grid_ok(bcc, tiled):
+            if sparse_c and not kernel_ops.compact_grid_ok(bcc, tiled,
+                                                           sparse_c=True):
                 return None
             return KernelSpGEMM(tiled, kernel_ops.pack_spgemm(
                 bcc, tiled, sparse_c=sparse_c or None))

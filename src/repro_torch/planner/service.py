@@ -20,7 +20,8 @@ rowwise) and the circuit breaker quarantines the failing plan.
 ``execute_chain`` is the chained-product entry point (``A^(hops+1)``):
 each hop plans the current sparse intermediate under ``workload="chain"``
 and, on pallas hops, runs the sparse-C route so the intermediate goes
-``CompactedC → HostCSR`` without a dense matrix.
+``CompactedC → HostCSR`` without a dense matrix — on the card at any
+width of C.
 """
 from __future__ import annotations
 
@@ -37,7 +38,7 @@ from repro_torch.core.clustering import (DEFAULT_MAX_CLUSTER,
                                          fixed_length_clusters,
                                          hierarchical_clusters,
                                          variable_length_clusters)
-from repro_torch.core.formats import HostCSR, compacted_c_to_host
+from repro_torch.core.formats import HostCSR, compacted_c_csr
 from repro_torch.core.reorder import reorder as apply_reorder
 from repro_torch.device import resolve_device, synchronize
 from repro_torch.kernels import ops as kernel_ops
@@ -132,29 +133,34 @@ def _plan_digest(plan: Plan) -> str:
     return out
 
 
-def _to_host(out: torch.Tensor, span) -> np.ndarray:
-    """C as float32 host numpy, booked on ``span`` and ``host_copies``.
+def _copy_down(out: torch.Tensor) -> np.ndarray:
+    """``out`` as host numpy, floats as float32.
 
     The padded grid returns B's dtype: bf16 widens to float32, values
     equal to the JAX package's bfloat16 result (numpy has no bfloat16,
     and ml_dtypes is not a dependency; the README's port section records
-    this divergence). From the card, C widens there (exact) and lands in
-    page-locked memory from PyTorch's caching host allocator: the array's
-    base holds the block until the caller drops every view of it, and
-    the next result of its size then reuses the block without a fresh
-    ``cudaHostAlloc`` or first-touch page faults. A block is never handed
-    out while an answer still points into it."""
-    pinned = out.is_cuda
-    if pinned:
-        src = out.float()
-        host = torch.empty(src.shape, dtype=torch.float32, pin_memory=True)
-        host.copy_(src)
-        arr = host.numpy()
-    else:
-        arr = out.cpu().float().numpy()
-    span.set(bytes=arr.nbytes, pinned=pinned)
+    this divergence). From the card, ``out`` widens there (exact) and
+    lands in page-locked memory from PyTorch's caching host allocator:
+    the array's base holds the block until the caller drops every view of
+    it, and the next array of its size then reuses the block without a
+    fresh ``cudaHostAlloc`` or first-touch page faults. A block is never
+    handed out while an answer still points into it."""
+    if out.is_floating_point():
+        out = out.float()
+    if not out.is_cuda:
+        return out.cpu().numpy()
+    host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
+    host.copy_(out)
+    return host.numpy()
+
+
+def _to_host(out: torch.Tensor, span) -> np.ndarray:
+    """A dense C as float32 host numpy (:func:`_copy_down`), booked on
+    ``span`` and counted in ``host_copies``."""
+    arr = _copy_down(out)
+    span.set(bytes=arr.nbytes, pinned=out.is_cuda)
     obs_metrics.get_registry().counter(
-        "host_copies", memory="pinned" if pinned else "pageable").inc()
+        "host_copies", memory="pinned" if out.is_cuda else "pageable").inc()
     return arr
 
 
@@ -734,13 +740,23 @@ class Planner:
     def _chain_hop_sparse(self, plan: Plan, cur: HostCSR,
                           b: Optional[HostCSR]) -> Optional[HostCSR]:
         """The sparse-C route of a pallas chain hop, or ``None`` when the
-        live-pair grid does not apply (wide B: the dense :meth:`execute`
-        path runs the padded grid instead). The pack is exec-cached, under
-        the cache's byte cap, like the dense paths'."""
+        live-pair grid does not apply (on the CPU, a B wider than the
+        TPU's strip budget: the dense :meth:`execute` path runs the
+        padded grid instead; on the card it applies at any width). The
+        pack is exec-cached, under the cache's byte cap, like the dense
+        paths'.
+
+        The ``kernel`` span holds the whole runner: the ``product`` (K5
+        and the sync), the slabs' ``to_csr`` assembly on the device, the
+        CSR arrays' ``copy`` to the host and, where the plan reorders,
+        the ``unpermute``. Each product adds its live slabs' bytes and
+        C's entries to ``sparse_c_slab_bytes`` and
+        ``sparse_c_entries``."""
         bh_cols = (cur if b is None else b).ncols
-        if not kernel_ops.compact_grid_ok_ncols(bh_cols):
-            return None
         dev = self.device
+        if not kernel_ops.compact_grid_ok_ncols(bh_cols, sparse_c=True,
+                                                device=dev):
+            return None
         vk = (_value_digest(cur) if b is None else
               f"{_value_digest(cur)}|{fingerprint(b)}|{_value_digest(b)}")
         ck = (f"{plan.fingerprint}|{_plan_digest(plan)}|chain"
@@ -750,19 +766,33 @@ class Planner:
             sparse_c=True))
         if packed is None:
             return None
-        with get_tracer().span("kernel", scheme=plan.scheme,
-                               variant="sparse_c"):
-            t0 = time.perf_counter()
-            cc = packed.run(compacted=True)
-            synchronize(dev)
-            kernel_s = time.perf_counter() - t0
+        tracer = get_tracer()
+        with tracer.span("kernel", scheme=plan.scheme, variant="sparse_c"):
+            with tracer.span("product"):
+                t0 = time.perf_counter()
+                cc = packed.run(compacted=True)
+                synchronize(dev)
+                kernel_s = time.perf_counter() - t0
+            with tracer.span("to_csr") as sp:
+                csr = compacted_c_csr(cc)
+                synchronize(dev)
+                sp.set(slabs=cc.nslabs_live, c_nnz=int(csr[1].shape[0]))
+            with tracer.span("copy") as sp:
+                arrays = [_copy_down(t) for t in csr]
+                sp.set(bytes=sum(x.nbytes for x in arrays),
+                       pinned=dev.type == "cuda")
+            host = HostCSR(*arrays, (cc.nrows, cc.ncols))
+            if plan.perm is not None:
+                with tracer.span("unpermute"):
+                    inv = np.argsort(np.asarray(plan.perm, dtype=np.int64))
+                    host = (host.permute_symmetric(inv) if b is None
+                            else host.permute_rows(inv))
         executor.count_product(plan)
+        reg = obs_metrics.get_registry()
+        reg.counter("sparse_c_slab_bytes").inc(
+            cc.nslabs_live * cc.block_r * cc.bn * cc.slabs.element_size())
+        reg.counter("sparse_c_entries").inc(host.nnz)
         self.auditor.record(plan, kernel_s)
-        host = compacted_c_to_host(cc)
-        if plan.perm is not None:
-            inv = np.argsort(np.asarray(plan.perm, dtype=np.int64))
-            host = (host.permute_symmetric(inv) if b is None
-                    else host.permute_rows(inv))
         return host
 
     def _build_runner(self, plan: Plan, a: HostCSR,

@@ -9,7 +9,8 @@ integer-valued inputs both packages must give the same sparse result
 schemes, with pallas plans seeded for every hop's fingerprint, with the
 heuristic planner, with an RCM-reordered first hop, with a hop too wide
 for the live-pair grid (both packages' strip budgets lowered by
-monkeypatch inside the test) and with a faulted pallas hop that degrades
+monkeypatch inside the test; with the card's rule patched in, the port's
+hop keeps the sparse-C route) and with a faulted pallas hop that degrades
 to the dense route.
 """
 import dataclasses
@@ -181,6 +182,46 @@ def test_wide_chain_hop_takes_the_dense_padded_route_like_the_reference(
     _chains(ref_planner, port_planner, dense, 2)
     assert (padded(ref_metrics) - before[0],
             padded(port_metrics) - before[1]) == (2, 2)
+
+
+def test_wide_sparse_c_hop_under_the_cards_rule_keeps_the_live_pair_grid(
+        monkeypatch):
+    """On the card a hop asked for sparse C takes the live-pair grid at
+    any width. With that rule patched in here (and both strip budgets
+    lowered), the too-wide hops run K5 into CompactedC slabs, launch no
+    padded grid, build no dense window table, and give the JAX package's
+    C, which takes its dense padded route."""
+    import repro.kernels.ops as ref_ops
+    import repro_torch.kernels.ops as port_ops
+    from repro_torch.core import formats as port_formats
+    monkeypatch.setattr(ref_ops, "_COMPACT_C_STRIP_BUDGET", 4096)
+    monkeypatch.setattr(port_ops, "_COMPACT_C_STRIP_BUDGET", 4096)
+    rule = port_ops.compact_grid_ok_ncols
+
+    def cards_rule(ncols, *, sparse_c=False, device=None, **kw):
+        return rule(ncols, sparse_c=sparse_c,
+                    device="cuda" if sparse_c else device, **kw)
+
+    def refuse(*_, **__):
+        raise AssertionError("a dense window table was built")
+    monkeypatch.setattr(port_ops, "compact_grid_ok_ncols", cards_rule)
+    monkeypatch.setattr(port_ops, "compacted_c_table", refuse)
+    monkeypatch.setattr(port_formats.CompactedC, "table", property(refuse))
+    dense = integer_dense(200, 200, 0.015, 13)     # nnb = 2 at bn = 128
+    assert not rule(dense.shape[1])
+    ref_planner, port_planner = _seeded(dense, 2)
+
+    def launches(reg, variant):
+        return reg.get_registry().counter("kernel_launches",
+                                          variant=variant).value
+
+    before = (launches(ref_metrics, "padded"),
+              launches(port_metrics, "padded"),
+              launches(port_metrics, "sparse_c"))
+    _chains(ref_planner, port_planner, dense, 2)
+    assert (launches(ref_metrics, "padded") - before[0],
+            launches(port_metrics, "padded") - before[1],
+            launches(port_metrics, "sparse_c") - before[2]) == (2, 0, 2)
 
 
 def test_faulted_pallas_hop_degrades_to_the_dense_route_like_the_reference():

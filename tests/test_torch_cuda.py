@@ -1385,6 +1385,43 @@ def test_cold_kron_a2_runs_on_the_kernel_tier(card, scale):
     assert (kernel.value - k0, gather.value - g0) == (2, 0)
 
 
+def test_wide_sparse_a2_is_served_on_the_sparse_c_route(card):
+    """A 9-point mesh of 262,144 rows, past the TPU's 65,536-column strip
+    budget, served by ``submit(a, hops=1)``: the cold plan is
+    ``original+pallas``, the hop runs K5 into CompactedC slabs (no padded
+    grid), and the CSR answer equals scipy's float64 square bit for bit,
+    twice. The same product stored in bfloat16 differs."""
+    import scipy.sparse as sp
+
+    from repro_torch.core.suite import gen_mesh2d
+    from repro_torch.obs import metrics as obs_metrics
+    pattern = gen_mesh2d(512, seed=0, stencil=9)
+    assert not ops.compact_grid_ok_ncols(pattern.ncols)
+    vals = np.random.default_rng(5).integers(1, 16, pattern.nnz)
+    h = HostCSR(pattern.indptr, pattern.indices, vals.astype(np.float32),
+                pattern.shape)
+    s = sp.csr_matrix((h.data.astype(np.float64), h.indices, h.indptr),
+                      shape=h.shape)
+    want = (s @ s).tocsr()
+    want.sort_indices()
+    reg = obs_metrics.get_registry()
+    sparse_c, padded = (reg.counter("kernel_launches", variant=v)
+                        for v in ("sparse_c", "padded"))
+    s0, p0 = sparse_c.value, padded.value
+    server = SpGEMMServer(device=card, measure=False)
+    for _ in range(2):
+        resp = server.submit(h, hops=1)
+        assert (resp.reorder, resp.scheme) == ("original", "pallas")
+        assert not resp.degraded
+        c = resp.result
+        assert np.array_equal(c.indptr, want.indptr)
+        assert np.array_equal(c.indices, want.indices)
+        assert np.array_equal(c.data.astype(np.float64), want.data)
+    assert (sparse_c.value - s0, padded.value - p0) == (2, 0)
+    stored = torch.from_numpy(want.data).float().to(torch.bfloat16)
+    assert not np.array_equal(stored.double().numpy(), want.data)
+
+
 # ---------------------------------------------------------------------------
 # served results copied into page-locked host memory
 # ---------------------------------------------------------------------------

@@ -122,6 +122,27 @@ def test_live_pair_stream_and_compacted_c_match(name):
     assert pn == rn and np.array_equal(ptab, rtab)
 
 
+@pytest.mark.parametrize("seed", range(4))
+def test_live_pair_stream_with_dropped_steps_matches(seed):
+    """Random streams (every block stepped at least once), sparse tile
+    tables and dropped steps: the port's pair expansion by B's live
+    tiles equals the JAX package's intersection, sentinels and tail
+    padding included."""
+    rng = np.random.default_rng(seed)
+    nblocks, nkb, nnb = 12, 5, 7
+    block_ids = np.sort(np.concatenate([np.arange(nblocks),
+                                        rng.integers(0, nblocks, 28)]))
+    tile_ids = rng.integers(0, nkb, block_ids.size)
+    table = np.where(rng.random(nkb * nnb) < 0.3,
+                     rng.integers(1, 9, nkb * nnb), 0).astype(np.int32)
+    kw = dict(nnb=nnb, nblocks=nblocks,
+              step_live=rng.random(block_ids.size) < 0.7)
+    got = PF.live_pair_stream(block_ids, tile_ids, table, **kw)
+    want = RF.live_pair_stream(block_ids, tile_ids, table, **kw)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and np.array_equal(g, w)
+
+
 @pytest.mark.parametrize("name", CASES)
 def test_compacted_c_round_trip_matches(name):
     ref, port = _pair(name)
@@ -145,6 +166,54 @@ def test_compacted_c_round_trip_matches(name):
     for field in ("indptr", "indices", "data"):
         assert np.array_equal(getattr(back_p, field), getattr(back_r, field))
     assert np.array_equal(back_p.to_dense(), dense)
+
+
+@pytest.mark.parametrize("name", CASES)
+def test_keyed_compacted_c_matches_the_dense_table_path(name, monkeypatch):
+    """The port's CompactedC keeps C's live window keys: its derived
+    table equals ``compacted_c_table``'s, and ``compacted_c_to_host``
+    from the keys equals the JAX package's from its dense table, field
+    for field, on the live-pair stream of A·Aᵀ."""
+    _, port = _pair(name)
+    b = PF.HostCSR.from_dense(port.to_dense().T)
+    pb = PF.bcc_from_host(port, block_k=16, device="cpu")
+    pt = PF.tiled_csr_from_host(b, block_k=16, bn=16, device="cpu")
+    ps = pops.bcc_compact_stream(pb, cover_all_blocks=True)
+    pp = PF.live_pair_stream(ps[0], ps[1], pt.table.numpy(), nnb=pt.nnb,
+                             nblocks=pb.nblocks)
+    table, nlive = PF.compacted_c_table(pp, nblocks=pb.nblocks, nnb=pt.nnb)
+    keys = PF.compacted_c_keys(pp, nnb=pt.nnb)
+    dense = port.to_dense() @ b.to_dense()
+    kw = dict(nrows=port.nrows, ncols=b.ncols, block_r=8, bn=16)
+    rc = RF.compacted_c_from_dense(dense, table, **kw)
+    pc = PF.CompactedC(slabs=torch.from_numpy(np.asarray(rc.slabs)),
+                       keys=torch.from_numpy(keys), **kw)
+    assert pc.nslabs_live == nlive == keys.size
+    assert pc.table.dtype == torch.int32
+    assert np.array_equal(pc.table.numpy(), table)
+    back_r, back_p = RF.compacted_c_to_host(rc), PF.compacted_c_to_host(pc)
+    for field in ("indptr", "indices", "data"):
+        got, want = getattr(back_p, field), getattr(back_r, field)
+        assert got.dtype == want.dtype and np.array_equal(got, want), field
+    assert np.array_equal(back_p.to_dense(), dense)
+    # a few segments at a time, as in one pass
+    monkeypatch.setattr(PF, "_CSR_CHUNK", 3)
+    for got, field in zip(PF.compacted_c_csr(pc),
+                          ("indptr", "indices", "data")):
+        assert np.array_equal(got.numpy(), getattr(back_r, field)), field
+
+
+def test_compacted_c_from_table_refuses_shared_or_unordered_slabs():
+    """A table is carried across only where its live windows hold slabs
+    1..L in key order, the order their slabs are packed in."""
+    slabs = torch.zeros((3, 8, 16))
+    kw = dict(nrows=16, ncols=32, block_r=8, bn=16)
+    ok = PF.CompactedC.from_table(slabs, np.array([0, 1, 0, 2], np.int32),
+                                  **kw)
+    assert ok.keys.tolist() == [1, 3]
+    for bad in ([0, 1, 0, 1], [0, 2, 0, 1]):
+        with pytest.raises(ValueError, match="key order"):
+            PF.CompactedC.from_table(slabs, np.array(bad, np.int32), **kw)
 
 
 def test_to_dense_matches_reference_small():
@@ -173,7 +242,7 @@ def test_to_dense_matches_reference_small():
     ("TiledCSR", lambda h: RF.tiled_csr_from_host(h, block_k=16, bn=16,
                                                   dtype=jnp.bfloat16)),
     ("CompactedC", lambda h: RF.compacted_c_from_dense(
-        h.to_dense(), np.arange(3 * 2, dtype=np.int32) % 3, nrows=h.nrows,
+        h.to_dense(), np.array([0, 1, 2, 0, 3, 4], np.int32), nrows=h.nrows,
         ncols=h.ncols, block_r=8, bn=16)),
 ])
 def test_packed_from_numpy_round_trips(kind, build):

@@ -82,10 +82,10 @@ class Packed:
 
     def slabs(self):
         """The port's CompactedC-slab launch of this case, through the
-        JAX package's slab table."""
+        live window keys of the JAX package's slab table."""
         w = windows_from_pairs(*self.pairs, nblocks=self.nblocks,
                                nnb=self.nnb, block_r=8, bn=16, device="cpu",
-                               table=self.sparse[3])
+                               keys=np.flatnonzero(self.sparse[3] > 0))
         return cluster_spgemm_windows(w, self.a_values, self.tiles)
 
     def check(self, got, want):
@@ -124,9 +124,9 @@ def test_slab_plain_matches_pallas_sparse_kernels(name):
         want = kernel(c_slots, slots, a_idx, p.stream[2], p.rt.tiles,
                       interpret=True, **kw)
         p.check(got.numpy(), want)
-    cc = PF.CompactedC(slabs=got, table=torch.from_numpy(table),
-                       nrows=p.a_dense.shape[0], ncols=p.b_dense.shape[1],
-                       block_r=8, bn=16)
+    cc = PF.CompactedC.from_table(got, torch.from_numpy(table),
+                                  nrows=p.a_dense.shape[0],
+                                  ncols=p.b_dense.shape[1], block_r=8, bn=16)
     p.check(cc.to_dense().numpy(), p.a_dense @ p.b_dense)
 
 
@@ -176,8 +176,8 @@ def test_compact_spmm_plain_matches_pallas(name, n_cols):
 def test_windows_regroup_matches_build_sparse_c_pairs():
     """The window regrouping (a stable sort by window key) visits pairs in
     exactly the order of the JAX package's window-major stream, s
-    ascending within each window, on both routes; with the slab table its
-    windows land on the stream's slabs."""
+    ascending within each window, on both routes; with the slab table's
+    live window keys its windows land on the stream's slabs."""
     for name in CASES:
         p = Packed(name)
         c_slots, slots, a_idx, table, nslabs = p.sparse
@@ -185,7 +185,7 @@ def test_windows_regroup_matches_build_sparse_c_pairs():
                                    block_r=8, bn=16, device="cpu")
         slab = windows_from_pairs(*p.pairs, nblocks=p.nblocks, nnb=p.nnb,
                                   block_r=8, bn=16, device="cpu",
-                                  table=table)
+                                  keys=np.flatnonzero(table > 0))
         live = slots > 0
         counts = np.bincount(c_slots[live], minlength=int(nslabs))[1:]
         for w in (dense, slab):

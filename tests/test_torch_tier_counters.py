@@ -22,6 +22,7 @@ from repro_torch.resilience import faults, reset_policy
 from repro_torch.serve.engine import SpGEMMServer
 
 TIERS = ("kernel_tier_products", "gather_tier_products")
+SPARSE_C = ("sparse_c_slab_bytes", "sparse_c_entries")
 COPIES = ("host_copies{memory=pageable}", "host_copies{memory=pinned}")
 
 
@@ -207,6 +208,37 @@ def test_a_chain_copies_its_dense_hops_only(schemes, want, no_pinning):
     c, _ = planner.execute_chain(a, hops=2, reuse_hint=20)
     np.testing.assert_array_equal(c.to_dense(), d @ d @ d)
     assert _moved(before, COPIES) == (want, 0)
+
+
+@pytest.mark.parametrize("schemes", [("pallas", "pallas"),
+                                     ("rowwise", "rowwise"),
+                                     ("pallas", "fixed")])
+def test_sparse_c_hops_add_their_slab_bytes_and_entries(schemes):
+    """Each sparse-C hop adds its live slabs' bytes and C's entries once;
+    a dense hop adds nothing."""
+    a = _matrix()
+    d = a.to_dense()
+    c1 = HostCSR.from_dense(d @ d)
+    cache = PlanCache()
+    for left, scheme in zip((a, c1), schemes):
+        cache.put(_plan(left, "original", scheme, workload="chain"))
+    planner = Planner(cache=cache, device="cpu")
+    before = _counts(SPARSE_C)
+    c, _ = planner.execute_chain(a, hops=2, reuse_hint=20)
+    np.testing.assert_array_equal(c.to_dense(), d @ d @ d)
+    nnz = [c1.nnz, c.nnz]
+    slab_bytes, entries = _moved(before, SPARSE_C)
+    want = sum(n for n, s in zip(nnz, schemes) if s == "pallas")
+    assert entries == want
+    # a live slab is a (block_r, bn) = (8, 128) window of float32
+    assert slab_bytes % (8 * 128 * 4) == 0
+    assert (slab_bytes > 0) == (want > 0)
+    assert slab_bytes >= 4 * entries
+
+
+def test_the_sparse_c_counters_are_declared_as_counters():
+    for name in SPARSE_C:
+        assert obs_metrics.METRIC_CATALOG[name][0] == "counter"
 
 
 def test_host_copies_is_declared_as_a_counter():

@@ -150,6 +150,40 @@ def test_the_copy_span_books_pageable_bytes_on_the_cpu(workload):
                                          "pinned": False}
 
 
+@pytest.mark.parametrize("reorder", ["original", "rcm"])
+def test_a_sparse_c_hop_books_its_copy_and_to_csr_spans(reorder):
+    """A chain hop on the sparse-C route: its ``kernel`` span holds the
+    ``product``, the slabs' ``to_csr`` assembly (the live slabs and C's
+    entries), the CSR arrays' ``copy`` (their bytes, pageable on the CPU)
+    and, where the plan reorders, the ``unpermute``."""
+    a = _matrix()
+    perm, _, mc, _ = _materialize(a, Candidate(reorder, "pallas"))
+    cache = PlanCache()
+    cache.put(Plan(fingerprint=fingerprint(a), reorder=reorder,
+                   scheme="pallas", reuse_hint=20, max_cluster=mc,
+                   perm=perm, workload="chain"))
+    srv = SpGEMMServer(Planner(cache=cache, device="cpu"))
+    resp = None
+
+    def go():
+        nonlocal resp
+        resp = srv.submit(a, hops=1)
+    spans = _traced(go)
+    d = a.to_dense()
+    assert resp.scheme == "pallas" and not resp.degraded
+    np.testing.assert_array_equal(resp.result.to_dense(), d @ d)
+    steps = ["product", "to_csr", "copy"] + (
+        ["unpermute"] if reorder == "rcm" else [])
+    assert _children(spans, _one(spans, "kernel")) == steps
+    to_csr = _one(spans, "to_csr").attrs
+    c = resp.result
+    assert to_csr["c_nnz"] == c.nnz == np.count_nonzero(d @ d)
+    assert to_csr["slabs"] > 0
+    assert _one(spans, "copy").attrs == {
+        "bytes": c.indptr.nbytes + c.indices.nbytes + c.data.nbytes,
+        "pinned": False}
+
+
 def test_a_guard_on_a_ladder_rung_sits_under_its_fallback():
     a = _matrix()
     b = _dense_b(a.nrows)
