@@ -98,7 +98,7 @@ a run without a card, or from a directory that does not hold the port):
    each run prints its wall time, summed ``plan_s`` and ``execute_s``,
    launches, routes and launch amortization (profiled runs: device time
    and the window kernel's own; run (a): the pack's dense-C copy and
-   float64 guard);
+   the output guard's finiteness verdict on the card);
 3f. the measurement tier and the kernel tier's prior — (a)
    ``benchlib``'s sweep on the card over the JAX quick tier's shape
    (``representative_subset(8)``, 576–1,024 rows; original, random, rcm,
@@ -1896,18 +1896,17 @@ def burst_phase(members, device, rng, smi):
     launches["batched"] = n
     # the batches' execute windows (the members' execute_s summed) hold
     # the launches, the syncs, the copies of the packs' dense C and the
-    # float64 output guard; the guard is the windows less the execute
-    # spans. The copy and the guard are also timed alone on a C of the
-    # pack's shape
+    # output guard; the guard is the windows less the execute spans. The
+    # copy and the guard's verdict on the card are also timed alone on a
+    # C of the pack's shape
+    from repro_torch.planner.service import _largest_magnitude
     span_s = {}
     for sp_ in spans:
         span_s[sp_.name] = span_s.get(sp_.name, 0.0) + sp_.duration
     c_shape = (group * members[0].nrows,) * 2
-    c_host = np.zeros(c_shape, np.float32)
     c_dev = torch.zeros(c_shape, device=device)
     copy_ms = timed_ms(lambda: c_dev.cpu(), device)
-    guard_ms = timed_ms(
-        lambda: np.isfinite(np.sum(c_host, dtype=np.float64)), device)
+    guard_ms = timed_ms(lambda: _largest_magnitude(c_dev), device)
     row_a = row("a: batched", resps, wall, n, d_route, d_out, fe,
                 pack_c_shape=list(c_shape),
                 pack_c_bytes=4 * c_shape[0] * c_shape[1],
@@ -1917,8 +1916,8 @@ def burst_phase(members, device, rng, smi):
                 sum_kernel_span_s=span_s.get("kernel", 0.0),
                 sum_guard_s=(sum(r.execute_s for r in resps)
                              - span_s.get("execute", 0.0)),
-                dense_c_copy_ms=copy_ms, float64_guard_ms=guard_ms)
-    del c_host, c_dev
+                dense_c_copy_ms=copy_ms, card_verdict_ms=guard_ms)
+    del c_dev
     ok = (d_out == {"served": nbatch, "disbanded": 0}
           and sum(d_route.values()) == nbatch
           and all(r.batched and r.batch_size == group for r in resps)

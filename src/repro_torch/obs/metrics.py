@@ -89,6 +89,11 @@ _HOST_METRICS: dict[str, tuple[str, str]] = {
         "counter", "results copied from the device to host numpy, by "
         "memory — pinned (page-locked, from the card) / pageable "
         "(count)"),
+    "output_guards": (
+        "counter", "guarded executions, by where C's finiteness was "
+        "judged — card (the runner's verdict on C's own device, before "
+        "its copy) / host (an answer the fault harness replaced) "
+        "(count)"),
     "kernel_launches": (
         "counter", "Sp×Sp kernel dispatches, by variant label "
         "(count)"),

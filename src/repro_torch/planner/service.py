@@ -27,8 +27,10 @@ from __future__ import annotations
 
 import contextlib
 import hashlib
+import math
 import threading
 import time
+import weakref
 from typing import Callable, Optional, Sequence
 
 import numpy as np
@@ -164,6 +166,37 @@ def _to_host(out: torch.Tensor, span) -> np.ndarray:
     return arr
 
 
+def _largest_magnitude(out: torch.Tensor) -> Optional[torch.Tensor]:
+    """C's largest magnitude, a 0-d tensor on C's own device, enqueued
+    behind the product: one read of C and no temporary (a float64 sum
+    there would first widen C into a copy twice its size). A NaN
+    propagates and an infinity is its own largest magnitude, so it is
+    finite exactly when every entry is: the verdict of a float64 sum of
+    C, which finite float32 values cannot overflow. ``None`` for an
+    empty C."""
+    if out.numel() == 0:
+        return None
+    return torch.linalg.vector_norm(out, ord=math.inf)
+
+
+class _Verdicts(threading.local):
+    """Each thread's last finiteness verdict from a runner, for
+    :meth:`Planner._guarded_execute`: held against a weak reference to the
+    host answer it judged, so an unread verdict (the ladder off) keeps no
+    page-locked answer alive."""
+
+    _answer = None
+    _finite = True
+
+    def record(self, answer: np.ndarray, finite: bool) -> None:
+        self._answer, self._finite = weakref.ref(answer), finite
+
+    def take(self, answer: np.ndarray) -> Optional[bool]:
+        """The verdict recorded for ``answer`` itself, else ``None``."""
+        ref, self._answer = self._answer, None
+        return self._finite if ref is not None and ref() is answer else None
+
+
 def _pinned_host_bytes(dev: torch.device) -> int:
     """Bytes of page-locked host memory PyTorch's caching host allocator
     holds, live answers and cached blocks together (0 off the card)."""
@@ -265,6 +298,7 @@ class Planner:
         # cache and the drift auditor guard themselves)
         self._state_lock = threading.Lock()
         self._plan_flight = _SingleFlight()
+        self._verdicts = _Verdicts()
 
     @property
     def resilience(self) -> ResiliencePolicy:
@@ -521,7 +555,8 @@ class Planner:
 
         With the resilience policy's ladder armed (the default) the
         product runs under the output guard (a non-finite result raises
-        :class:`NonFiniteOutputError`, one float64 sum on the host), and a
+        :class:`NonFiniteOutputError`, judged on C's own device before
+        its copy: :meth:`_guarded_execute`), and a
         failing execution degrades instead of erroring: the request
         re-runs down the fallback ladder (pallas → fixed clusterwise →
         rowwise identity, all on ``reorder="original"``), the incident is
@@ -619,12 +654,23 @@ class Planner:
     def _guarded_execute(self, plan: Plan, a: HostCSR,
                          b: HostCSR | np.ndarray | None) -> np.ndarray:
         """One execution under the output guard: the fault harness's
-        ``output`` site corrupts here, and a non-finite result raises (one
-        float64 sum on the host)."""
+        ``output`` site corrupts here, and a non-finite result raises.
+
+        The verdict is the runner's, taken on C's own device before its
+        copy (:func:`_largest_magnitude`; the card in service, the CPU in
+        the tests). An answer the harness replaced is checked on the host
+        instead, by one float64 sum. ``output_guards{where=card|host}``
+        counts which of the two judged."""
         out = self._execute_impl(plan, a, b)
         with get_tracer().span("guard"):
             out = _faults.corrupt_output("output", out)
-            if not np.isfinite(np.sum(out, dtype=np.float64)):
+            finite, where = self._verdicts.take(out), "card"
+            if finite is None:           # the harness replaced the answer
+                finite = bool(np.isfinite(np.sum(out, dtype=np.float64)))
+                where = "host"
+            obs_metrics.get_registry().counter("output_guards",
+                                               where=where).inc()
+            if not finite:
                 raise NonFiniteOutputError(plan.scheme)
         return out
 
@@ -654,7 +700,9 @@ class Planner:
 
     def _execute_impl(self, plan: Plan, a: HostCSR,
                       b: HostCSR | np.ndarray | None = None) -> np.ndarray:
-        """:meth:`execute` minus the ladder and the output guard."""
+        """:meth:`execute` minus the ladder and the output guard; the
+        runner's finiteness verdict on the answer is left for the guard
+        (:meth:`_guarded_execute`)."""
         tracer = get_tracer()
         with tracer.span("execute", fingerprint=plan.fingerprint,
                          scheme=plan.scheme, reorder=plan.reorder,
@@ -662,8 +710,9 @@ class Planner:
             runner = self._build_runner(plan, a, b)
             with tracer.span("kernel", scheme=plan.scheme):
                 t0 = time.perf_counter()
-                out = runner()      # device-synced inside the runner
+                out, finite = runner()   # device-synced inside the runner
                 kernel_s = time.perf_counter() - t0
+            self._verdicts.record(out, finite)
             executor.count_product(plan)
             rec = self.auditor.record(plan, kernel_s)
             if tracer.enabled:
@@ -829,31 +878,36 @@ class Planner:
 
     def _unpermuted(self, run, perm: Optional[np.ndarray], *,
                     rows_only: bool):
-        """Wrap a device runner: sync the card, copy the result to host
-        numpy and undo the plan's permutation there."""
+        """Wrap a device runner: take C's finiteness verdict on the device
+        behind the product, sync the card, copy the result to host numpy
+        and undo the plan's permutation there. The wrapped runner returns
+        ``(answer, finite)``; the verdict is read once C's copy has waited
+        for the stream."""
         dev = self.device
         tracer = get_tracer()
 
-        def host() -> np.ndarray:
+        def host() -> tuple[np.ndarray, bool]:
             with tracer.span("product"):
                 out = run()
+                peak = _largest_magnitude(out)
                 synchronize(dev)
             with tracer.span("copy") as sp:
-                return _to_host(out, sp)
+                arr = _to_host(out, sp)
+                return arr, peak is None or math.isfinite(peak.item())
 
         if perm is None:
             return host
         p = np.asarray(perm, dtype=np.int64)
 
-        def wrapped() -> np.ndarray:
-            cp = host()
+        def wrapped() -> tuple[np.ndarray, bool]:
+            cp, finite = host()
             with tracer.span("unpermute"):
                 out = np.empty_like(cp)
                 if rows_only:
                     out[p] = cp
                 else:
                     out[np.ix_(p, p)] = cp
-            return out
+            return out, finite
         return wrapped
 
     @property

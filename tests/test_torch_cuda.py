@@ -1578,6 +1578,46 @@ def test_output_guard_raises_on_a_pinned_answer_and_the_ladder_recovers(
     assert torch.from_numpy(resp.result).is_pinned()
 
 
+def _guards():
+    from repro_torch.obs import metrics as obs_metrics
+    snap = obs_metrics.get_registry().snapshot()
+    return (snap.get("output_guards{where=card}", 0),
+            snap.get("output_guards{where=host}", 0))
+
+
+def test_served_a2_is_judged_on_the_card(card):
+    """With the fault harness off, a served kron-pattern A² adds one
+    ``output_guards{where=card}`` a request and none on the host. A
+    product whose A carries a NaN still raises ``NonFiniteOutputError``
+    from the guard and, under the ladder, fails every rung (each C holds
+    the NaN's row) to ``LadderExhaustedError``, each rung judged on the
+    card."""
+    from repro_torch.core.suite import gen_kron
+    from repro_torch.resilience.errors import (LadderExhaustedError,
+                                               NonFiniteOutputError)
+    h = _revalued(gen_kron(11, 16, seed=11), 34)
+    srv = _a2_server(card, h)
+    want = h.to_dense() @ h.to_dense()
+    for _ in range(3):
+        before = _guards()
+        resp = srv.submit(h)
+        assert resp.scheme == "pallas" and not resp.degraded
+        assert np.array_equal(resp.result, want)
+        assert _guards() == (before[0] + 1, before[1])
+    data = h.data.copy()
+    data[h.nnz // 2] = np.nan
+    bad = HostCSR(h.indptr, h.indices, data, h.shape)
+    plan = srv.planner.cache.get(fingerprint(h), 20)
+    before = _guards()
+    with pytest.raises(NonFiniteOutputError):
+        srv.planner._guarded_execute(plan, bad, None)
+    with pytest.raises(LadderExhaustedError) as ei:
+        srv.planner.execute(plan, bad)
+    assert [(s, type(e)) for s, e in ei.value.causes] == [
+        (s, NonFiniteOutputError) for s in ("pallas", "fixed", "rowwise")]
+    assert _guards() == (before[0] + 4, before[1])
+
+
 # ---------------------------------------------------------------------------
 # the training path (no kernel: the model's own chunked attention and SSD
 # scan, as the reference trains)

@@ -13,6 +13,7 @@ import dataclasses
 
 import numpy as np
 import pytest
+import torch
 
 from repro.core.formats import HostCSR as RefHostCSR
 from repro.planner.features import fingerprint as ref_fingerprint
@@ -28,13 +29,15 @@ from repro.resilience import reset_policy as ref_reset
 from repro.resilience import set_policy as ref_set
 from repro.serve.engine import SpGEMMServer as RefServer
 from repro_torch.core.formats import HostCSR
+from repro_torch.obs import metrics as obs_metrics
 from repro_torch.planner.features import fingerprint
 from repro_torch.planner.plan_cache import Plan, PlanCache
 from repro_torch.planner.service import Planner
 from repro_torch.resilience import (CircuitBreaker, LadderExhaustedError,
                                     ResiliencePolicy, faults, get_policy,
                                     reset_policy, set_policy)
-from repro_torch.resilience.errors import FaultInjectedError
+from repro_torch.resilience.errors import (FaultInjectedError,
+                                           NonFiniteOutputError)
 from repro_torch.serve.engine import SpGEMMServer
 
 SEEDS = (0, 1, 2)
@@ -260,3 +263,57 @@ def test_validation_is_memoized_per_operand_like_the_reference():
         errors.append(ei.value.field)
     assert errors[0] == errors[1]
     assert get_policy().rejects == ref_policy().rejects == 1
+
+
+def _guards() -> tuple[int, int]:
+    snap = obs_metrics.get_registry().snapshot()
+    return (snap.get("output_guards{where=card}", 0),
+            snap.get("output_guards{where=host}", 0))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("poke", ["finite", "near_max", np.nan, np.inf,
+                                  -np.inf])
+def test_the_guard_judges_c_on_its_device_like_a_host_sum(
+        poke, dtype, monkeypatch):
+    """The runner's verdict, taken on C's own device (here the CPU) before
+    the copy, equals the host's float64 sum's verdict on the same answer:
+    one NaN, +inf or -inf raises ``NonFiniteOutputError``; a finite C
+    passes, finite values near float32's top too (their float32 sum
+    overflows). ``output_guards`` counts ``where=card`` alone. With the
+    ladder off, ``execute`` returns a plain ``ndarray`` and raises
+    nothing, whatever C holds."""
+    _, a, _ = _mats()
+    n = a.nrows
+    rng = np.random.default_rng(7)
+    c = torch.from_numpy(rng.integers(1, 4, (n, n)).astype(np.float32))
+    if poke == "near_max":
+        c = c * 1e38
+    elif poke != "finite":
+        c[5, 7] = poke
+    c = c.to(dtype)
+    perm = rng.permutation(n)
+    want = np.empty((n, n), np.float32)
+    want[np.ix_(perm, perm)] = c.float().numpy()
+    finite = bool(np.isfinite(np.sum(want, dtype=np.float64)))
+    assert finite == (poke in ("finite", "near_max"))
+    with np.errstate(over="ignore"):
+        assert np.isfinite(np.sum(want)) == (poke == "finite")
+    planner = Planner(cache=PlanCache(), device="cpu")
+    monkeypatch.setattr(planner, "_build_runner", lambda plan, a, b: (
+        planner._unpermuted(lambda: c, perm, rows_only=False)))
+    plan = Plan(fingerprint=fingerprint(a), reorder="original",
+                scheme="pallas", reuse_hint=20)
+    before = _guards()
+    if finite:
+        np.testing.assert_array_equal(
+            planner._guarded_execute(plan, a, None), want)
+    else:
+        with pytest.raises(NonFiniteOutputError):
+            planner._guarded_execute(plan, a, None)
+    assert _guards() == (before[0] + 1, before[1])
+    set_policy(ResiliencePolicy.disabled())
+    out = planner.execute(plan, a)
+    assert type(out) is np.ndarray
+    np.testing.assert_array_equal(out, want)
+    assert _guards() == (before[0] + 1, before[1])

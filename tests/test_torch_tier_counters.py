@@ -6,7 +6,9 @@ plan's tier: ``kernel_tier_products`` for the ``pallas`` scheme,
 ``hierarchical``. A ladder rung, a batched launch and a chain hop each
 count under their own plan. Every dense result copied to host numpy
 counts once in ``host_copies``, ``memory="pageable"`` on the CPU, where
-no page-locked allocation is ever tried.
+no page-locked allocation is ever tried. Every guarded execution counts
+once in ``output_guards``: ``where="card"`` when the runner's verdict
+judged it, ``where="host"`` when the fault harness replaced the answer.
 """
 import numpy as np
 import pytest
@@ -24,6 +26,7 @@ from repro_torch.serve.engine import SpGEMMServer
 TIERS = ("kernel_tier_products", "gather_tier_products")
 SPARSE_C = ("sparse_c_slab_bytes", "sparse_c_entries")
 COPIES = ("host_copies{memory=pageable}", "host_copies{memory=pinned}")
+GUARDS = ("output_guards{where=card}", "output_guards{where=host}")
 
 
 @pytest.fixture(autouse=True)
@@ -243,3 +246,25 @@ def test_the_sparse_c_counters_are_declared_as_counters():
 
 def test_host_copies_is_declared_as_a_counter():
     assert obs_metrics.METRIC_CATALOG["host_copies"][0] == "counter"
+
+
+@pytest.mark.parametrize("sites,max_fires,want", [
+    ((), 0, (1, 0)), (("output",), 1, (1, 1)), (("output",), 2, (1, 2))])
+def test_each_guard_counts_where_it_judged(sites, max_fires, want):
+    """A served A² with the harness off is judged by its runner's verdict
+    once; each answer the ``output`` site replaces is judged on the host,
+    and the rung that recovers (the rowwise floor runs fault-suppressed)
+    by its runner again."""
+    a = _matrix()
+    srv = _server(a, "original", "pallas")
+    before = _counts(GUARDS)
+    with faults.injected(faults.FaultPlan(0, sites=sites,
+                                          max_fires=max_fires)):
+        resp = srv.submit(a)
+    np.testing.assert_array_equal(resp.result, a.to_dense() @ a.to_dense())
+    assert resp.degraded == bool(max_fires)
+    assert _moved(before, GUARDS) == want
+
+
+def test_output_guards_is_declared_as_a_counter():
+    assert obs_metrics.METRIC_CATALOG["output_guards"][0] == "counter"
